@@ -1,0 +1,16 @@
+"""arendur_tpu_torch: the PyTorch + CUDA port of arendur_tpu.
+
+The wavefront path tracer's main path (one Cornell-box wave through
+the fused bounce shade) on an NVIDIA H100, with hand-written Hopper
+kernels for closest hit, shadow any-hit and the bounce shade
+(``arendur_tpu_torch/kernels``).  The JAX package ``arendur_tpu``
+stays the reference: every module here keeps its counterpart's name
+and layout, and the tests hold each one against it on the CPU.
+
+Dispatch is by the device of the input tensor: a CUDA tensor launches
+the hand-written kernel, a CPU tensor runs the plain PyTorch version
+(public as ``*_reference``).  This package never imports JAX.
+"""
+
+import numpy  # noqa: F401
+import torch  # noqa: F401

@@ -1,0 +1,111 @@
+"""arencli-compatible command line renderer (port of arendur_tpu/cli.py;
+ref: examples/arencli.rs).
+
+Usage:
+    python -m arendur_tpu_torch.cli scene.json [options]
+
+Renders the JSON scene description (cb.json schema) with the wavefront
+path tracer on one device and saves a PNG, printing the wall-clock time
+like the reference ("Done! Time used: {:.4}s", arencli.rs:54-61).
+Flags of the JAX CLI whose paths are not ported yet exit with an error
+that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+
+def _not_ported(what: str):
+    print(f"error: {what} is not yet ported to arendur_tpu_torch",
+          file=sys.stderr)
+    return 2
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="arendur_tpu_torch renderer")
+    ap.add_argument("input", help="JSON scene description")
+    ap.add_argument("-o", "--output", default=None,
+                    help="output PNG (defaults to scene's outputfilename)")
+    ap.add_argument("--spp", type=int, default=None,
+                    help="override samples per pixel")
+    ap.add_argument("--res", default=None,
+                    help="override resolution, e.g. 512x384")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="override max path depth")
+    ap.add_argument("--renderer", choices=("pt", "whitted", "bpt"),
+                    default="pt")
+    ap.add_argument("--intersector", choices=("cluster", "bvh", "naive"),
+                    default="cluster",
+                    help="triangle intersection structure (only "
+                         "'cluster' is ported)")
+    ap.add_argument("--bvh", action="store_true",
+                    help="deprecated alias for --intersector bvh")
+    ap.add_argument("--wave", type=int, default=1 << 16,
+                    help="rays per wavefront launch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to render on (default cuda; 'cpu' "
+                         "runs the plain PyTorch versions of the kernels)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="alias for --device cpu")
+    ap.add_argument("--resume", action="store_true",
+                    help="checkpoint/resume (not yet ported)")
+    ap.add_argument("--checkpoint-every", type=int, default=4)
+    ap.add_argument("-v", "--verbose", action="store_true",
+                    help="per-wave progress + invalid-sample warnings")
+    args = ap.parse_args(argv)
+
+    if args.renderer != "pt":
+        return _not_ported(f"--renderer {args.renderer}")
+    if args.bvh or args.intersector != "cluster":
+        return _not_ported("--intersector "
+                           + ("bvh" if args.bvh else args.intersector))
+    if args.resume:
+        return _not_ported("--resume")
+
+    import torch
+    from arendur_tpu_torch import scene as sc
+    from arendur_tpu_torch.filming import film as flm
+    from arendur_tpu_torch.io import scenedesc
+    from arendur_tpu_torch.render import integrator as integ
+
+    device = torch.device("cpu" if args.cpu else args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("error: CUDA is not available (pass --device cpu to run "
+              "the plain PyTorch path)", file=sys.stderr)
+        return 2
+
+    res = None
+    if args.res:
+        w, h = args.res.lower().split("x")
+        res = (int(w), int(h))
+    scene, camera, film_cfg, config, outname = scenedesc.parse_scene(
+        args.input, spp_override=args.spp, resolution_override=res)
+    if args.depth is not None:
+        config = dataclasses.replace(config, max_depth=args.depth)
+    config = dataclasses.replace(config, wave_size=args.wave,
+                                 seed=args.seed)
+    out = args.output or outname
+    print(f"rendering {args.input}: {film_cfg.resolution[0]}x"
+          f"{film_cfg.resolution[1]}, {config.spp} spp, "
+          f"depth {config.max_depth}, device={device}")
+    if args.verbose:
+        import logging
+        logging.basicConfig(level=logging.INFO)
+    t0 = time.time()
+    dscene = sc.DeviceScene.build(scene, device)
+    img = integ.render(dscene, camera, film_cfg, config,
+                       progress=args.verbose).cpu()
+    dt = time.time() - t0
+    print(f"Done! Time used: {dt:.4f}s")
+    flm.save_png(img, out)
+    print(f"saved {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

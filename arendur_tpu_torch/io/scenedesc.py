@@ -1,0 +1,258 @@
+"""JSON scene description, schema-compatible with the reference CLI
+(port of arendur_tpu/io/scenedesc.py; ref: examples/arencli.rs:206-509,
+e.g. examples/cornellbox/cb.json).
+
+parse_scene(path) returns (SceneData, CameraData, FilmConfig,
+RenderConfig, outputfilename).  Image textures and mesh instancing are
+not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from arendur_tpu_torch import scene as sc
+from arendur_tpu_torch import materials as mats
+from arendur_tpu_torch.filming import camera as cam
+from arendur_tpu_torch.filming import film as flm
+from arendur_tpu_torch.sampling import filters as filt
+from arendur_tpu_torch.render.integrator import RenderConfig
+from arendur_tpu_torch.io.objloader import load_obj_into
+
+
+def _mat4(obj) -> np.ndarray:
+    """JSON matrix: list of 4 columns, or {x,y,z,w} columns."""
+    if obj is None:
+        return np.eye(4, dtype=np.float32)
+    if isinstance(obj, dict):
+        rows = [obj["x"], obj["y"], obj["z"], obj["w"]]
+    else:
+        rows = obj
+    return np.asarray(rows, np.float32)
+
+
+def _rgb(obj) -> Tuple[float, float, float]:
+    if isinstance(obj, dict):
+        inner = obj.get("inner", obj)
+        return tuple(float(x) for x in inner)
+    return tuple(float(x) for x in obj)
+
+
+class _Named:
+    """Named<T> dedup helper (ref: arencli.rs:235-255): a later desc
+    can reference an earlier one by name alone."""
+
+    def __init__(self):
+        self.values: Dict[str, object] = {}
+
+    def resolve(self, named, build):
+        name = named["name"]
+        value = named.get("value")
+        if value is not None:
+            self.values[name] = build(value)
+        return self.values.get(name)
+
+
+class _TextureRegistry:
+    """Named RGB/gray constant textures, Constant and Product descs
+    (ref: arencli.rs:376-440).  Image, Mix and textured products are
+    not ported yet."""
+
+    def __init__(self):
+        self.rgb = _Named()
+        self.gray = _Named()
+
+    def _build_rgb(self, desc):
+        if "Constant" in desc:
+            return _rgb(desc["Constant"]["value"])
+        if "Product" in desc:
+            body = desc["Product"]
+            ta = self.rgb.values.get(body["ta"])
+            tb = self.rgb.values.get(body["tb"])
+            if ta is None or tb is None:
+                # the reference drops a product of unknown operands
+                # (arencli.rs:417-426); mirrored as neutral white
+                return (1.0, 1.0, 1.0)
+            return tuple(a * b for a, b in zip(ta, tb))
+        raise NotImplementedError(
+            f"texture desc {list(desc.keys())} is not yet ported")
+
+    def resolve_rgb(self, named, default=(0.0, 0.0, 0.0)):
+        out = self.rgb.resolve(named, self._build_rgb)
+        return out if out is not None else default
+
+    def _build_gray(self, desc):
+        if "Constant" in desc:
+            return float(desc["Constant"]["value"])
+        if "Product" in desc:
+            body = desc["Product"]
+            ta = self.gray.values.get(body["ta"])
+            tb = self.gray.values.get(body["tb"])
+            if ta is None or tb is None:
+                return None
+            return ta * tb
+        raise NotImplementedError(
+            f"texture desc {list(desc.keys())} is not yet ported")
+
+    def resolve_gray(self, named, default=0.0):
+        if named is None:
+            return default
+        out = self.gray.resolve(named, self._build_gray)
+        return out if out is not None else default
+
+
+def _material_row(desc, textures: _TextureRegistry) -> dict:
+    rgb = textures.resolve_rgb
+    gray = textures.resolve_gray
+    (kind, body), = desc.items()
+    if kind == "Matte":
+        return dict(mtype=mats.M_MATTE, kd=rgb(body["kd"]),
+                    sigma=gray(body["sigma"], 0.0))
+    if kind == "Plastic":
+        return dict(mtype=mats.M_PLASTIC, kd=rgb(body["diffuse"]),
+                    ks=rgb(body["specular"]),
+                    roughness=gray(body["roughness"], 0.5))
+    if kind == "Glass":
+        return dict(mtype=mats.M_GLASS, kd=rgb(body["diffuse"]),
+                    ks=rgb(body["specular"]),
+                    roughness=gray(body["roughness"], 0.0),
+                    eta=float(body.get("eta", 1.5)))
+    if kind == "Translucent":
+        return dict(mtype=mats.M_TRANSLUCENT, kd=rgb(body["diffuse"]),
+                    ks=rgb(body["specular"]),
+                    roughness=gray(body["roughness"], 0.5),
+                    dissolve=float(body.get("dissolve", 1.0)))
+    raise ValueError(f"unknown material kind {kind}")
+
+
+def parse_scene(path: str, spp_override: Optional[int] = None,
+                resolution_override=None):
+    with open(path) as f:
+        desc = json.load(f)
+    base = os.path.dirname(os.path.abspath(path))
+
+    builder = sc.SceneBuilder()
+    textures = _TextureRegistry()
+    named_mats = _Named()
+    mat_ids: Dict[str, int] = {}
+    sphere_specs: Dict[str, dict] = {}
+    mesh_specs: Dict[str, dict] = {}
+
+    for light in desc.get("lights", []):
+        (kind, body), = light.items()
+        if kind == "Point":
+            builder.add_point_light(body["position"],
+                                    _rgb(body["intensity"]))
+        elif kind == "Spot":
+            builder.add_spot_light(
+                body["position"], body.get("direction", (0, 0, 1)),
+                _rgb(body["intensity"]),
+                float(body.get("cos_total", 0.5)),
+                float(body.get("cos_falloff", 0.8)))
+        elif kind == "Distant":
+            builder.add_distant_light(
+                body.get("direction", (0, 0, 1)), _rgb(body["radiance"]))
+
+    for comp in desc.get("components", []):
+        name = comp["name"]
+        value = comp.get("value")
+        if value is None:
+            continue
+        (kind, body), = value.items()
+        if kind == "Mesh":
+            fname = body["filename"]
+            if not os.path.isabs(fname) and not os.path.exists(fname):
+                # the reference resolves relative to the CWD; fall back
+                # to the scene file's directory
+                for cand in (os.path.join(base, fname),
+                             os.path.join(base, os.path.basename(fname))):
+                    if os.path.exists(cand):
+                        fname = cand
+                        break
+            mesh_specs[name] = dict(fname=fname,
+                                    transform=_mat4(body.get("transform")))
+        elif kind == "Shaped":
+            (sk, sphere), = body["shape"].items()
+            if sk != "Sphere":
+                raise NotImplementedError(f"shape {sk} is not supported")
+            mat_named = body["material"]
+            mname = mat_named["name"]
+            if mat_named.get("value") is not None or mname not in mat_ids:
+                row = named_mats.resolve(
+                    mat_named, lambda v: _material_row(v, textures))
+                if mname not in mat_ids:
+                    mat_ids[mname] = builder.add_material(**row)
+            mat_id = mat_ids[mname]
+            light_named = body.get("light")
+            emission = None
+            if light_named is not None:
+                emission = textures.rgb.resolve(light_named,
+                                                textures._build_rgb)
+            transform = _mat4(body.get("transform"))
+            spec = dict(radius=float(sphere["radius"]),
+                        zmin=float(sphere["zmin"]),
+                        zmax=float(sphere["zmax"]),
+                        phimax=float(sphere["phimax"]),
+                        mat_id=mat_id, emission=emission)
+            sphere_specs[name] = dict(spec=spec, transform=transform)
+            builder.add_sphere(spec["radius"], spec["zmin"], spec["zmax"],
+                               spec["phimax"], mat_id,
+                               transform=transform, emission=emission)
+        elif kind == "Transformed":
+            if body["original"] in mesh_specs:
+                raise NotImplementedError(
+                    "mesh instancing is not yet ported")
+            orig = sphere_specs.get(body["original"])
+            if orig is None:
+                continue
+            composed = orig["transform"] @ _mat4(body["transform"])
+            s = orig["spec"]
+            builder.add_sphere(s["radius"], s["zmin"], s["zmax"],
+                               s["phimax"], s["mat_id"],
+                               transform=composed, emission=s["emission"])
+
+    for spec in mesh_specs.values():
+        load_obj_into(builder, spec["fname"], transform=spec["transform"])
+
+    scene = builder.build()
+
+    cam_desc = desc["camera"]
+    film_desc = cam_desc["film"]
+    res = (int(film_desc["resolution"]["x"]),
+           int(film_desc["resolution"]["y"]))
+    if resolution_override is not None:
+        res = tuple(resolution_override)
+    fr = film_desc.get("filter_radius", {"x": 4.0, "y": 4.0})
+    film_cfg = flm.FilmConfig(
+        resolution=res,
+        filter=filt.FilterSpec(
+            kind="lanczos", radius=(float(fr["x"]), float(fr["y"])),
+            tau=3.0))
+    camera = cam.make_perspective(
+        parent_view=_mat4(cam_desc.get("transform")),
+        screen_min=(cam_desc["screen"]["pmin"]["x"],
+                    cam_desc["screen"]["pmin"]["y"]),
+        screen_max=(cam_desc["screen"]["pmax"]["x"],
+                    cam_desc["screen"]["pmax"]["y"]),
+        znear=float(cam_desc.get("znear", 0.1)),
+        zfar=float(cam_desc.get("zfar", 1000.0)),
+        fov=float(cam_desc.get("fov", 1.0)),
+        lens=cam_desc.get("lens"),
+        resolution=res)
+
+    sampler_desc = desc.get("sampler", {})
+    dx = int(sampler_desc.get("sampledx", 4))
+    dy = int(sampler_desc.get("sampledy", 4))
+    spp = dx * dy
+    if spp_override is not None:
+        spp = spp_override
+        dx = max(1, int(np.sqrt(spp)))
+        dy = max(1, spp // dx)
+    config = RenderConfig(max_depth=int(desc.get("max_depth", 8)),
+                          spp=spp, sample_dx=dx, sample_dy=dy)
+    return scene, camera, film_cfg, config, desc.get(
+        "outputfilename", "out.png")

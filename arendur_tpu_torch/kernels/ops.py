@@ -1,0 +1,188 @@
+"""Launch wrappers of the hand-written kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates the
+outputs, launches its kernel on PyTorch's current stream, raises if the
+launch was refused, and adds one to its ``launches`` count.  The
+callers (shapes/cluster_intersect.py, render/cbounce.py) reach these
+only for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from arendur_tpu_torch.kernels import build
+
+
+class Kernel:
+    """A named kernel entry with its launch count."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def launched(self):
+        self.launches += 1
+
+
+CLOSEST_HIT = Kernel("closest_hit")
+ANY_HIT = Kernel("any_hit")
+BOUNCE_SHADE = Kernel("bounce_shade")
+KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE)
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _check(t: torch.Tensor, name: str, dtype=torch.float32, shape=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _raise_on(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {code}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _n_alive_tensor(n_alive, n: int, device) -> torch.Tensor:
+    if n_alive is None:
+        return torch.full((), n, dtype=torch.int32, device=device)
+    return n_alive.to(device=device, dtype=torch.int32).reshape(())
+
+
+def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive):
+    n = o.shape[0]
+    c, f16, k4 = w_clusters.shape
+    if f16 != 16 or k4 % 4:
+        raise ValueError("w_clusters must be [C, 16, 4K]")
+    _check(w_clusters, "w_clusters")
+    _check(cbox, "cbox", shape=(c, 8))
+    _check(o, "o", shape=(n, 3))
+    _check(d, "d", shape=(n, 3))
+    _check(tmax, "tmax", shape=(n,))
+    na = _n_alive_tensor(n_alive, n, o.device)
+    return n, c, k4 // 4, na
+
+
+def closest_hit(w_clusters, cbox, o, d, tmax, n_alive=None,
+                period: int = 0):
+    """K1: (t [N] f32, slot [N] int32); slot -1 = miss (t = tmax)."""
+    lib = build.load()
+    n, c, k, na = _cluster_args(w_clusters, cbox, o, d, tmax, n_alive)
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    slot = torch.empty(n, dtype=torch.int32, device=o.device)
+    code = lib.arendur_closest_hit(
+        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), w_clusters.data_ptr(),
+        cbox.data_ptr(), na.data_ptr(), n, c, k, int(period),
+        t.data_ptr(), slot.data_ptr(), _stream(o))
+    _raise_on(code, "closest_hit")
+    CLOSEST_HIT.launched()
+    return t, slot
+
+
+def any_hit(w_clusters, cbox, o, d, tmax, n_alive=None, period: int = 0):
+    """K2: blocked [N] bool (any hit in (teps, tmax))."""
+    lib = build.load()
+    n, c, k, na = _cluster_args(w_clusters, cbox, o, d, tmax, n_alive)
+    blocked = torch.empty(n, dtype=torch.int32, device=o.device)
+    code = lib.arendur_any_hit(
+        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), w_clusters.data_ptr(),
+        cbox.data_ptr(), na.data_ptr(), n, c, k, int(period),
+        blocked.data_ptr(), _stream(o))
+    _raise_on(code, "any_hit")
+    ANY_HIT.launched()
+    return blocked != 0
+
+
+_LCOLS = ("ltype", "emission", "pos", "aux", "params", "tri_v0", "tri_v1",
+          "tri_v2", "tri_n0", "tri_n1", "tri_n2", "s_o2w", "s_w2o",
+          "s_radius", "s_zmin", "s_zmax", "s_thetamin", "s_thetamax",
+          "s_phimax")
+CFG_WORDS = 42
+SMEM_LIMIT = 227 * 1024
+
+
+def pack_shade_cfg(static, min_depth: int, rr_threshold: float,
+                   theta_compat: bool) -> np.ndarray:
+    """The kernels' ShadeCfg (kernels/cbounce.cuh) as 42 int32 words."""
+    def mask(types):
+        m = 0
+        for t in types:
+            m |= 1 << int(t)
+        return m
+    all_types = (1 << 10) - 1
+    pres = ([mask(c) for c in static.presence]
+            if static.presence is not None else [all_types] * 3)
+    nonempty = sum(1 for p in pres if p)
+    fam = [0] * 10
+    if static.dist_sets is not None:
+        for t, ds in static.dist_sets:
+            fam[int(t)] = mask(ds)
+    lpres = mask(static.lpresent) if static.lpresent is not None \
+        else (1 << 5) - 1
+    cidx = dict(static.lcidx)
+    cols = [cidx[c][0] if c in cidx else -1 for c in _LCOLS]
+    q = max(float(rr_threshold), 0.05)
+    ints = pres + [pres[0] | pres[1] | pres[2],
+                   int(static.presence is not None and nonempty <= 1)] \
+        + fam + [lpres] + cols + [int(static.emi_cols[0]), int(min_depth),
+                                  int(bool(static.full_phi)),
+                                  int(bool(theta_compat))]
+    floats = np.asarray([rr_threshold, q, 1.0 / (1.0 - q)], np.float32)
+    words = np.concatenate([np.asarray(ints, np.int32),
+                            floats.view(np.int32)])
+    assert words.shape == (CFG_WORDS,)
+    return words
+
+
+def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
+                 rr_threshold: float):
+    """K3: [IN_COLS, N] -> [OUT_COLS, N] on the card."""
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.shapes import sphere as sph
+    lib = build.load()
+    xt = xt.detach().contiguous()
+    ltab = ltab.detach().contiguous()
+    mtab = mtab.detach().contiguous()
+    stab = stab.detach().contiguous()
+    n = xt.shape[1]
+    _check(xt, "xt", shape=(cb.IN_COLS, n))
+    _check(ltab, "ltab")
+    _check(mtab, "mtab", shape=(mtab.shape[0], 16))
+    _check(stab, "stab", shape=(stab.shape[0], 24))
+    nl, cl = ltab.shape
+    smem = 4 * (ltab.numel() + mtab.numel() + stab.numel())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"scene tables take {smem} B, more than the "
+                         f"{SMEM_LIMIT} B of shared memory a block has")
+    cfg = pack_shade_cfg(static, min_depth, rr_threshold,
+                         sph.THETA_UNIFORM_COMPAT)
+    out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
+    code = lib.arendur_bounce_shade(
+        xt.data_ptr(), ltab.data_ptr(), nl, cl, mtab.data_ptr(),
+        mtab.shape[0], stab.data_ptr(), stab.shape[0], n,
+        cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), _stream(xt))
+    _raise_on(code, "bounce_shade")
+    BOUNCE_SHADE.launched()
+    return out
+

@@ -1,0 +1,158 @@
+"""Material table (port of arendur_tpu/materials.py; ref:
+src/material/).
+
+Materials are rows of a host-side NumPy table; ``param_table`` packs
+them into the [M,16] rows the bounce shade reads, and
+``slot_presence`` / ``dist_presence`` derive the host-static sets of
+BSDF families and microfacet models the table can produce.  The
+per-lane recipe (``build_slots``) lives with the bounce body in
+render/cbounce.py.
+
+* Matte       -> LambertianR (sigma==0) or Oren-Nayar   (matte.rs:38-65)
+* Plastic     -> AshikhminShirley(Beckmann)             (plastic.rs:39-64)
+* Glass       -> FresnelBxdf + TS-R/TS-T (Trowbridge)   (glass.rs:41-81)
+* Translucent -> AshikhminShirley(TR)*d + LambertianT*(1-d)
+                                                        (translucent.rs:41-75)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from arendur_tpu_torch.bxdf.types import (
+    T_LAMBERT_R, T_LAMBERT_T, T_OREN_NAYAR, T_FRESNEL_SPEC,
+    T_TS_R, T_TS_T, T_ASHIKHMIN, D_BECKMANN, D_TROWBRIDGE)
+
+M_MATTE = 0
+M_PLASTIC = 1
+M_GLASS = 2
+M_TRANSLUCENT = 3
+
+MAX_SLOTS = 3  # glass uses 3 (fresnel + TS-R + TS-T); others fewer
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MaterialTable:
+    """M materials as SoA rows (NumPy).  *_tex hold image-texture ids
+    (-1 = constant); the port has no textures yet, so they stay -1."""
+    mtype: np.ndarray      # [M] int32
+    kd: np.ndarray         # [M,3]
+    ks: np.ndarray         # [M,3]
+    sigma: np.ndarray      # [M]
+    roughness: np.ndarray  # [M]
+    eta: np.ndarray        # [M]
+    dissolve: np.ndarray   # [M]
+    kd_tex: np.ndarray     # [M] int32
+    ks_tex: np.ndarray     # [M] int32
+    sigma_tex: np.ndarray  # [M] int32
+    bump_tex: np.ndarray   # [M] int32
+
+
+def make_material_table(rows) -> MaterialTable:
+    """rows: list of dicts with keys mtype, kd, ks, sigma, roughness,
+    eta, dissolve (+ optional *_tex ids)."""
+    def col(key, default, dt=np.float32):
+        return np.asarray([r.get(key, default) for r in rows], dt)
+    return MaterialTable(
+        mtype=col("mtype", M_MATTE, np.int32),
+        kd=col("kd", (0.0, 0.0, 0.0)),
+        ks=col("ks", (0.0, 0.0, 0.0)),
+        sigma=col("sigma", 0.0),
+        roughness=col("roughness", 0.0),
+        eta=col("eta", 1.5),
+        dissolve=col("dissolve", 1.0),
+        kd_tex=col("kd_tex", -1, np.int32),
+        ks_tex=col("ks_tex", -1, np.int32),
+        sigma_tex=col("sigma_tex", -1, np.int32),
+        bump_tex=col("bump_tex", -1, np.int32),
+    )
+
+
+def slot_presence(table: MaterialTable):
+    """Host-static per-slot-column sets of BSDF types any material row
+    can place there: a MAX_SLOTS-tuple of sorted type-id tuples."""
+    mtype = np.asarray(table.mtype)
+    kd = np.asarray(table.kd)
+    ks = np.asarray(table.ks)
+    sigma = np.asarray(table.sigma)
+    dissolve = np.asarray(table.dissolve)
+    kd_tex = np.asarray(table.kd_tex)
+    ks_tex = np.asarray(table.ks_tex)
+    sigma_tex = np.asarray(table.sigma_tex)
+    cols = [set() for _ in range(MAX_SLOTS)]
+    for i in range(len(mtype)):
+        kd_may = (kd[i] != 0).any() or kd_tex[i] >= 0
+        ks_may = (ks[i] != 0).any() or ks_tex[i] >= 0
+        if mtype[i] == M_MATTE:
+            if kd_may:
+                if sigma_tex[i] >= 0:
+                    cols[0] |= {T_LAMBERT_R, T_OREN_NAYAR}
+                elif sigma[i] == 0.0:
+                    cols[0].add(T_LAMBERT_R)
+                else:
+                    cols[0].add(T_OREN_NAYAR)
+        elif mtype[i] == M_PLASTIC:
+            cols[0].add(T_ASHIKHMIN)
+        elif mtype[i] == M_GLASS:
+            if ks_may:
+                cols[0].add(T_FRESNEL_SPEC)
+            if kd_may:
+                if ks_may:
+                    cols[1].add(T_TS_R)
+                    cols[2].add(T_TS_T)
+                if not (ks_may and ks_tex[i] < 0 and (ks[i] != 0).any()):
+                    # spec may be absent -> TS slots shift down
+                    cols[0].add(T_TS_R)
+                    cols[1].add(T_TS_T)
+        elif mtype[i] == M_TRANSLUCENT:
+            t_as = dissolve[i] != 0.0
+            if t_as:
+                cols[0].add(T_ASHIKHMIN)
+            if kd_may:
+                cols[1 if t_as else 0].add(T_LAMBERT_T)
+    return tuple(tuple(sorted(c)) for c in cols)
+
+
+def param_table(table: MaterialTable) -> np.ndarray:
+    """[M,16] packed material rows (mtype kd ks sigma roughness eta
+    dissolve + tex ids + pad), read per lane by the bounce shade."""
+    t = table
+    pack = np.concatenate([
+        np.asarray(t.mtype).astype(np.float32)[:, None],
+        np.asarray(t.kd, np.float32), np.asarray(t.ks, np.float32),
+        np.asarray(t.sigma, np.float32)[:, None],
+        np.asarray(t.roughness, np.float32)[:, None],
+        np.asarray(t.eta, np.float32)[:, None],
+        np.asarray(t.dissolve, np.float32)[:, None],
+        np.asarray(t.kd_tex).astype(np.float32)[:, None],
+        np.asarray(t.ks_tex).astype(np.float32)[:, None],
+        np.asarray(t.sigma_tex).astype(np.float32)[:, None],
+        np.asarray(t.bump_tex).astype(np.float32)[:, None],
+    ], axis=1)
+    return np.concatenate(
+        [pack, np.zeros((pack.shape[0], 1), np.float32)], axis=1)
+
+
+# Which microfacet distribution each material recipe assigns to each
+# microfacet-bearing slot type: the single source of truth for
+# build_slots and dist_presence (plastic AS = Beckmann, plastic.rs;
+# glass TS and translucent AS = Trowbridge, glass.rs / translucent.rs).
+RECIPE_DISTS = {
+    M_PLASTIC: {T_ASHIKHMIN: D_BECKMANN},
+    M_GLASS: {T_TS_R: D_TROWBRIDGE, T_TS_T: D_TROWBRIDGE},
+    M_TRANSLUCENT: {T_ASHIKHMIN: D_TROWBRIDGE},
+}
+
+
+def dist_presence(table: MaterialTable):
+    """Host-static per-family microfacet-distribution sets, derived
+    from RECIPE_DISTS restricted to the material types present."""
+    mtype = np.asarray(table.mtype)
+    out = {}
+    for mt, slots in RECIPE_DISTS.items():
+        if (mtype == mt).any():
+            for stype, dist in slots.items():
+                out.setdefault(stype, set()).add(dist)
+    return tuple(sorted((k, tuple(sorted(v))) for k, v in out.items()))

@@ -1,0 +1,319 @@
+"""Wavefront path-tracing integrator: the main path (port of the
+untextured fused-shade branch of arendur_tpu/render/integrator.py;
+ref: src/renderer/pt.rs).
+
+A wave of N camera rays advances through max_depth bounces.  Each
+bounce runs:
+
+1. dead-lane compaction (alive lanes first; the count stays a device
+   scalar that the intersection kernels read);
+2. the closest hit against the triangle clusters (kernel K1) plus the
+   analytic spheres;
+3. the whole bounce shade over the lane-transposed wave (kernel K3);
+4. the shadow any-hit (kernel K2) plus the spheres;
+5. one masked add of the NEE contribution.
+
+After the loop, one more closest hit completes the deferred-MIS BSDF
+branch at the last vertex, and the lanes go back to their original
+order.  ``render`` runs the waves and splats them into the film.
+
+The three kernel calls go through a ``WaveOps``: ``KERNEL_OPS``
+(default) dispatches on the tensors' device, CUDA to the hand-written
+kernels and CPU to the plain versions; ``PLAIN_OPS`` names the plain
+PyTorch versions, so a caller can time the plain path on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable
+
+import torch
+
+from arendur_tpu_torch import scene as sc
+from arendur_tpu_torch.filming import camera as cam
+from arendur_tpu_torch.filming import film as flm
+from arendur_tpu_torch.lighting import nee
+from arendur_tpu_torch.render import cbounce as cb
+from arendur_tpu_torch.render import cmath as cm
+from arendur_tpu_torch.sampling import sampler as smp
+from arendur_tpu_torch.shapes import cluster_intersect as ci
+from arendur_tpu_torch.shapes import sphere as sph
+
+log = logging.getLogger("arendur_tpu_torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    max_depth: int = 8
+    rr_threshold: float = 0.05
+    spp: int = 16
+    sample_dx: int = 4          # stratification grid (dx*dy == spp)
+    sample_dy: int = 4
+    seed: int = 0
+    wave_size: int = 1 << 16    # rays per wavefront launch
+    sampler: str = "strata"     # "strata" | "uniform"
+    compact: bool = True        # dead-lane compaction per bounce
+    defer_final_mis: bool = True  # the closest hit after the loop that
+                                  # completes the deferred-MIS branch
+
+    @property
+    def min_depth(self):
+        return self.max_depth // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveOps:
+    """The three kernel entries one bounce calls."""
+    closest_hit: Callable
+    any_hit: Callable
+    bounce_shade: Callable
+
+
+KERNEL_OPS = WaveOps(ci.intersect_clusters, ci.occluded_clusters,
+                     cb.bounce_shade_t)
+PLAIN_OPS = WaveOps(ci.intersect_clusters_reference,
+                    ci.occluded_clusters_reference, cb.cbody_reference)
+
+
+def _compact_perm(alive: torch.Tensor):
+    """Stable alive-first permutation + live count (a device scalar)."""
+    n = alive.shape[0]
+    ai = alive.to(torch.int64)
+    n_alive = ai.sum()
+    pos_alive = torch.cumsum(ai, 0) - 1
+    pos_dead = n_alive + torch.cumsum(1 - ai, 0) - 1
+    dst = torch.where(alive, pos_alive, pos_dead)
+    perm = torch.empty(n, dtype=torch.int64, device=alive.device)
+    perm[dst] = torch.arange(n, device=alive.device)
+    return perm, n_alive
+
+
+def _permute(carry: dict, perm: torch.Tensor) -> dict:
+    return {k: v[perm] for k, v in carry.items()}
+
+
+def _tri_closest(scene: sc.DeviceScene, o, d, n_alive, ops: WaveOps):
+    """Closest triangle: (t_tri [N] with inf for misses, tri_idx [N]
+    int64 with -1 for misses)."""
+    n = o.shape[0]
+    tmax = torch.full((n,), float("inf"), device=o.device)
+    t_k, slot = ops.closest_hit(scene.cw, scene.cbox, o, d, tmax,
+                                n_alive=n_alive)
+    tri_hit = slot >= 0
+    t_tri = torch.where(tri_hit, t_k, float("inf"))
+    tri_idx = torch.where(tri_hit,
+                          scene.remap[torch.clamp(slot, min=0).long()], -1)
+    return t_tri, tri_idx
+
+
+def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
+                  ops: WaveOps = KERNEL_OPS) -> dict:
+    """Raw closest hit for the bounce shade (twin: scene.intersect_raw):
+    dict(t, hit, is_sphere, s_idx, p_local, trow [N,26])."""
+    t_tri, tri_idx = _tri_closest(scene, o, d, n_alive, ops)
+    trow = scene.tpack[torch.clamp(tri_idx, min=0)]
+    sp = sph.intersect_spheres(scene.spheres, o, d, t_tri)
+    use_sphere = sp["hit"]
+    hit = (tri_idx >= 0) | use_sphere
+    t_best = torch.where(use_sphere, sp["t"], t_tri)
+    return dict(t=torch.where(hit, t_best, float("inf")), hit=hit,
+                is_sphere=use_sphere,
+                s_idx=torch.clamp(sp["sphere_idx"], min=0),
+                p_local=sp["p_local"], trow=trow)
+
+
+def intersect_light(scene: sc.DeviceScene, o, d, n_alive=None,
+                    ops: WaveOps = KERNEL_OPS):
+    """What the final deferred-MIS pass needs of a closest hit: (hit,
+    light_id) with light_id -1 where the hit is no light."""
+    t_tri, tri_idx = _tri_closest(scene, o, d, n_alive, ops)
+    light_tri = scene.tpack[torch.clamp(tri_idx, min=0), 25].to(torch.int64)
+    sp = sph.intersect_spheres(scene.spheres, o, d, t_tri)
+    use_sphere = sp["hit"]
+    hit = (tri_idx >= 0) | use_sphere
+    light_s = scene.spheres.light_id[torch.clamp(sp["sphere_idx"],
+                                                 min=0).long()]
+    light_id = torch.where(use_sphere, light_s, light_tri)
+    return hit, torch.where(hit, light_id, -1)
+
+
+def occluded(scene: sc.DeviceScene, o, d, tmax, n_alive=None,
+             ops: WaveOps = KERNEL_OPS) -> torch.Tensor:
+    """Shadow any-hit against triangles and spheres."""
+    blocked = ops.any_hit(scene.cw, scene.cbox, o, d, tmax,
+                          n_alive=n_alive)
+    return blocked | sph.intersect_spheres(scene.spheres, o, d, tmax)["hit"]
+
+
+def bounce_draws(config: RenderConfig, keys: torch.Tensor, bounce: int):
+    """The four sample streams one bounce consumes: (u_sel, u_light
+    [N,2], u_bsdf [N,2], u_rr)."""
+    dim0 = smp.BOUNCE_DIM_BASE + bounce * smp.DIMS_PER_BOUNCE
+    grid_ok = config.sample_dx * config.sample_dy == config.spp
+
+    def draw1(dim):
+        if config.sampler == "uniform":
+            return smp.uniform_1d(keys, dim)
+        return smp.stratified_1d(keys, config.spp, dim)
+
+    def draw2(dim):
+        if grid_ok and config.sampler != "uniform":
+            return smp.stratified_2d(keys, config.sample_dx,
+                                     config.sample_dy, dim)
+        return smp.uniform_2d(keys, dim)
+
+    return (draw1(dim0 + smp.DIM_LIGHT_SELECT),
+            draw2(dim0 + smp.DIM_LIGHT_U), draw2(dim0 + smp.DIM_BSDF_U),
+            draw1(dim0 + smp.DIM_RR))
+
+
+def pack_bounce_input(carry: dict, raw: dict, lidx, selpdf, u_light,
+                      u_bsdf, u_rr, bounce: int) -> torch.Tensor:
+    """The bounce shade's input [IN_COLS, N] (the column layout of
+    render/cbounce.py)."""
+    n = carry["o"].shape[0]
+    f1 = lambda a: a.to(torch.float32)[:, None]
+    x = torch.cat([
+        carry["o"], carry["d"], raw["t"][:, None], f1(raw["hit"]),
+        f1(raw["is_sphere"]), f1(raw["s_idx"]), raw["p_local"],
+        raw["trow"], carry["beta"], carry["L"], f1(carry["specular"]),
+        f1(carry["sel_prev"]), carry["wb_prev"][:, None],
+        f1(carry["nee_prev"]), f1(carry["alive"]), f1(lidx),
+        selpdf[:, None], u_light, u_bsdf, u_rr[:, None],
+        torch.full((n, 1), float(bounce), device=carry["o"].device),
+    ], dim=1)
+    return x.T.contiguous()
+
+
+def initial_carry(o, d, keys) -> dict:
+    """Per-lane wave state before the first bounce."""
+    n = o.shape[0]
+    dev = o.device
+    return dict(
+        o=o, d=d, L=torch.zeros(n, 3, device=dev),
+        beta=torch.ones(n, 3, device=dev),
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        specular=torch.zeros(n, dtype=torch.bool, device=dev),
+        sel_prev=torch.zeros(n, dtype=torch.int64, device=dev),
+        wb_prev=torch.zeros(n, device=dev),
+        nee_prev=torch.zeros(n, dtype=torch.bool, device=dev),
+        keys=keys, orig=torch.arange(n, device=dev))
+
+
+def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
+               config: RenderConfig, pixel_xy, pixel_id, sample_id,
+               base_key, ops: WaveOps = KERNEL_OPS,
+               return_aux: bool = False):
+    """Trace one wave of rays; returns (pfilm [N,2], L [N,3]).
+
+    pixel_xy: [N,2] pixel coords (float); pixel_id / sample_id: [N]
+    integer ids for the stateless sampler, all on the scene's device.
+    return_aux adds {"n_invalid": count of lanes whose radiance was
+    dropped as invalid} (a device scalar)."""
+    static = scene.static
+    ws = smp.WaveSampler(base_key, pixel_id, sample_id,
+                         kind=config.sampler, sample_dx=config.sample_dx,
+                         sample_dy=config.sample_dy)
+    pfilm = pixel_xy + ws.film_jitter()
+    o, d = cam.generate_rays(camera, pfilm, ws.u2(2))
+    carry = initial_carry(o, d, ws.keys)
+    for bounce in range(config.max_depth):
+        n_alive = None
+        if config.compact:
+            perm, n_alive = _compact_perm(carry["alive"])
+            carry = _permute(carry, perm)
+        c = carry
+        raw = intersect_raw(scene, c["o"], c["d"], n_alive, ops)
+        u_sel, u_light, u_bsdf, u_rr = bounce_draws(config, c["keys"],
+                                                    bounce)
+        lidx, selpdf = nee.sample_one_light(scene, u_sel)
+        xt = pack_bounce_input(c, raw, lidx, selpdf, u_light, u_bsdf,
+                               u_rr, bounce)
+        out_t = ops.bounce_shade(xt, scene.ltab, scene.mtab, scene.stab,
+                                 static, config.min_depth,
+                                 float(config.rr_threshold))
+        r = cb.unpack_out_t(out_t)
+        blocked = occluded(scene, r["sh_o"].contiguous(),
+                           r["sh_d"].contiguous(), r["sh_t"].contiguous(),
+                           n_alive, ops)
+        L = r["L"] + torch.where((r["need_shadow"] & ~blocked)[:, None],
+                                 r["contrib"], 0.0)
+        carry = dict(o=r["o"].contiguous(), d=r["d"].contiguous(), L=L,
+                     beta=r["beta"], alive=r["alive"],
+                     specular=r["specular"], sel_prev=r["sel_prev"],
+                     wb_prev=r["wb_prev"], nee_prev=r["nee_prev"],
+                     keys=c["keys"], orig=c["orig"])
+
+    # final deferred-MIS collection at the last vertex (the reference's
+    # evaluate_direct bsdf-branch re-intersection, scene.rs:146-155)
+    if config.max_depth > 0 and config.defer_final_mis:
+        need = carry["alive"] & carry["nee_prev"]
+        n_need = None
+        if config.compact:
+            perm, n_need = _compact_perm(need)
+            carry = _permute(carry, perm)
+            need = need[perm]
+        hit_f, light_f = intersect_light(scene, carry["o"], carry["d"],
+                                         n_need, ops)
+        gate = need & hit_f & (light_f >= 0) \
+            & (light_f == carry["sel_prev"])
+        e0 = static.emi_cols[0]
+        le_f = scene.ltab[torch.clamp(light_f, min=0), e0:e0 + 3]
+        carry["L"] = carry["L"] + torch.where(
+            gate[:, None], carry["wb_prev"][:, None] * carry["beta"] * le_f,
+            0.0)
+
+    # restore the original lane order
+    L = torch.empty_like(carry["L"])
+    L[carry["orig"]] = carry["L"]
+    ok = cm.valid((L[:, 0], L[:, 1], L[:, 2]))
+    L = torch.where(ok[:, None], L, 0.0)
+    if return_aux:
+        return pfilm, L, {"n_invalid": (~ok).sum()}
+    return pfilm, L
+
+
+def render(scene: sc.DeviceScene, camera: cam.CameraData,
+           film_cfg: flm.FilmConfig, config: RenderConfig,
+           ops: WaveOps = KERNEL_OPS, progress: bool = False):
+    """Full render on the scene's device: iterate waves over
+    (pixels x spp), splat to the film, finalize.  Returns [H, W, 3]."""
+    dev = scene.device
+    w, h = film_cfg.resolution
+    spp = config.spp
+    base_key = smp.make_base_key(config.seed)
+    total = w * h * spp
+    wave = min(config.wave_size, total)
+    # scatter-free splat needs pixel-major waves of whole pixels that
+    # tile the frame exactly; otherwise the scatter splat
+    dense = (wave % spp == 0) and (total % wave == 0)
+    state = flm.film_init(film_cfg, dev, padded=dense)
+    n_waves = (total + wave - 1) // wave
+    for i in range(n_waves):
+        ray_idx = i * wave + torch.arange(wave, dtype=torch.int64,
+                                          device=dev)
+        pixel_id = ray_idx // spp
+        sample_id = ray_idx % spp
+        pixel_xy = torch.stack([(pixel_id % w).to(torch.float32),
+                                (pixel_id // w).to(torch.float32)], -1)
+        valid = ray_idx < total
+        with torch.no_grad():
+            pfilm, L, aux = trace_wave(scene, camera, config, pixel_xy,
+                                       pixel_id, sample_id, base_key,
+                                       ops=ops, return_aux=True)
+        if dense:
+            state = flm.film_splat_pixmajor(film_cfg, state,
+                                            pfilm - pixel_xy, L,
+                                            (i * wave) // spp, spp,
+                                            mask=valid)
+        else:
+            state = flm.film_splat(film_cfg, state, pfilm, L, mask=valid)
+        if progress:
+            ni = int(aux["n_invalid"])
+            if ni:
+                log.warning("wave %d: dropped %d invalid radiance samples",
+                            i, ni)
+            log.info("wave %d/%d done", i + 1, n_waves)
+    return flm.film_finalize(state, film_cfg)

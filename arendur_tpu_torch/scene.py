@@ -1,0 +1,508 @@
+"""Scene: triangle and sphere pools, materials, lights (port of
+arendur_tpu/scene.py; ref: src/renderer/scene.rs, src/component/).
+
+``SceneBuilder`` accumulates geometry on the host and freezes it into a
+``SceneData`` of NumPy arrays (meshes, spheres, lights, materials; no
+instancing and no textures yet).  ``DeviceScene.build`` moves the
+tables the render reads onto one device and computes, once and from
+NumPy, the host-static sets the bounce shade is specialised on (slot
+presence, distribution presence, the light column map, the light types
+present, full-phi spheres).  Primitive ids: [0, T) triangles,
+[T, T+S) spheres.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from arendur_tpu_torch import materials as mats
+from arendur_tpu_torch.shapes import sphere as sph
+
+# light types
+L_AREA_SPHERE = 0
+L_AREA_TRI = 1
+L_POINT = 2
+L_SPOT = 3
+L_DISTANT = 4
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LightTable:
+    ltype: np.ndarray     # [L] int32
+    prim: np.ndarray      # [L] int32: sphere idx / tri idx for area
+    emission: np.ndarray  # [L,3] radiance (area) / intensity (point)
+    pos: np.ndarray       # [L,3] position (point/spot) or direction
+    aux: np.ndarray       # [L,3] spot axis / distant world center
+    params: np.ndarray    # [L,4] cos_total/cos_falloff (spot), wradius
+    emission_tex: np.ndarray = None   # [L] int32, -1 = constant
+    types_present: tuple = None
+
+    @property
+    def count(self):
+        return self.ltype.shape[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Distribution1D:
+    """Piecewise-constant 1D distribution (ref: distribution.rs)."""
+    func: np.ndarray      # [n]
+    cdf: np.ndarray       # [n+1]
+    func_int: np.float32
+
+
+def build_distribution_1d(func) -> Distribution1D:
+    """Host-side CDF build (ref: distribution.rs:23-56)."""
+    f = np.asarray(func, np.float32)
+    n = len(f)
+    cdf = np.zeros(n + 1, np.float32)
+    cdf[1:] = np.cumsum(f / n)
+    func_int = cdf[-1]
+    if func_int == 0.0:
+        cdf = np.arange(n + 1, dtype=np.float32) / n
+    else:
+        cdf = cdf / func_int
+    return Distribution1D(func=f, cdf=cdf, func_int=np.float32(func_int))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SceneData:
+    tri_v0: np.ndarray
+    tri_v1: np.ndarray
+    tri_v2: np.ndarray
+    tri_n0: np.ndarray
+    tri_n1: np.ndarray
+    tri_n2: np.ndarray
+    tri_uv0: np.ndarray
+    tri_uv1: np.ndarray
+    tri_uv2: np.ndarray
+    tri_mat: np.ndarray
+    tri_light: np.ndarray
+    spheres: sph.SphereSoA
+    materials: mats.MaterialTable
+    lights: LightTable
+    # cluster intersector tables (accel/clusters.py): tri_cw
+    # [C,16,4K] determinant weights, tri_cbox [C,8] AABBs, tri_remap
+    # [C*K] slot -> original triangle id
+    tri_cw: Optional[np.ndarray] = None
+    tri_cbox: Optional[np.ndarray] = None
+    tri_remap: Optional[np.ndarray] = None
+    light_distribution: Distribution1D = None
+
+    @property
+    def n_tris(self):
+        return self.tri_v0.shape[0]
+
+
+def light_types_present(lights: LightTable):
+    """Host-static sorted tuple of the light types in the scene."""
+    if lights.types_present is not None:
+        return tuple(lights.types_present)
+    return tuple(sorted(int(t) for t in np.unique(np.asarray(
+        lights.ltype))))
+
+
+def light_pack(scene: SceneData):
+    """One packed [L, C] float32 row per light + the column map.
+
+    Every per-light attribute NEE needs, including the area light's
+    resolved geometry, lives in one row; blocks for light types absent
+    from the scene are omitted.  Returns (pack, idx: name -> (lo, hi),
+    present)."""
+    lights = scene.lights
+    present = light_types_present(lights)
+    nl = lights.ltype.shape[0]
+    cols, idx = [], {}
+    ofs = 0
+
+    def add(name, arr):
+        nonlocal ofs
+        arr = np.asarray(arr).astype(np.float32)
+        if arr.ndim == 1:
+            arr = arr[:, None]
+        arr = arr.reshape(nl, -1)
+        idx[name] = (ofs, ofs + arr.shape[1])
+        cols.append(arr)
+        ofs += arr.shape[1]
+
+    has = lambda t: t in present
+    add("ltype", lights.ltype)
+    add("emission", lights.emission)
+    add("pos", lights.pos)
+    add("aux", lights.aux)
+    add("params", lights.params)
+    if lights.emission_tex is not None:
+        add("emission_tex", lights.emission_tex)
+    prim = np.maximum(np.asarray(lights.prim), 0)
+    if has(L_AREA_TRI) and scene.n_tris > 0:
+        tp = np.minimum(prim, scene.n_tris - 1)
+        for name in ("tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1",
+                     "tri_n2", "tri_uv0", "tri_uv1", "tri_uv2"):
+            add(name, np.asarray(getattr(scene, name))[tp])
+    if has(L_AREA_SPHERE):
+        s = scene.spheres
+        sp = np.minimum(prim, s.count - 1)
+        add("s_o2w", np.asarray(s.o2w)[sp].reshape(nl, 16))
+        add("s_w2o", np.asarray(s.w2o)[sp].reshape(nl, 16))
+        add("s_radius", np.asarray(s.radius)[sp])
+        add("s_zmin", np.asarray(s.zmin)[sp])
+        add("s_zmax", np.asarray(s.zmax)[sp])
+        add("s_thetamin", np.asarray(s.thetamin)[sp])
+        add("s_thetamax", np.asarray(s.thetamax)[sp])
+        add("s_phimax", np.asarray(s.phimax)[sp])
+    return np.concatenate(cols, axis=1), idx, present
+
+
+def tri_pack(scene: SceneData) -> np.ndarray:
+    """[T,26] packed per-triangle attribute rows (v0 v1 v2 n0 n1 n2
+    uv0 uv1 uv2 mat light): one gather resolves a hit."""
+    if scene.n_tris == 0:
+        return np.zeros((1, 26), np.float32)
+    return np.concatenate([
+        scene.tri_v0, scene.tri_v1, scene.tri_v2,
+        scene.tri_n0, scene.tri_n1, scene.tri_n2,
+        scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
+        np.asarray(scene.tri_mat).astype(np.float32)[:, None],
+        np.asarray(scene.tri_light).astype(np.float32)[:, None],
+    ], axis=1).astype(np.float32)
+
+
+class SceneBuilder:
+    """Host-side accumulation of meshes, spheres, lights and
+    materials, frozen into a SceneData (the arencli parse_input
+    analogue)."""
+
+    def __init__(self):
+        self.tv0: List[np.ndarray] = []
+        self.tv1: List[np.ndarray] = []
+        self.tv2: List[np.ndarray] = []
+        self.tn0: List[np.ndarray] = []
+        self.tn1: List[np.ndarray] = []
+        self.tn2: List[np.ndarray] = []
+        self.tuv0: List[np.ndarray] = []
+        self.tuv1: List[np.ndarray] = []
+        self.tuv2: List[np.ndarray] = []
+        self.tmat: List[np.ndarray] = []
+        self.tlight: List[np.ndarray] = []
+        self.sphere_rows = []
+        self.material_rows = []
+        self.light_rows = []
+
+    def add_material(self, **kw) -> int:
+        self.material_rows.append(kw)
+        return len(self.material_rows) - 1
+
+    def add_mesh(self, vertices, faces, mat_id: int, normals=None,
+                 uvs=None, transform=None, emission=None):
+        """Add a triangle mesh: vertices [V,3], faces [F,3] int;
+        transform: optional 4x4 (row layout, projective divide)."""
+        v = np.asarray(vertices, np.float32)
+        f = np.asarray(faces, np.int64)
+        if transform is not None:
+            m = np.asarray(transform, np.float32)
+            h = v @ m[:3, :3] + m[3, :3]
+            w = v @ m[:3, 3] + m[3, 3]
+            v = h / w[:, None]
+            if normals is not None:
+                inv = np.linalg.inv(m[:3, :3])
+                normals = np.asarray(normals, np.float32) @ inv.T
+        p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+        nf = len(f)
+        if normals is not None:
+            nn = np.asarray(normals, np.float32)
+            n0, n1, n2 = nn[f[:, 0]], nn[f[:, 1]], nn[f[:, 2]]
+        else:
+            face_n = np.cross(p1 - p0, p2 - p0)
+            norm = np.linalg.norm(face_n, axis=-1, keepdims=True)
+            face_n = face_n / np.maximum(norm, 1e-20)
+            n0 = n1 = n2 = face_n
+        if uvs is not None:
+            uu = np.asarray(uvs, np.float32)
+            uv0, uv1, uv2 = uu[f[:, 0]], uu[f[:, 1]], uu[f[:, 2]]
+        else:
+            # per-triangle default uvs (ref: triangle.rs:292-296)
+            uv0 = np.tile(np.array([0.0, 0.0], np.float32), (nf, 1))
+            uv1 = np.tile(np.array([1.0, 0.0], np.float32), (nf, 1))
+            uv2 = np.tile(np.array([1.0, 1.0], np.float32), (nf, 1))
+        light_ids = np.full(nf, -1, np.int32)
+        if emission is not None:
+            base_tri = sum(len(a) for a in self.tv0)
+            for i in range(nf):
+                light_ids[i] = len(self.light_rows)
+                self.light_rows.append(dict(
+                    ltype=L_AREA_TRI, prim=base_tri + i,
+                    emission=tuple(emission)))
+        self.tv0.append(p0)
+        self.tv1.append(p1)
+        self.tv2.append(p2)
+        self.tn0.append(n0)
+        self.tn1.append(n1)
+        self.tn2.append(n2)
+        self.tuv0.append(uv0)
+        self.tuv1.append(uv1)
+        self.tuv2.append(uv2)
+        self.tmat.append(np.full(nf, mat_id, np.int32))
+        self.tlight.append(light_ids)
+
+    def add_sphere(self, radius, zmin, zmax, phimax, mat_id: int,
+                   transform=None, emission=None):
+        o2w = (np.eye(4, dtype=np.float32) if transform is None
+               else np.asarray(transform, np.float32))
+        light_id = -1
+        if emission is not None:
+            light_id = len(self.light_rows)
+            self.light_rows.append(dict(
+                ltype=L_AREA_SPHERE, prim=len(self.sphere_rows),
+                emission=tuple(emission)))
+        self.sphere_rows.append(dict(
+            o2w=o2w, radius=radius, zmin=zmin, zmax=zmax, phimax=phimax,
+            mat_id=mat_id, light_id=light_id))
+
+    def add_point_light(self, pos, intensity):
+        self.light_rows.append(dict(
+            ltype=L_POINT, prim=-1, emission=tuple(intensity),
+            pos=tuple(pos)))
+
+    def add_spot_light(self, pos, direction, intensity, cos_total,
+                       cos_falloff):
+        self.light_rows.append(dict(
+            ltype=L_SPOT, prim=-1, emission=tuple(intensity),
+            pos=tuple(pos), aux=tuple(direction),
+            params=(cos_total, cos_falloff, 0.0, 0.0)))
+
+    def add_distant_light(self, direction, radiance, world_radius=None):
+        """world_radius=None resolves to the scene's bounding sphere at
+        build() (ref: distantlight.rs:43-50)."""
+        self.light_rows.append(dict(
+            ltype=L_DISTANT, prim=-1, emission=tuple(radiance),
+            pos=tuple(direction),
+            params=(-1.0 if world_radius is None else float(world_radius),
+                    0.0, 0.0, 0.0)))
+
+    def _world_bsphere(self):
+        """Scene bounding sphere over triangles and transformed
+        spheres (ref: distantlight.rs:43-50)."""
+        pts = []
+        for lst in (self.tv0, self.tv1, self.tv2):
+            for a in lst:
+                if len(a):
+                    pts.append(np.min(a, 0))
+                    pts.append(np.max(a, 0))
+        for row in self.sphere_rows:
+            m = np.asarray(row["o2w"], np.float32)
+            c = m[3, :3]
+            r = float(row["radius"]) * float(
+                np.linalg.norm(m[:3, :3], 2))
+            pts.append(c - r)
+            pts.append(c + r)
+        if not pts:
+            return np.zeros(3, np.float32), 1.0
+        lo = np.min(np.stack(pts), 0)
+        hi = np.max(np.stack(pts), 0)
+        center = 0.5 * (lo + hi)
+        radius = float(np.linalg.norm(hi - center))
+        return center.astype(np.float32), max(radius, 1e-6)
+
+    def _light_power(self, row, tri_areas, sphere_areas) -> float:
+        """Power for the light-selection distribution (ref:
+        scene.rs:36-44; area power = mean*area*pi)."""
+        e = np.asarray(row["emission"], np.float32)
+        lum = float(e @ np.asarray([0.212671, 0.715160, 0.072169],
+                                   np.float32))
+        lt = row["ltype"]
+        if lt == L_AREA_SPHERE:
+            return lum * sphere_areas[row["prim"]] * np.pi
+        if lt == L_AREA_TRI:
+            return lum * tri_areas[row["prim"]] * np.pi
+        if lt == L_POINT:
+            return lum * 4.0 * np.pi
+        if lt == L_SPOT:
+            ct, cf = row["params"][0], row["params"][1]
+            return lum * 2.0 * np.pi * (1 - 0.5 * (cf - ct))
+        if lt == L_DISTANT:
+            wr = row["params"][0]
+            return lum * np.pi * wr * wr
+        return lum
+
+    def build(self) -> SceneData:
+        from arendur_tpu_torch.accel.clusters import build_clusters
+        cat = lambda lst, d: (np.concatenate(lst, 0) if lst
+                              else np.zeros((0,) + d, np.float32))
+        v0 = cat(self.tv0, (3,))
+        v1 = cat(self.tv1, (3,))
+        v2 = cat(self.tv2, (3,))
+        tri_areas = 0.5 * np.linalg.norm(
+            np.cross(v1 - v0, v2 - v0), axis=-1) if len(v0) else np.zeros(0)
+
+        # distant lights: world bounds from the scene's bounding sphere,
+        # resolved before the placeholder sphere below is appended
+        if any(r["ltype"] == L_DISTANT for r in self.light_rows):
+            wc, wrad = self._world_bsphere()
+            resolved = []
+            for row in self.light_rows:
+                if row["ltype"] == L_DISTANT:
+                    row = dict(row)
+                    p = row.get("params", (-1.0, 0, 0, 0))
+                    wr = p[0] if p[0] > 0.0 else wrad
+                    row["params"] = (wr, 0.0, 0.0, 0.0)
+                    row["aux"] = tuple(float(x) for x in wc)
+                resolved.append(row)
+            self.light_rows = resolved
+
+        if not self.sphere_rows:
+            # one degenerate far-away sphere keeps shapes static
+            self.sphere_rows.append(dict(
+                o2w=np.diag([1, 1, 1, 1]).astype(np.float32) +
+                np.array([[0, 0, 0, 0]] * 3 + [[1e8, 1e8, 1e8, 0]],
+                         np.float32),
+                radius=1e-6, zmin=-1e-6, zmax=1e-6, phimax=2 * np.pi,
+                mat_id=0, light_id=-1))
+        cols = {k: [] for k in ("o2w", "w2o", "radius", "zmin", "zmax",
+                                "thetamin", "thetamax", "phimax",
+                                "mat_id", "light_id")}
+        sphere_areas = []
+        for row in self.sphere_rows:
+            r, zn, zx, tmin, tmax_, pm = sph.make_sphere_params(
+                row["radius"], row["zmin"], row["zmax"], row["phimax"])
+            for k, v in (("o2w", row["o2w"]),
+                         ("w2o", np.linalg.inv(row["o2w"])),
+                         ("radius", r), ("zmin", zn), ("zmax", zx),
+                         ("thetamin", tmin), ("thetamax", tmax_),
+                         ("phimax", pm), ("mat_id", row["mat_id"]),
+                         ("light_id", row["light_id"])):
+                cols[k].append(v)
+            sphere_areas.append(pm * r * (zx - zn))
+        f32 = lambda k: np.asarray(cols[k], np.float32)
+        spheres = sph.SphereSoA(
+            o2w=np.stack(cols["o2w"]), w2o=np.stack(cols["w2o"]),
+            radius=f32("radius"), zmin=f32("zmin"), zmax=f32("zmax"),
+            thetamin=f32("thetamin"), thetamax=f32("thetamax"),
+            phimax=f32("phimax"),
+            mat_id=np.asarray(cols["mat_id"], np.int32),
+            light_id=np.asarray(cols["light_id"], np.int32),
+            phi_full=bool((f32("phimax") >= 2.0 * np.pi - 1e-5).all()))
+
+        nl = max(1, len(self.light_rows))
+        lt = np.zeros(nl, np.int32)
+        lprim = np.full(nl, -1, np.int32)
+        lem = np.zeros((nl, 3), np.float32)
+        lpos = np.zeros((nl, 3), np.float32)
+        laux = np.zeros((nl, 3), np.float32)
+        lpar = np.zeros((nl, 4), np.float32)
+        letex = np.full(nl, -1, np.int32)
+        powers = np.zeros(nl, np.float32)
+        for i, row in enumerate(self.light_rows):
+            lt[i] = row["ltype"]
+            lprim[i] = row.get("prim", -1)
+            lem[i] = row["emission"]
+            lpos[i] = row.get("pos", (0, 0, 0))
+            laux[i] = row.get("aux", (0, 0, 1))
+            lpar[i] = row.get("params", (0, 0, 0, 0))
+            powers[i] = self._light_power(row, tri_areas, sphere_areas)
+        lights = LightTable(
+            ltype=lt, prim=lprim, emission=lem, pos=lpos,
+            aux=laux, params=lpar, emission_tex=letex,
+            types_present=tuple(sorted(set(int(t) for t in lt))))
+
+        if not self.material_rows:
+            self.material_rows.append(dict(mtype=0, kd=(0.5, 0.5, 0.5)))
+        catf = lambda lst, d, dt=np.float32: (
+            np.concatenate(lst, 0).astype(dt) if lst
+            else np.zeros((0,) + d, dt))
+        cw = cbox = remap = None
+        if len(v0) > 0:
+            tabs = build_clusters(v0, v1, v2)
+            cw, cbox, remap = (tabs["w_chunks"], tabs["cbox"],
+                               tabs["remap"])
+        return SceneData(
+            tri_cw=cw, tri_cbox=cbox, tri_remap=remap,
+            tri_v0=v0, tri_v1=v1, tri_v2=v2,
+            tri_n0=catf(self.tn0, (3,)),
+            tri_n1=catf(self.tn1, (3,)),
+            tri_n2=catf(self.tn2, (3,)),
+            tri_uv0=catf(self.tuv0, (2,)),
+            tri_uv1=catf(self.tuv1, (2,)),
+            tri_uv2=catf(self.tuv2, (2,)),
+            tri_mat=catf(self.tmat, (), np.int32),
+            tri_light=catf(self.tlight, (), np.int32),
+            spheres=spheres,
+            materials=mats.make_material_table(self.material_rows),
+            lights=lights,
+            light_distribution=build_distribution_1d(
+                powers if len(powers) else [1.0]))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShadeStatic:
+    """Host-static configuration of the bounce shade, computed once
+    from the NumPy scene (never from device tensors)."""
+    presence: tuple     # per slot column: sorted BSDF type ids
+    dist_sets: tuple    # ((slot type, (dist ids...)), ...)
+    lcidx: tuple        # sorted ((column name, (lo, hi)), ...)
+    lpresent: tuple     # light types present
+    emi_cols: tuple     # (lo, hi) of the emission columns
+    full_phi: bool      # every sphere light is full-phi
+
+
+def shade_static(scene: SceneData) -> ShadeStatic:
+    _, cidx, present = light_pack(scene)
+    lt = np.asarray(scene.lights.ltype)
+    prim = np.asarray(scene.lights.prim)
+    phimax = np.asarray(scene.spheres.phimax)
+    sl_rows = lt == L_AREA_SPHERE
+    full_phi = True
+    if sl_rows.any():
+        p = np.clip(prim[sl_rows], 0, len(phimax) - 1)
+        full_phi = bool((phimax[p] >= 2.0 * np.pi - 1e-5).all())
+    return ShadeStatic(
+        presence=mats.slot_presence(scene.materials),
+        dist_sets=mats.dist_presence(scene.materials),
+        lcidx=tuple(sorted(cidx.items())),
+        lpresent=tuple(present),
+        emi_cols=tuple(cidx["emission"]),
+        full_phi=full_phi)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceScene:
+    """The tables one render reads, on one device, plus the
+    host-static shade configuration."""
+    device: torch.device
+    n_tris: int
+    cw: torch.Tensor        # [C,16,4K] cluster determinant weights
+    cbox: torch.Tensor      # [C,8] cluster AABBs
+    remap: torch.Tensor     # [C*K] int64 slot -> triangle id
+    tpack: torch.Tensor     # [T,26] triangle attribute rows
+    ltab: torch.Tensor      # [L,Cl] light_pack rows
+    mtab: torch.Tensor      # [M,16] material rows
+    stab: torch.Tensor      # [S,24] sphere shade rows
+    spheres: sph.DeviceSpheres
+    light_cdf: torch.Tensor       # [L+1]
+    light_func: torch.Tensor      # [L]
+    light_func_int: float
+    static: ShadeStatic
+
+    @staticmethod
+    def build(scene: SceneData, device) -> "DeviceScene":
+        if scene.tri_cw is None:
+            raise NotImplementedError(
+                "scenes without triangles are not yet ported")
+        device = torch.device(device)
+        t = lambda a, dt=torch.float32: torch.as_tensor(
+            np.ascontiguousarray(a), dtype=dt, device=device)
+        ltab, _, _ = light_pack(scene)
+        dist = scene.light_distribution
+        return DeviceScene(
+            device=device, n_tris=int(scene.n_tris),
+            cw=t(scene.tri_cw), cbox=t(scene.tri_cbox),
+            remap=t(scene.tri_remap, torch.int64),
+            tpack=t(tri_pack(scene)), ltab=t(ltab),
+            mtab=t(mats.param_table(scene.materials)),
+            stab=t(sph.shade_table(scene.spheres)),
+            spheres=sph.DeviceSpheres.from_soa(scene.spheres, device),
+            light_cdf=t(dist.cdf), light_func=t(dist.func),
+            light_func_int=float(dist.func_int),
+            static=shade_static(scene))

@@ -1,0 +1,144 @@
+"""The hand-written kernels against their plain PyTorch versions on a
+CUDA card.  Every test here needs the card and skips without one.  The
+file imports no JAX, so it runs on a machine with the card alone:
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu \
+        tests/test_torch_gpu.py
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from arendur_tpu_torch import scene as sc
+from arendur_tpu_torch.io import scenedesc
+from arendur_tpu_torch.kernels import ops
+from arendur_tpu_torch.render import cbounce as cb
+from arendur_tpu_torch.render import fuzz
+from arendur_tpu_torch.render import integrator as integ
+from arendur_tpu_torch.shapes import cluster_intersect as ci
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CB = os.path.join(REPO, "examples/cornellbox/cb.json")
+N = 8192
+SLOT_GATE = 0.999      # share of lanes whose slots / flags agree
+T_RTOL = 1e-5          # t where the slots agree (FMA vs cuBLAS order)
+ELEM_GATE = 0.999      # K3: share of elements within RTOL / ATOL
+RTOL, ATOL = 1e-4, 1e-5
+PLAIN_ATOL = 3e-3      # render: kernel path vs plain path, per pixel
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels run only there)")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def cornell(card):
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        CB, spp_override=4, resolution_override=(24, 16))
+    return sc.DeviceScene.build(scene, card), camera, film, config
+
+
+def _rays(card, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-1.9, -1.4, 2.1], [1.9, 2.4, 5.9], (N, 3))
+    d = rng.normal(size=(N, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = rng.uniform(0.05, 6.0, N)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=card)
+    return f(o), f(d), f(tmax)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_alive", [None, N - 1000])
+def test_closest_hit_kernel_matches_plain(card, cornell, n_alive):
+    ds = cornell[0]
+    o, d, _ = _rays(card)
+    tinf = torch.full((N,), float("inf"), device=card)
+    na = None if n_alive is None else torch.tensor(n_alive, device=card)
+    before = ops.CLOSEST_HIT.launches
+    t, s = ci.intersect_clusters(ds.cw, ds.cbox, o, d, tinf, na)
+    assert ops.CLOSEST_HIT.launches == before + 1
+    t_p, s_p = ci.intersect_clusters_reference(ds.cw, ds.cbox, o, d, tinf,
+                                               na)
+    agree = s == s_p
+    assert agree.float().mean().item() >= SLOT_GATE
+    hit = agree & (s >= 0)
+    torch.testing.assert_close(t[hit], t_p[hit], rtol=T_RTOL, atol=0.0)
+    if n_alive is not None:
+        assert (s[n_alive:] == -1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_alive", [None, N - 1000])
+def test_any_hit_kernel_matches_plain(card, cornell, n_alive):
+    ds = cornell[0]
+    o, d, tmax = _rays(card, 1)
+    na = None if n_alive is None else torch.tensor(n_alive, device=card)
+    b = ci.occluded_clusters(ds.cw, ds.cbox, o, d, tmax, na)
+    b_p = ci.occluded_clusters_reference(ds.cw, ds.cbox, o, d, tmax, na)
+    assert (b == b_p).float().mean().item() >= SLOT_GATE
+    assert 0.05 < b.float().mean().item() < 0.95
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["cornell", "all-branches"])
+def test_bounce_shade_kernel_matches_plain(card, cornell, which):
+    ds = cornell[0] if which == "cornell" else sc.DeviceScene.build(
+        fuzz.all_branches_scene(sc.SceneBuilder()), card)
+    tabs = (ds.ltab, ds.mtab, ds.stab)
+    x = torch.tensor(fuzz.fuzz_bounce_inputs(
+        *(t.cpu().numpy() for t in tabs), seed=3, n=N).T.copy(),
+        device=card)
+    out = cb.bounce_shade_t(x, *tabs, ds.static, 4, 0.05)
+    ref = cb.cbody_reference(x, *tabs, ds.static, 4, 0.05)
+    close = torch.isclose(out, ref, rtol=RTOL, atol=ATOL) \
+        | (torch.isnan(out) & torch.isnan(ref))
+    assert close.float().mean().item() >= ELEM_GATE
+    for j in (12, 13, 16, 24):
+        assert (out[j] == ref[j]).float().mean().item() >= SLOT_GATE
+
+
+@pytest.mark.gpu
+def test_bounce_shade_backward_replays_plain_body(card, cornell):
+    ds = cornell[0]
+    mtab = ds.mtab.clone().requires_grad_(True)
+    x = torch.tensor(fuzz.fuzz_bounce_inputs(
+        ds.ltab.cpu().numpy(), ds.mtab.cpu().numpy(),
+        ds.stab.cpu().numpy(), seed=4, n=1024).T.copy(), device=card)
+    cb.bounce_shade_t(x, ds.ltab, mtab, ds.stab, ds.static, 4,
+                      0.05)[6:12].sum().backward()
+    g = mtab.grad.clone()
+    mtab.grad = None
+    cb.cbody_reference(x, ds.ltab, mtab, ds.stab, ds.static, 4,
+                       0.05)[6:12].sum().backward()
+    torch.testing.assert_close(g[:, 1:4], mtab.grad[:, 1:4])
+
+
+@pytest.mark.gpu
+def test_render_kernel_path_matches_plain_path(card, cornell):
+    ds, camera, film, config = cornell
+    config = dataclasses.replace(config, max_depth=4)
+    ops.reset_counts()
+    img_k = integ.render(ds, camera, film, config)
+    launches = ops.counts()
+    img_p = integ.render(ds, camera, film, config, ops=integ.PLAIN_OPS)
+    assert min(launches.values()) >= 1, launches
+    assert torch.isfinite(img_k).all() and img_k.max() > 0.05
+    torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_cpu_tensors(card):
+    with pytest.raises(ValueError):
+        ops.closest_hit(torch.zeros(1, 16, 1024), torch.zeros(1, 8),
+                        torch.zeros(4, 3), torch.zeros(4, 3),
+                        torch.zeros(4))
