@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-All ``*.cu`` sources of this directory are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded
-with ctypes.  (A plain C interface needs no PyTorch headers, which
-keeps the build to seconds; PyTorch's own extension builder needs
-ninja and minutes per build.)  The library lands in ``_build/`` under
-a name that carries the hash of the sources, so an edited source
+Each ``*.cu`` source of this directory is compiled by its own ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface, all
+``nvcc`` calls at once, and the libraries are loaded with ctypes.  (A
+plain C interface needs no PyTorch headers, which keeps the build to
+seconds; PyTorch's own extension builder needs ninja and minutes per
+build.)  A library lands in ``_build/`` under a name that carries the
+hash of its source, the headers and the flags, so an edited source
 rebuilds and an unchanged one is built once per checkout.
 
 The build happens at first use, never at import.  A failed build
@@ -38,13 +39,16 @@ _lib = None
 
 
 def sources():
-    return sorted(glob.glob(os.path.join(_DIR, "*.cu"))
-                  + glob.glob(os.path.join(_DIR, "*.cuh")))
+    return sorted(glob.glob(os.path.join(_DIR, "*.cu")))
 
 
-def _digest() -> str:
+def _headers():
+    return sorted(glob.glob(os.path.join(_DIR, "*.cuh")))
+
+
+def _digest(src: str) -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in [src] + _headers():
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             h.update(f.read())
@@ -59,36 +63,67 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libarendur_kernels_{_digest()}.so")
+def library_path(src: str) -> str:
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{_digest(src)}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels if the library for these sources is missing;
-    returns its path.  verbose prints nvcc's register/spill report."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
+def build(report: bool = False) -> list:
+    """Compile the kernel libraries that are missing for these sources,
+    one nvcc per source, all started together.  Returns (path, nvcc
+    output) per source; the output is empty for a library already
+    built, and report adds ptxas's register / stack / spill report to
+    it (-Xptxas -v)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose
-                                        else []) + \
-        ["-o", tmp] + [p for p in sources() if p.endswith(".cu")]
-    proc = subprocess.run(cmd, cwd=_DIR, capture_output=True, text=True)
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
+    procs = []
+    for src in sources():
+        path = library_path(src)
+        if os.path.exists(path):
+            procs.append((src, path, None, None))
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [find_nvcc()] + NVCC_FLAGS + (
+            ["-Xptxas", "-v"] if report else []) + ["-o", tmp, src]
+        procs.append((src, path, tmp, subprocess.Popen(
+            cmd, cwd=_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    out, failed = [], []
+    for src, path, tmp, proc in procs:
+        log = ""
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)}:\n{log}")
+                continue
+            os.replace(tmp, path)
+        out.append((path, log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
+class _Kernels:
+    """The C entries of all kernel libraries, by name."""
+
+    def __init__(self, libs):
+        self._libs = libs
+
+    def __getattr__(self, name):
+        for lib in self._libs:
+            try:
+                return getattr(lib, name)
+            except AttributeError:
+                pass
+        raise AttributeError(name)
+
+
+def load() -> _Kernels:
+    """Build (if needed) and load the kernel libraries, once per
+    process."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = _Kernels([ctypes.CDLL(p) for p, _ in build()])
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
             lib.arendur_closest_hit.argtypes = [P, P, P, P, P, P, I, I, I,
                                                 I, P, P, P]
@@ -99,5 +134,9 @@ def load() -> ctypes.CDLL:
             lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, L,
                                                  P, P, P]
             lib.arendur_bounce_shade.restype = I
+            lib.arendur_bounce_shade_bwd.argtypes = [
+                P, P, P, I, I, P, I, P, I, L, P, P, P, P, P, L, I, P, P, P,
+                P, P, P, P, P, P]
+            lib.arendur_bounce_shade_bwd.restype = I
             _lib = lib
         return _lib

@@ -1,10 +1,18 @@
-// Per-lane shading math for the bounce-shade kernel: the CUDA C++
+// Per-lane shading math for the bounce-shade kernels: the CUDA C++
 // translation of arendur_tpu_torch/render/cmath.py (itself the port of
 // arendur_tpu/render/cmath.py).  Each function follows the Python
 // version's operation order; the library is compiled with -fmad=false
 // so no multiply-add is contracted, and the lane results match the
 // plain PyTorch version on the card to the last bit wherever the math
 // library calls (sinf, expf, logf, powf, rsqrtf) agree.
+//
+// The functions a gradient flows through live in cmath_body.cuh, which
+// is written over a scalar type F and a table-row type Row and is
+// compiled twice: here on float (namespace cmath, the forward kernel)
+// and in cmath_ad.cuh on the taped scalar of ad.cuh (namespace
+// cmath_ad, the backward kernel).  The sampling routines below run on
+// float only: the estimator detaches every sampled direction (DESIGN
+// §5), so the backward calls them on values.
 //
 // Every function is __host__ __device__ so the same source can be
 // exercised on a CPU build as well.
@@ -17,13 +25,16 @@
 #else
 #define HD inline
 #endif
+// the larger body functions (see cmath_body.cuh); the backward
+// instantiation redefines it
+#define HDB HD
 
 #ifndef __CUDACC__
 // host build: the device intrinsic as PyTorch's CPU rsqrt computes it
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #endif
 
-namespace cmath {
+namespace cdefs {
 
 constexpr double PI_D = 3.14159265358979323846;
 constexpr float PI = (float)PI_D;
@@ -62,6 +73,17 @@ HD int kind_of_type(int t) {
   }
 }
 
+}  // namespace cdefs
+
+namespace cmath {
+
+using namespace cdefs;
+typedef float F;
+typedef const float* Row;
+
+HD float val(float x) { return x; }
+HD float rawf(Row r, int c) { return r[c]; }
+
 // NaN-propagating min/max/clamp (torch.clamp / torch.maximum semantics)
 HD bool isnan_(float x) { return x != x; }
 HD float mx(float x, float c) { return isnan_(x) ? x : fmaxf(x, c); }
@@ -80,88 +102,12 @@ HD float sgn(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
 
-struct V3 {
-  float x, y, z;
-};
-HD V3 v3(float a, float b, float c) {
-  V3 r;
-  r.x = a;
-  r.y = b;
-  r.z = c;
-  return r;
-}
-HD V3 vadd(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-HD V3 vsub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-HD V3 vneg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-HD V3 vscale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-HD V3 vmul(V3 a, V3 b) { return v3(a.x * b.x, a.y * b.y, a.z * b.z); }
-HD float vdot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-HD V3 vcross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
-}
-HD float vlength2(V3 a) { return vdot(a, a); }
-HD V3 vnormalize(V3 a) {
-  float n2 = mx(vlength2(a), 1e-30f);
-  float s = sqrtf(1.0f / n2);
-  return vscale(a, s);
-}
-HD V3 vabs(V3 a) { return v3(fabsf(a.x), fabsf(a.y), fabsf(a.z)); }
-HD bool visfinite(V3 a) { return fin(a.x) && fin(a.y) && fin(a.z); }
-HD V3 vzero() { return v3(0.0f, 0.0f, 0.0f); }
+#include "cmath_body.cuh"
 
-HD float luminance(V3 c) {
-  return 0.212671f * c.x + 0.715160f * c.y + 0.072169f * c.z;
-}
-HD bool is_black(V3 c) {
-  return (c.x == 0.0f) && (c.y == 0.0f) && (c.z == 0.0f);
-}
-HD bool valid(V3 c) {
-  return fin(c.x) && c.x >= 0.0f && fin(c.y) && c.y >= 0.0f &&
-         fin(c.z) && c.z >= 0.0f;
-}
-HD V3 sanitize(V3 c) { return valid(c) ? c : vzero(); }
 
-// local-frame trig
-HD float cos_theta(V3 w) { return w.z; }
-HD float cos2_theta(V3 w) { return w.z * w.z; }
-HD float sin2_theta(V3 w) { return fabsf(1.0f - cos2_theta(w)); }
-HD float sin_theta(V3 w) { return sqrtf(mx(sin2_theta(w), 1e-30f)); }
-HD float safe_div(float a, float b) {
-  const float eps = 1e-20f;
-  float safe = fabsf(b) < eps ? (b < 0.0f ? -eps : eps) : b;
-  return a / safe;
-}
-HD float tan_theta(V3 w) { return safe_div(sin_theta(w), cos_theta(w)); }
-HD float tan2_theta(V3 w) {
-  return sin2_theta(w) / mx(cos2_theta(w), 1e-30f);
-}
-HD float cos_phi(V3 w) {
-  float st = sin_theta(w);
-  return st == 0.0f ? 1.0f : clampf_(w.x / st, -1.0f, 1.0f);
-}
-HD float sin_phi(V3 w) {
-  float st = sin_theta(w);
-  return st == 0.0f ? 0.0f : clampf_(w.y / st, -1.0f, 1.0f);
-}
-HD float cos2_phi(V3 w) {
-  float c = cos_phi(w);
-  return c * c;
-}
-HD float sin2_phi(V3 w) {
-  float s = sin_phi(w);
-  return s * s;
-}
-
-HD float acos_poly(float x) {
-  float xa = clampf_(fabsf(x), 0.0f, 1.0f);
-  float p = -0.0187293f;
-  p = 0.0742610f + p * xa;
-  p = -0.2121144f + p * xa;
-  p = 1.5707288f + p * xa;
-  float v = p * sqrtf(1.0f - xa);
-  return x >= 0.0f ? v : PI - v;
-}
+// ---------------------------------------------------------------------------
+// float only: sampling (detached) and predicates
+// ---------------------------------------------------------------------------
 
 HD float atan2_poly(float y, float x) {
   float ax = fabsf(x);
@@ -189,37 +135,6 @@ HD V3 refract(V3 wo, V3 n, float eta, bool* ok) {
   float cos_t = sqrtf(mx(1.0f - sin2_t, 1e-12f));
   V3 wt = vadd(vscale(wo, -eta), vscale(n, eta * ct - cos_t));
   return *ok ? wt : vzero();
-}
-
-HD void get_basis_from(V3 d, V3* u, V3* v) {
-  bool near_z = fabsf(fabsf(d.z) - 1.0f) < 1e-5f;
-  V3 up = v3(0.0f, near_z ? 1.0f : 0.0f, near_z ? 0.0f : 1.0f);
-  *u = vnormalize(vcross(up, d));
-  *v = vnormalize(vcross(d, *u));
-}
-
-HD V3 to_local(V3 t, V3 b, V3 n, V3 v) {
-  return v3(vdot(v, t), vdot(v, b), vdot(v, n));
-}
-HD V3 to_world(V3 t, V3 b, V3 n, V3 v) {
-  return v3(v.x * t.x + v.y * b.x + v.z * n.x,
-            v.x * t.y + v.y * b.y + v.z * n.y,
-            v.x * t.z + v.y * b.z + v.z * n.z);
-}
-
-// row-vector transforms by a 16-float row (cgmath row layout)
-HD V3 tp16(const float* m, V3 p) {
-  float ox = p.x * m[0] + p.y * m[4] + p.z * m[8] + m[12];
-  float oy = p.x * m[1] + p.y * m[5] + p.z * m[9] + m[13];
-  float oz = p.x * m[2] + p.y * m[6] + p.z * m[10] + m[14];
-  float w = p.x * m[3] + p.y * m[7] + p.z * m[11] + m[15];
-  float inv = 1.0f / (fabsf(w) < 1e-20f ? 1.0f : w);
-  return v3(ox * inv, oy * inv, oz * inv);
-}
-HD V3 tv16(const float* m, V3 v) {
-  return v3(v.x * m[0] + v.y * m[4] + v.z * m[8],
-            v.x * m[1] + v.y * m[5] + v.z * m[9],
-            v.x * m[2] + v.y * m[6] + v.z * m[10]);
 }
 
 // warps (sampling/warps.py)
@@ -251,115 +166,6 @@ HD V3 sample_uniform_triangle(float u0, float u1) {
   float y = sqrtux * u1;
   return v3(x, y, 1.0f - x - y);
 }
-HD float power_heuristic(float pdff, float pdfg) {
-  float f = 1.0f * pdff;
-  float g = 1.0f * pdfg;
-  return (f * f) / mx(f * f + g * g, 1e-30f);
-}
-
-// fresnel
-HD float fresnel_dielectric(float cos_theta_i, float etai, float etat) {
-  bool entering = cos_theta_i >= 0.0f;
-  float ei = entering ? etai : etat;
-  float et = entering ? etat : etai;
-  float ci = fabsf(cos_theta_i);
-  float sin2_i = mx(1.0f - ci * ci, 0.0f);
-  float eta = ei / (fabsf(et) < 1e-20f ? 1e-20f : et);
-  eta = clampf_(eta, -1e3f, 1e3f);
-  float sin2_t = eta * eta * sin2_i;
-  bool total = sin2_t >= 1.0f;
-  float ct = sqrtf(mx(1.0f - sin2_t, 1e-12f));
-  float etci = et * ci;
-  float eict = ei * ct;
-  float r_para = (etci - eict) /
-                 (fabsf(etci + eict) < 1e-20f ? 1e-20f : etci + eict);
-  float eici = ei * ci;
-  float etct = et * ct;
-  float r_perp = (eici - etct) /
-                 (fabsf(eici + etct) < 1e-20f ? 1e-20f : eici + etct);
-  float fr = 0.5f * (r_para * r_para + r_perp * r_perp);
-  return total ? 1.0f : fr;
-}
-HD float csafe_ratio(float a, float b) {
-  float r = a / (fabsf(b) < 1e-20f ? 1e-20f : b);
-  return clampf_(r, -1e3f, 1e3f);
-}
-HD V3 schlick_fresnel(float cost, V3 s) {
-  float c5 = powf(1.0f - cost, 5.0f);
-  return v3(s.x + c5 * (1.0f - s.x), s.y + c5 * (1.0f - s.y),
-            s.z + c5 * (1.0f - s.z));
-}
-
-// microfacet distributions
-HD float roughness_to_alpha(float roughness) {
-  float x = logf(mx(roughness, 1e-3f));
-  return 1.62142f + 0.819955f * x + 0.1734f * x * x +
-         0.0171201f * (x * x * x) + 0.000640711f * powf(x, 4.0f);
-}
-HD float d_beckmann(V3 wh, float ax, float ay) {
-  float cos2 = cos2_theta(wh);
-  float tan2 = tan2_theta(wh);
-  float cos2p = cos2_phi(wh);
-  float sin2p = sin2_phi(wh);
-  float expo = mx(-tan2 * (cos2p / (ax * ax) + sin2p / (ay * ay)), -60.0f);
-  float val = expf(expo) / mx(PI * ax * ay * cos2 * cos2, 1e-30f);
-  return fin(val) ? val : 0.0f;
-}
-HD float d_trowbridge(V3 wh, float ax, float ay) {
-  float cos2 = cos2_theta(wh);
-  float tan2 = tan2_theta(wh);
-  float cos2p = cos2_phi(wh);
-  float sin2p = sin2_phi(wh);
-  float last = mn(1.0f + tan2 * (cos2p / (ax * ax) + sin2p / (ay * ay)),
-                  1e15f);
-  float val = 1.0f / mx(PI * ax * ay * cos2 * cos2 * last * last, 1e-30f);
-  return (fin(tan2) && fin(val)) ? val : 0.0f;
-}
-// dists: bit 0 = Beckmann present, bit 1 = Trowbridge present; a family
-// restricted to exactly one model uses it, otherwise `dist` decides
-HD bool use_beckmann(int dist, int dists) {
-  if (dists == 1) return true;
-  if (dists == 2) return false;
-  return dist == D_BECKMANN;
-}
-HD float mf_distribution(int dist, V3 wh, float ax, float ay, int dists) {
-  return use_beckmann(dist, dists) ? d_beckmann(wh, ax, ay)
-                                   : d_trowbridge(wh, ax, ay);
-}
-HD float lambda_beckmann(V3 w, float ax, float ay) {
-  float tant = fabsf(tan_theta(w));
-  float alpha = sqrtf(cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay);
-  float a = 1.0f / mx(alpha * tant, 1e-20f);
-  float poly = (1.0f - 1.259f * a + 0.396f * a * a) /
-               (3.535f * a + 2.181f * a * a);
-  float val = a >= 1.6f ? 0.0f : poly;
-  return fin(tant) ? val : 0.0f;
-}
-HD float lambda_trowbridge(V3 w, float ax, float ay) {
-  float tabs = fabsf(tan_theta(w));
-  float alpha = sqrtf(cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay);
-  float term = mn(alpha * tabs, 1e15f);
-  float val = 0.5f * (-1.0f + sqrtf(1.0f + term * term));
-  return fin(tabs) ? val : 0.0f;
-}
-HD float mf_lam(int dist, V3 w, float ax, float ay, int dists) {
-  return use_beckmann(dist, dists) ? lambda_beckmann(w, ax, ay)
-                                   : lambda_trowbridge(w, ax, ay);
-}
-HD float mf_visible(int dist, V3 w, float ax, float ay, int dists) {
-  return 1.0f / (1.0f + mf_lam(dist, w, ax, ay, dists));
-}
-HD float mf_visible_both(int dist, V3 w0, V3 w1, float ax, float ay,
-                         int dists) {
-  return 1.0f / (1.0f + mf_lam(dist, w0, ax, ay, dists) +
-                 mf_lam(dist, w1, ax, ay, dists));
-}
-HD float mf_pdf_wh(int dist, V3 wo, V3 wh, float ax, float ay, int dists) {
-  return mf_distribution(dist, wh, ax, ay, dists) *
-         mf_visible(dist, wo, ax, ay, dists) * fabsf(vdot(wo, wh)) /
-         mx(fabsf(cos_theta(wo)), 1e-20f);
-}
-
 HD float erf_(float x) {
   float sign = sgn(x);
   x = fabsf(x);

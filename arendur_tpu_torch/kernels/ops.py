@@ -1,10 +1,10 @@
 """Launch wrappers of the hand-written kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
-outputs, launches its kernel on PyTorch's current stream, raises if the
-launch was refused, and adds one to its ``launches`` count.  The
-callers (shapes/cluster_intersect.py, render/cbounce.py) reach these
-only for CUDA tensors.
+outputs and scratch, launches its kernel on PyTorch's current stream,
+raises if the launch was refused, and adds one to its ``launches``
+count.  The callers (shapes/cluster_intersect.py, render/cbounce.py)
+reach these only for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ class Kernel:
 CLOSEST_HIT = Kernel("closest_hit")
 ANY_HIT = Kernel("any_hit")
 BOUNCE_SHADE = Kernel("bounce_shade")
-KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE)
+BOUNCE_SHADE_BWD = Kernel("bounce_shade_bwd")
+KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE, BOUNCE_SHADE_BWD)
 
 
 def reset_counts():
@@ -155,28 +156,36 @@ def pack_shade_cfg(static, min_depth: int, rr_threshold: float,
     return words
 
 
-def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
-                 rr_threshold: float):
-    """K3: [IN_COLS, N] -> [OUT_COLS, N] on the card."""
+def _shade_args(xt, ltab, mtab, stab, static, min_depth, rr_threshold):
+    """Checked, contiguous, detached inputs of K3 / K4 and the packed
+    ShadeCfg."""
     from arendur_tpu_torch.render import cbounce as cb
     from arendur_tpu_torch.shapes import sphere as sph
-    lib = build.load()
-    xt = xt.detach().contiguous()
-    ltab = ltab.detach().contiguous()
-    mtab = mtab.detach().contiguous()
-    stab = stab.detach().contiguous()
+    xt, ltab, mtab, stab = (t.detach().contiguous()
+                            for t in (xt, ltab, mtab, stab))
     n = xt.shape[1]
     _check(xt, "xt", shape=(cb.IN_COLS, n))
     _check(ltab, "ltab")
     _check(mtab, "mtab", shape=(mtab.shape[0], 16))
     _check(stab, "stab", shape=(stab.shape[0], 24))
-    nl, cl = ltab.shape
     smem = 4 * (ltab.numel() + mtab.numel() + stab.numel())
     if smem > SMEM_LIMIT:
         raise ValueError(f"scene tables take {smem} B, more than the "
                          f"{SMEM_LIMIT} B of shared memory a block has")
     cfg = pack_shade_cfg(static, min_depth, rr_threshold,
                          sph.THETA_UNIFORM_COMPAT)
+    return xt, ltab, mtab, stab, cfg
+
+
+def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
+                 rr_threshold: float):
+    """K3: [IN_COLS, N] -> [OUT_COLS, N] on the card."""
+    from arendur_tpu_torch.render import cbounce as cb
+    lib = build.load()
+    xt, ltab, mtab, stab, cfg = _shade_args(xt, ltab, mtab, stab, static,
+                                            min_depth, rr_threshold)
+    n = xt.shape[1]
+    nl, cl = ltab.shape
     out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
     code = lib.arendur_bounce_shade(
         xt.data_ptr(), ltab.data_ptr(), nl, cl, mtab.data_ptr(),
@@ -186,3 +195,58 @@ def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
     BOUNCE_SHADE.launched()
     return out
 
+
+# K4's tape: nodes per lane (a fuzzed lane records up to ~2,300, a
+# camera-wave lane ~940) and the most lanes in flight at once (their
+# tapes take TAPE_CAP * 16 bytes each; the kernel walks larger waves in
+# turns).  BWD_BLOCK and RED_LANES are kernels/cbounce_bwd.cu's.
+TAPE_CAP = 4096
+TAPE_THREADS = 1 << 16
+BWD_BLOCK = 128
+RED_LANES = 256
+
+
+def bounce_shade_bwd(xt, ltab, mtab, stab, ct, static, min_depth: int,
+                     rr_threshold: float, stats: dict = None):
+    """K4: the VJP of K3 for the output cotangent ct [OUT_COLS, N] on
+    the card: (dx [IN_COLS, N], dltab, dmtab, dstab).  A lane whose
+    forward needs more than TAPE_CAP tape nodes comes back NaN.  stats,
+    when given, receives "nodes": an int64 device tensor [2], the most
+    tape nodes a lane used and their sum over lanes (reading it syncs)."""
+    from arendur_tpu_torch.render import cbounce as cb
+    lib = build.load()
+    xt, ltab, mtab, stab, cfg = _shade_args(xt, ltab, mtab, stab, static,
+                                            min_depth, rr_threshold)
+    n = xt.shape[1]
+    ct = ct.detach().to(torch.float32).contiguous()
+    _check(ct, "ct", shape=(cb.OUT_COLS, n))
+    nl, cl = ltab.shape
+    nm, ns = mtab.shape[0], stab.shape[0]
+    dev = xt.device
+    threads = min(TAPE_THREADS, -(-n // BWD_BLOCK) * BWD_BLOCK)
+    f32 = dict(dtype=torch.float32, device=dev)
+    par = torch.empty(TAPE_CAP * threads, dtype=torch.int32, device=dev)
+    da, db, adj = (torch.empty(TAPE_CAP * threads, **f32) for _ in range(3))
+    p = 16 + 2 * cl + 24
+    lane_tab = torch.zeros(n, p, **f32)
+    lane_rows = torch.empty(4, n, dtype=torch.int32, device=dev)
+    nblk = -(-n // RED_LANES)
+    partials = torch.empty(nblk, 16 * nm + 2 * nl * cl + 24 * ns, **f32)
+    dx = torch.empty(cb.IN_COLS, n, **f32)
+    dlt = torch.zeros(nl, cl, **f32)
+    dmt = torch.zeros(nm, 16, **f32)
+    dst = torch.zeros(ns, 24, **f32)
+    nodes = torch.zeros(2, dtype=torch.int64, device=dev)
+    code = lib.arendur_bounce_shade_bwd(
+        xt.data_ptr(), ct.data_ptr(), ltab.data_ptr(), nl, cl,
+        mtab.data_ptr(), nm, stab.data_ptr(), ns, n,
+        cfg.ctypes.data_as(ctypes.c_void_p), par.data_ptr(), da.data_ptr(),
+        db.data_ptr(), adj.data_ptr(), threads, TAPE_CAP, dx.data_ptr(),
+        lane_tab.data_ptr(), lane_rows.data_ptr(), partials.data_ptr(),
+        dlt.data_ptr(), dmt.data_ptr(), dst.data_ptr(), nodes.data_ptr(),
+        _stream(xt))
+    _raise_on(code, "bounce_shade_bwd")
+    BOUNCE_SHADE_BWD.launched()
+    if stats is not None:
+        stats["nodes"] = nodes
+    return dx, dlt, dmt, dst

@@ -2,7 +2,9 @@
 src/material/).
 
 Materials are rows of a host-side NumPy table; ``param_table`` packs
-them into the [M,16] rows the bounce shade reads, and
+them into the [M,16] rows the bounce shade reads (``param_table_t``:
+the same rows as a tensor whose kd / ks / roughness columns may carry
+gradient), and
 ``slot_presence`` / ``dist_presence`` derive the host-static sets of
 BSDF families and microfacet models the table can produce.  The
 per-lane recipe (``build_slots``) lives with the bounce body in
@@ -20,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from arendur_tpu_torch.bxdf.types import (
     T_LAMBERT_R, T_LAMBERT_T, T_OREN_NAYAR, T_FRESNEL_SPEC,
@@ -133,6 +136,19 @@ def param_table(table: MaterialTable) -> np.ndarray:
     ], axis=1)
     return np.concatenate(
         [pack, np.zeros((pack.shape[0], 1), np.float32)], axis=1)
+
+
+def param_table_t(table: MaterialTable, device, kd=None, ks=None,
+                  roughness=None) -> torch.Tensor:
+    """The [M,16] rows of ``param_table`` as a tensor on device, with
+    the kd [M,3], ks [M,3] and roughness [M] columns taken from the
+    given tensors where they are given (they may require grad; the
+    gradient flows into them through the rows)."""
+    base = torch.as_tensor(param_table(table), device=device)
+    col = lambda t, lo, hi: base[:, lo:hi] if t is None \
+        else t.reshape(-1, hi - lo).to(base.dtype)
+    return torch.cat([base[:, 0:1], col(kd, 1, 4), col(ks, 4, 7),
+                      base[:, 7:8], col(roughness, 8, 9), base[:, 9:]], 1)
 
 
 # Which microfacet distribution each material recipe assigns to each

@@ -12,9 +12,11 @@ offset — reads one [IN_COLS=58, N] input and writes one
 dispatches on the input's device: a CUDA tensor launches the
 hand-written kernel (kernels/cbounce.cu, which replaces the Pallas
 kernel ``cbounce._kernel``), a CPU tensor runs the plain version.
-Gradients: the kernel's autograd.Function backward runs autograd over
-the plain version on the saved inputs, as the JAX package does with
-ARENDUR_CBWD=0; the hand-written backward kernel is not ported yet.
+Gradients: on CUDA tensors the kernel's autograd.Function backward
+launches the hand-written backward kernel (kernels/cbounce_bwd.cu,
+which replaces the Pallas kernel ``cbounce._bwd_kernel``); on CPU
+tensors autograd runs over the plain body.  ``cbody_vjp_reference`` is
+the backward kernel's plain version.
 
 Scene-table rows are direct indexed loads (no row cap).
 """
@@ -397,6 +399,14 @@ def _intersect_local_sphere(o, d, tmax, radius, zmin, zmax, phimax,
     return ok & ~clipped, t, p
 
 
+def _masked_ratio(hit, num, den):
+    """num / den where hit and the ratio is finite, else 0 (double
+    where: the lanes that are not kept divide 0 by 1, so their zero
+    cotangent meets no infinite partial and stays 0)."""
+    ok = hit & torch.isfinite(num.detach() / den.detach())
+    return W(ok, W(ok, num, 0.0) / W(ok, den, 1.0), 0.0)
+
+
 def light_pdf_wi_rows(lrow: CRow, present, pos, wi,
                       full_phi_spheres: bool = False):
     """Twin: nee.light_pdf_wi_rows."""
@@ -418,9 +428,8 @@ def light_pdf_wi_rows(lrow: CRow, present, pos, wi,
         area_s = (lrow.col1("s_phimax") * radius
                   * (lrow.col1("s_zmax") - lrow.col1("s_zmin")))
         d2_s = vlength2(vsub(p_l, pos_l))
-        pdf_s = d2_s / (cm._max(torch.abs(vdot(wi_l, n_l)), 1e-20)
-                        * area_s)
-        pdf_s = W(hit_s & torch.isfinite(pdf_s), pdf_s, 0.0)
+        den_s = cm._max(torch.abs(vdot(wi_l, n_l)), 1e-20) * area_s
+        pdf_s = _masked_ratio(hit_s, d2_s, den_s)
     else:
         pdf_s = zero1
 
@@ -446,8 +455,8 @@ def light_pdf_wi_rows(lrow: CRow, present, pos, wi,
         area_t = 0.5 * torch.sqrt(cm._max(vlength2(vcross(e1, e2)),
                                           1e-30))
         d2_t = t_t * t_t
-        pdf_t = d2_t / (cm._max(torch.abs(vdot(wi, ng)), 1e-20) * area_t)
-        pdf_t = W(hit_t & torch.isfinite(pdf_t), pdf_t, 0.0)
+        den_t = cm._max(torch.abs(vdot(wi, ng)), 1e-20) * area_t
+        pdf_t = _masked_ratio(hit_t, d2_t, den_t)
     else:
         pdf_t = zero1
 
@@ -764,10 +773,25 @@ def cbody_reference(xt, ltab, mtab, stab, static: sc.ShadeStatic,
     return torch.stack(outs, dim=0)
 
 
+def cbody_vjp_reference(xt, ltab, mtab, stab, ct, static: sc.ShadeStatic,
+                        min_depth: int, rr_threshold: float):
+    """Plain PyTorch version of the bounce-shade backward kernel:
+    autograd over the body for the output cotangent ct [OUT_COLS, N].
+    Returns (dx [IN_COLS, N], dltab, dmtab, dstab); inputs the body
+    does not differentiate get zeros, as jax.vjp gives them."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (xt, ltab, mtab, stab)]
+        out = cbody_reference(*ins, static, min_depth, rr_threshold)
+        grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, ins))
+
+
 class _BounceShadeKernel(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Backward: autograd over the plain
-    body on the saved inputs (the hand-written backward kernel is not
-    ported yet)."""
+    """Forward: the bounce-shade kernel (K3).  Backward: the hand-written
+    backward kernel (K4), which replaces the Pallas kernel
+    cbounce._bwd_kernel."""
 
     @staticmethod
     def forward(ctx, xt, ltab, mtab, stab, static, min_depth,
@@ -780,12 +804,9 @@ class _BounceShadeKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from arendur_tpu_torch.kernels import ops
         xt, ltab, mtab, stab = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True)
-                   for t in (xt, ltab, mtab, stab)]
-            out = cbody_reference(*ins, *ctx.cfg)
-            grads = torch.autograd.grad(out, ins, g, allow_unused=True)
+        grads = ops.bounce_shade_bwd(xt, ltab, mtab, stab, g, *ctx.cfg)
         return tuple(grads) + (None, None, None)
 
 

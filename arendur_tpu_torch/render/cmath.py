@@ -379,9 +379,16 @@ def mf_distribution(dist, wh, ax, ay, dists=None):
              _d_trowbridge(wh, ax, ay))
 
 
+def _sqrt_nz(x):
+    """sqrt whose derivative stays finite at x == 0 (double where; the
+    value is sqrt(x) everywhere, 0 at 0)."""
+    zero = x == 0.0
+    return W(zero, 0.0, torch.sqrt(W(zero, 1.0, x)))
+
+
 def _lambda_beckmann(w, ax, ay):
     tant = torch.abs(tan_theta(w))
-    alpha = torch.sqrt(cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay)
+    alpha = _sqrt_nz(cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay)
     a = 1.0 / _max(alpha * tant, 1e-20)
     poly = (1.0 - 1.259 * a + 0.396 * a * a) / (3.535 * a + 2.181 * a * a)
     val = W(a >= 1.6, 0.0, poly)
@@ -390,7 +397,7 @@ def _lambda_beckmann(w, ax, ay):
 
 def _lambda_trowbridge(w, ax, ay):
     tabs = torch.abs(tan_theta(w))
-    alpha = torch.sqrt(cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay)
+    alpha = _sqrt_nz(cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay)
     term = _min(alpha * tabs, 1e15)
     val = 0.5 * (-1.0 + torch.sqrt(1.0 + term * term))
     return W(torch.isfinite(tabs), val, 0.0)
@@ -824,6 +831,22 @@ def _ashikhmin_pdf(alpha, dist, wo, wi, dists=None):
     return W(wo[2] * wi[2] < 0.0, 0.0, pdf)
 
 
+# (alpha, eta0, eta1) a microfacet or Fresnel family is evaluated with
+# on the lanes whose slot holds another family.  Every family runs on
+# every lane and torch.where keeps the right one; with the other slot's
+# parameters (alpha 0, eta 0) the discarded evaluation divides by zero,
+# and its zero cotangent times that infinity is a NaN that reaches the
+# shared inputs (wo, wi, roughness).  Finite stand-ins keep the
+# backward finite (the double-where discipline of DESIGN §5); the
+# selected lanes see their own parameters, so the forward is unchanged.
+_SAFE_P = (0.5, 1.0, 1.5)
+
+
+def _family_params(m, p0, p1, p2):
+    return (W(m, p0, _SAFE_P[0]), W(m, p1, _SAFE_P[1]),
+            W(m, p2, _SAFE_P[2]))
+
+
 def slot_eval_pdf_fused(stype, c0, c1, p0, p1, p2, dist, wo, wi,
                         present=None, dist_sets=None):
     """Twin: slots.slot_eval_pdf_fused."""
@@ -831,26 +854,27 @@ def slot_eval_pdf_fused(stype, c0, c1, p0, p1, p2, dist, wo, wi,
     zero3 = vzero_like(p0)
     fd = lambda *ts: _fam_dists(dist_sets, *ts)
     fams = (
-        (T_LAMBERT_R, lambda: (vscale(c0, INV_PI),
-                               _cos_pdf_same(wo, wi))),
-        (T_OREN_NAYAR, lambda: (_oren_nayar_eval(c0, p0, p1, wo, wi),
-                                _cos_pdf_same(wo, wi))),
-        (T_LAMBERT_T, lambda: (vscale(c0, INV_PI),
-                               _cos_pdf_opposite(wo, wi))),
-        (T_TS_R, lambda: _ts_r_eval_pdf(c0, p0, p1, p2, dist, wo, wi,
-                                        fd(T_TS_R))),
-        (T_TS_T, lambda: _ts_t_eval_pdf(c0, p0, p1, p2, dist, wo, wi,
-                                        fd(T_TS_T))),
-        (T_ASHIKHMIN, lambda: _ashikhmin_eval_pdf(
-            c0, c1, p0, dist, wo, wi, fd(T_ASHIKHMIN))),
+        (T_LAMBERT_R, lambda m: (vscale(c0, INV_PI),
+                                 _cos_pdf_same(wo, wi))),
+        (T_OREN_NAYAR, lambda m: (_oren_nayar_eval(c0, p0, p1, wo, wi),
+                                  _cos_pdf_same(wo, wi))),
+        (T_LAMBERT_T, lambda m: (vscale(c0, INV_PI),
+                                 _cos_pdf_opposite(wo, wi))),
+        (T_TS_R, lambda m: _ts_r_eval_pdf(
+            c0, *_family_params(m, p0, p1, p2), dist, wo, wi, fd(T_TS_R))),
+        (T_TS_T, lambda m: _ts_t_eval_pdf(
+            c0, *_family_params(m, p0, p1, p2), dist, wo, wi, fd(T_TS_T))),
+        (T_ASHIKHMIN, lambda m: _ashikhmin_eval_pdf(
+            c0, c1, _family_params(m, p0, p1, p2)[0], dist, wo, wi,
+            fd(T_ASHIKHMIN))),
     )
     f_out = zero3
     p_out = zero1
     for t, fn in fams:
         if present is not None and t not in present:
             continue
-        fv, pv = fn()
         m = stype == t
+        fv, pv = fn(m)
         f_out = vwhere(m, fv, f_out)
         p_out = W(m, pv, p_out)
     return f_out, p_out
@@ -893,13 +917,14 @@ def slot_sample(stype, c0, c1, p0, p1, p2, dist, wo, u, present=None,
         wi_mirror = (-wo[0], -wo[1], wo[2])
 
     if has(T_FRESNEL_SPEC):
-        fr = fresnel_dielectric(cth, p0, p1)
+        q0, q1, _ = _family_params(stype == T_FRESNEL_SPEC, p0, p1, p2)
+        fr = fresnel_dielectric(cth, q0, q1)
         refl = ux < fr
         f_refl = vscale(c0, _fin(fr / _max(torch.abs(cth), 1e-20)))
         pdf_refl = fr
         entering = cth > 0.0
-        etai = W(entering, p0, p1)
-        etao = W(entering, p1, p0)
+        etai = W(entering, q0, q1)
+        etao = W(entering, q1, q0)
         zsign = W(entering, 1.0, -1.0)
         zeros = torch.zeros_like(zsign)
         nrm = (zeros, zeros, zsign)
@@ -919,27 +944,29 @@ def slot_sample(stype, c0, c1, p0, p1, p2, dist, wo, u, present=None,
 
     fd = lambda *ts: _fam_dists(dist_sets, *ts)
     if has(T_TS_R, T_TS_T):
-        wh_r = sgv(mf_sample_wh(dist, wo, u, p0, p0, fd(T_TS_R, T_TS_T)))
+        q0, q1, q2 = _family_params((stype == T_TS_R) | (stype == T_TS_T),
+                                    p0, p1, p2)
+        wh_r = sgv(mf_sample_wh(dist, wo, u, q0, q0, fd(T_TS_R, T_TS_T)))
     if has(T_TS_R):
         wi_tsr = sgv(vnormalize(
             vsub(vscale(wh_r, 2.0 * vdot(wo, wh_r)), wo)))
-        pdf_tsr = mf_pdf_wh(dist, wo, wh_r, p0, p0, fd(T_TS_R)) \
+        pdf_tsr = mf_pdf_wh(dist, wo, wh_r, q0, q0, fd(T_TS_R)) \
             / (4.0 * vdot(wo, wh_r))
         pdf_tsr = W(torch.isfinite(pdf_tsr), pdf_tsr, 0.0)
         f_tsr = vwhere(wo[2] * wi_tsr[2] <= 0.0, vzero_like(ux),
-                       _ts_r_eval(c0, p0, p1, p2, dist, wo, wi_tsr,
+                       _ts_r_eval(c0, q0, q1, q2, dist, wo, wi_tsr,
                                   fd(T_TS_R)))
         table[T_TS_R] = (f_tsr, wi_tsr, pdf_tsr,
                          full(KIND_OF_TYPE[T_TS_R]))
     if has(T_TS_T):
-        eta_tst = W(wo[2] > 0.0, _csafe_ratio(p1, p2),
-                    _csafe_ratio(p2, p1))
+        eta_tst = W(wo[2] > 0.0, _csafe_ratio(q1, q2),
+                    _csafe_ratio(q2, q1))
         wi_tst, ok_tst = refract(wo, wh_r, eta_tst.detach())
         wi_tst = sgv(wi_tst)
-        pdf_tst = W(ok_tst, _ts_t_pdf(p0, p1, p2, dist, wo, wi_tst,
+        pdf_tst = W(ok_tst, _ts_t_pdf(q0, q1, q2, dist, wo, wi_tst,
                                       fd(T_TS_T)), 0.0)
         f_tst = vwhere(ok_tst,
-                       _ts_t_eval(c0, p0, p1, p2, dist, wo, wi_tst,
+                       _ts_t_eval(c0, q0, q1, q2, dist, wo, wi_tst,
                                   fd(T_TS_T)), vzero_like(ux))
         table[T_TS_T] = (f_tst, wi_tst, pdf_tst,
                          full(KIND_OF_TYPE[T_TS_T]))
@@ -948,7 +975,8 @@ def slot_sample(stype, c0, c1, p0, p1, p2, dist, wo, u, present=None,
         spec_path = ux < 0.5
         u_spec = (torch.clamp(ux * 2.0, 0.0, 0.999999), u[1])
         u_diff = (torch.clamp((1.0 - ux) * 2.0, 0.0, 0.999999), u[1])
-        wh_a = sgv(mf_sample_wh(dist, wo, u_spec, p0, p0,
+        a0, _, _ = _family_params(stype == T_ASHIKHMIN, p0, p1, p2)
+        wh_a = sgv(mf_sample_wh(dist, wo, u_spec, a0, a0,
                                 fd(T_ASHIKHMIN)))
         wi_as = sgv(vnormalize(
             vsub(vscale(wh_a, 2.0 * vdot(wo, wh_a)), wo)))
@@ -958,16 +986,18 @@ def slot_sample(stype, c0, c1, p0, p1, p2, dist, wo, u, present=None,
                        wi_ad_raw)
         wi_ash = sgv(vwhere(spec_path, wi_as, wi_ad))
         bad_spec = spec_path & (wo[2] * wi_ash[2] <= 0.0)
-        pdf_ash = _ashikhmin_pdf(p0, dist, wo, wi_ash, fd(T_ASHIKHMIN))
+        pdf_ash = _ashikhmin_pdf(a0, dist, wo, wi_ash, fd(T_ASHIKHMIN))
         f_ash = vwhere(bad_spec, vzero_like(ux),
-                       _ashikhmin_eval(c0, c1, p0, dist, wo, wi_ash,
+                       _ashikhmin_eval(c0, c1, a0, dist, wo, wi_ash,
                                        fd(T_ASHIKHMIN)))
         table[T_ASHIKHMIN] = (f_ash, wi_ash, pdf_ash,
                               full(KIND_OF_TYPE[T_ASHIKHMIN]))
 
     if has(T_SPECULAR_R, T_SPECULAR_T):
         cos_r = cos_theta(wi_mirror)
-        fr_sr = fresnel_dielectric(cos_r, p0, p1)
+        s0, s1, _ = _family_params(
+            (stype == T_SPECULAR_R) | (stype == T_SPECULAR_T), p0, p1, p2)
+        fr_sr = fresnel_dielectric(cos_r, s0, s1)
         inv_c = _fin(1.0 / _max(torch.abs(cos_r), 1e-20))
         if has(T_SPECULAR_R):
             table[T_SPECULAR_R] = (

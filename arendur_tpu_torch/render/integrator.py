@@ -111,7 +111,10 @@ def _tri_closest(scene: sc.DeviceScene, o, d, n_alive, ops: WaveOps):
 def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
                   ops: WaveOps = KERNEL_OPS) -> dict:
     """Raw closest hit for the bounce shade (twin: scene.intersect_raw):
-    dict(t, hit, is_sphere, s_idx, p_local, trow [N,26])."""
+    dict(t, hit, is_sphere, s_idx, p_local, trow [N,26]).  The ray
+    geometry is detached, as in the JAX package (detached-sampling
+    estimator): no gradient reaches t or p_local from o and d."""
+    o, d = o.detach(), d.detach()
     t_tri, tri_idx = _tri_closest(scene, o, d, n_alive, ops)
     trow = scene.tpack[torch.clamp(tri_idx, min=0)]
     sp = sph.intersect_spheres(scene.spheres, o, d, t_tri)
@@ -127,7 +130,9 @@ def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
 def intersect_light(scene: sc.DeviceScene, o, d, n_alive=None,
                     ops: WaveOps = KERNEL_OPS):
     """What the final deferred-MIS pass needs of a closest hit: (hit,
-    light_id) with light_id -1 where the hit is no light."""
+    light_id) with light_id -1 where the hit is no light (ray geometry
+    detached, as in intersect_raw)."""
+    o, d = o.detach(), d.detach()
     t_tri, tri_idx = _tri_closest(scene, o, d, n_alive, ops)
     light_tri = scene.tpack[torch.clamp(tri_idx, min=0), 25].to(torch.int64)
     sp = sph.intersect_spheres(scene.spheres, o, d, t_tri)
@@ -141,7 +146,9 @@ def intersect_light(scene: sc.DeviceScene, o, d, n_alive=None,
 
 def occluded(scene: sc.DeviceScene, o, d, tmax, n_alive=None,
              ops: WaveOps = KERNEL_OPS) -> torch.Tensor:
-    """Shadow any-hit against triangles and spheres."""
+    """Shadow any-hit against triangles and spheres (ray geometry
+    detached, as in intersect_raw)."""
+    o, d, tmax = o.detach(), d.detach(), tmax.detach()
     blocked = ops.any_hit(scene.cw, scene.cbox, o, d, tmax,
                           n_alive=n_alive)
     return blocked | sph.intersect_spheres(scene.spheres, o, d, tmax)["hit"]

@@ -484,6 +484,7 @@ class DeviceScene:
     light_func: torch.Tensor      # [L]
     light_func_int: float
     static: ShadeStatic
+    materials: mats.MaterialTable  # the NumPy rows mtab was packed from
 
     @staticmethod
     def build(scene: SceneData, device) -> "DeviceScene":
@@ -505,4 +506,4 @@ class DeviceScene:
             spheres=sph.DeviceSpheres.from_soa(scene.spheres, device),
             light_cdf=t(dist.cdf), light_func=t(dist.func),
             light_func_int=float(dist.func_int),
-            static=shade_static(scene))
+            static=shade_static(scene), materials=scene.materials)

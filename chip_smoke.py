@@ -16,8 +16,25 @@ Phases, one line each:
      (tests/data/cornell_golden_128x96.npy) and against the same render
      on the plain path; every kernel must have launched in it;
   6. throughput at 256x256, 16 spp, depth 8 (waves of 65,536 paths) on
-     the kernel path and on the plain path.
-Then one JSON line per kernel set, the card line, and the result line.
+     the kernel path and on the plain path;
+  7. the bounce-shade backward (K4) against its plain version (autograd
+     over the plain body) for a seeded random output cotangent, on the
+     three input sets of phase 4, twice for bit-identical table
+     cotangents;
+  8. the material-fitting train step (parallel/mesh.py): at 64x48,
+     32 spp, depth 8 with kd, ks and roughness, loss and gradients of
+     the kernel path (K1-K4) against the plain path; every kernel must
+     have launched in that step.  Then at 256x256, 16 spp, depth 8,
+     waves of 65,536, kd only, against phase 6's image: fwd+bwd paths/s
+     of the kernel path and of the plain-backward path (the K1-K3
+     forward, the backward by autograd over the plain body), the loss
+     on one wave before and after the steps, and the device busy share
+     of one kernel-path step from a torch.profiler trace.
+Then the kernels JSON line (each kernel's launches in the kernel-path
+train step of phase 8, its times, and its bound: the larger of the
+bytes it must move over 3.35 TB/s and the operations this run's inputs
+need over 67 TFLOP/s of f32, the H100 SXM's data-sheet peaks), the
+card line, and the result line.
 Any failure raises; the exit code is then non-zero and no result line
 is printed.  ``--out DIR`` also writes the measurements
 (chip_smoke.json) and the kernel-path image (.npy) into DIR.
@@ -40,6 +57,15 @@ K3_RTOL, K3_ATOL = 1e-4, 1e-5
 MSE_DS4_GATE = 1.7e-3    # golden gate of tests/test_golden.py
 MEAN_GATE = 0.018
 PLAIN_ATOL = 3e-3        # kernel path vs plain path, per pixel
+K4_GATE = 0.999          # share of dx entries within rtol 1e-3 / atol 1e-5
+K4_RTOL, K4_ATOL = 1e-3, 1e-5   # summation order differs from autograd's
+TAB_GATE = 1e-3          # ||d - d_plain|| / ||d_plain||, table cotangents
+GRAD_GATE = 1e-3         # train step: ||g - g_plain|| / ||g_plain||
+GRAD_LR = 1e3            # the step size the gradients are read back with
+PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_S = 67e12       # H100 SXM f32, outside the tensor cores
+TRI_FLOPS = 128          # K1/K2: four 16-term dot products per triangle
+FORWARD_KERNELS = ("closest_hit", "any_hit", "bounce_shade")
 
 
 def _say(msg):
@@ -66,6 +92,100 @@ def time_ms(fn, iters=10):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def bound_ms(nbytes, nops):
+    """The least time for this work on the card, and what bounds it."""
+    tb, to = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def slab_pairs(cbox, o, d, bound):
+    """(ray, cluster) pairs whose box a ray enters before `bound`: the
+    clusters K1 / K2 must test, each of K triangles."""
+    import torch
+    inv = torch.where(d.abs() < 1e-30,
+                      torch.where(d < 0, -1e30, 1e30), 1.0 / d)
+    t0 = (cbox[None, :, 0:3] - o[:, None]) * inv[:, None]
+    t1 = (cbox[None, :, 3:6] - o[:, None]) * inv[:, None]
+    tn = torch.minimum(t0, t1).amax(-1)
+    tf = torch.maximum(t0, t1).amin(-1)
+    ok = (tn <= tf) & (tf >= 0) & (tn <= bound[:, None])
+    return int(ok.sum())
+
+
+def ptxas_report(logs):
+    """Registers, stack and spills of each kernel entry, from nvcc's
+    -Xptxas -v output."""
+    out = {}
+    for log in logs:
+        name = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                if name:
+                    out[name] = out[name].strip("; ")
+                name = next((k for k in ("bounce_shade_bwd_kernel",
+                                         "table_partials_kernel",
+                                         "table_reduce_kernel",
+                                         "bounce_shade_kernel",
+                                         "closest", "any")
+                             if k in line), line.split("'")[1][:40])
+                out[name] = ""
+            elif name and ("Used" in line or ("stack frame" in line
+                                              and not out[name])):
+                out[name] += " ".join(line.replace("ptxas info    :",
+                                                   "").split()) + "; "
+                if "Used" in line:
+                    name = None
+    return {k: v.strip("; ") for k, v in out.items()}
+
+
+def plain_backward_shade():
+    """The bounce shade with the K3 forward and the backward of PR 1,
+    autograd over the plain body: the plain-backward leg of phase 8."""
+    import torch
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.render import cbounce as cb
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, xt, ltab, mtab, stab, static, md, rr):
+            ctx.save_for_backward(xt, ltab, mtab, stab)
+            ctx.cfg = (static, md, rr)
+            return ops.bounce_shade(xt, ltab, mtab, stab, static, md, rr)
+
+        @staticmethod
+        def backward(ctx, g):
+            grads = cb.cbody_vjp_reference(*ctx.saved_tensors, g, *ctx.cfg)
+            return tuple(grads) + (None, None, None)
+
+    return Fn.apply
+
+
+def _busy_s(prof):
+    """Device time of a profile: the union of its kernel intervals
+    (a sum of key_averages() would count an op's kernels twice), their
+    count, and the time of the port's own kernels by name."""
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.time_range.end > 0]
+    own = {}
+    for e in events:
+        for k in ("bounce_shade_bwd", "table_", "bounce_shade_kernel",
+                  "cluster_kernel"):
+            if k in e.name:
+                own[k] = own.get(k, 0.0) + 1e-6 * (e.time_range.end
+                                                   - e.time_range.start)
+                break
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy * 1e-6, len(spans), own
 
 
 def _block_mean(a, f):
@@ -109,10 +229,12 @@ def main(argv=None):
 
     # phase 2
     t0 = time.perf_counter()
-    path = build.build(verbose=False)
+    built = build.build(report=True)
     build.load()
+    ptxas = ptxas_report([log for _, log in built])
     _say(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
-         f"({os.path.relpath(path, REPO)})")
+         f"({', '.join(os.path.relpath(p, REPO) for p, _ in built)}); "
+         + " | ".join(f"{k}: {v}" for k, v in ptxas.items()))
 
     cb_json = os.path.join(REPO, "examples/cornellbox/cb.json")
     scene, camera, film_cfg, config, _ = scenedesc.parse_scene(
@@ -163,8 +285,13 @@ def main(argv=None):
                                             tinf))
     k1_plain = time_ms(lambda: ci.intersect_clusters_reference(
         ds.cw, ds.cbox, o_cam, d_cam, tinf))
+    t_cam, _ = ops.closest_hit(ds.cw, ds.cbox, o_cam, d_cam, tinf)
+    k1_bytes = (4 * n * (7 + 2) + 4 * ds.cw.numel() + 4 * ds.cbox.numel())
+    k1_ops = TRI_FLOPS * ds.cw.shape[2] // 4 * slab_pairs(ds.cbox, o_cam,
+                                                          d_cam, t_cam)
     kern_rows["closest_hit"] = dict(
-        max_abs_err=max(r[3] for r in k1), ms=k1_ms, plain_ms=k1_plain)
+        max_abs_err=max(r[3] for r in k1), ms=k1_ms, plain_ms=k1_plain,
+        bound=bound_ms(k1_bytes, k1_ops))
 
     # real shadow rays: the first bounce of the wave, on the plain path
     carry = integ.initial_carry(o_cam, d_cam, ws.keys)
@@ -194,9 +321,11 @@ def main(argv=None):
     k2_ms = time_ms(lambda: ops.any_hit(ds.cw, ds.cbox, *sh))
     k2_plain = time_ms(lambda: ci.occluded_clusters_reference(
         ds.cw, ds.cbox, *sh))
+    k2_bytes = 4 * n * (7 + 1) + 4 * ds.cw.numel() + 4 * ds.cbox.numel()
+    k2_ops = TRI_FLOPS * ds.cw.shape[2] // 4 * slab_pairs(ds.cbox, *sh)
     kern_rows["any_hit"] = dict(
         max_abs_err=max(float(r[1] < 1.0) for r in k2), ms=k2_ms,
-        plain_ms=k2_plain)
+        plain_ms=k2_plain, bound=bound_ms(k2_bytes, k2_ops))
     _say("[3] K1 " + "; ".join(
         f"{nm}: slots agree {fr:.6f}, max t rel {tr:.2e}, hit {h:.3f}"
         for nm, fr, tr, _, h in k1) + f"; {k1_ms:.3f} ms vs plain "
@@ -238,6 +367,7 @@ def main(argv=None):
     k3_plain = time_ms(lambda: cb.cbody_reference(x0, *args0), iters=3)
     kern_rows["bounce_shade"] = dict(max_abs_err=k3_err, ms=k3_ms,
                                      plain_ms=k3_plain)
+    tab_bytes = 4 * (ds.ltab.numel() + ds.mtab.numel() + ds.stab.numel())
     _say("[4] K3 " + "; ".join(
         f"{nm}: close {fr:.6f}, flags {fl:.6f}, bit-exact {ex:.4f}"
         for nm, fr, fl, ex in k3) + f"; {k3_ms:.3f} ms vs plain "
@@ -271,7 +401,7 @@ def main(argv=None):
          f"mse_ds4 {mse_ds4:.3e} (gate {MSE_DS4_GATE}), |dmean| "
          f"{dmean:.3e} (gate {MEAN_GATE}); max |kernel - plain| "
          f"{dplain:.3e} (gate {PLAIN_ATOL})")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in FORWARD_KERNELS) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if mse_ds4 >= MSE_DS4_GATE or dmean >= MEAN_GATE:
         raise AssertionError("golden gate failed")
@@ -293,9 +423,146 @@ def main(argv=None):
         if not torch.isfinite(img).all():
             raise AssertionError(f"{name} render not finite")
         rates[name] = 256 * 256 * 16 / dt
+        if name == "kernels":
+            img_full = img
     _say(f"[6] throughput 256x256 16spp depth 8: kernels "
          f"{rates['kernels']:.0f} paths/s, plain {rates['plain']:.0f} "
          f"paths/s ({card})")
+
+    # phase 7: K4 against its plain version
+    k4 = []
+    k4_err = 0.0
+    gen = torch.Generator().manual_seed(7)
+    for nm, xt, dsx in cases:
+        args = (dsx.ltab, dsx.mtab, dsx.stab, dsx.static, config.min_depth,
+                config.rr_threshold)
+        ct = torch.randn(cb.OUT_COLS, xt.shape[1], generator=gen).to(dev)
+        stats = {}
+        g_k = ops.bounce_shade_bwd(xt, dsx.ltab, dsx.mtab, dsx.stab, ct,
+                                   *args[3:], stats=stats)
+        g_k2 = ops.bounce_shade_bwd(xt, dsx.ltab, dsx.mtab, dsx.stab, ct,
+                                    *args[3:])
+        g_p = cb.cbody_vjp_reference(xt, dsx.ltab, dsx.mtab, dsx.stab, ct,
+                                     *args[3:])
+        dx, dxp = g_k[0], g_p[0]
+        close = torch.isclose(dx, dxp, rtol=K4_RTOL, atol=K4_ATOL) \
+            | (torch.isnan(dx) & torch.isnan(dxp))
+        frac = close.float().mean().item()
+        rels = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                for a, b in zip(g_k[1:], g_p[1:])]
+        same = all(torch.equal(a, b) for a, b in zip(g_k[1:], g_k2[1:]))
+        most, total = stats["nodes"].tolist()
+        k4_err = max(k4_err, (dx - dxp).abs()[close].max().item())
+        k4_ms = time_ms(lambda: ops.bounce_shade_bwd(
+            xt, dsx.ltab, dsx.mtab, dsx.stab, ct, *args[3:]), iters=5)
+        k4_plain = time_ms(lambda: cb.cbody_vjp_reference(
+            xt, dsx.ltab, dsx.mtab, dsx.stab, ct, *args[3:]), iters=2)
+        k4.append(dict(set=nm, dx_close=frac, table_rel=rels,
+                       tables_bit_identical=same, ms=k4_ms, plain_ms=k4_plain,
+                       nodes_max=most, nodes_total=total))
+        if frac < K4_GATE or max(rels) > TAB_GATE or not same \
+                or most > ops.TAPE_CAP:
+            raise AssertionError(f"K4 {nm}: {k4[-1]}")
+        if nm == "first bounce":
+            lane_bytes = 4 * n * (cb.IN_COLS + cb.OUT_COLS)
+            kern_rows["bounce_shade"]["bound"] = bound_ms(
+                lane_bytes + tab_bytes, total)
+            kern_rows["bounce_shade_bwd"] = dict(
+                max_abs_err=0.0, ms=k4_ms, plain_ms=k4_plain,
+                bound=bound_ms(lane_bytes + 4 * n * cb.IN_COLS
+                               + 2 * tab_bytes, 5 * total))
+    kern_rows["bounce_shade_bwd"]["max_abs_err"] = k4_err
+    _say("[7] K4 " + "; ".join(
+        f"{r['set']}: dx close {r['dx_close']:.6f}, table rel "
+        + "/".join(f"{v:.2e}" for v in r["table_rel"])
+        + f", bit-identical {r['tables_bit_identical']}, {r['ms']:.3f} ms "
+        f"vs plain {r['plain_ms']:.3f} ms, tape nodes max {r['nodes_max']}"
+        f" mean {r['nodes_total'] / n:.0f}" for r in k4))
+
+    # phase 8: the train step
+    from arendur_tpu_torch.parallel import mesh
+    m5 = ds5.materials
+    p5 = {k: torch.tensor(v, device=dev) for k, v in
+          (("kd", m5.kd), ("ks", m5.ks), ("roughness", m5.roughness))}
+    idx5 = torch.arange(64 * 48 * 32, device=dev)
+    target5 = torch.tensor(img_k.reshape(-1, 3), device=dev)
+    grads, losses = {}, {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        # a large step, so that (p - p_new) / lr keeps the gradient to
+        # f32 precision (at lr 0.05 it would round to ulp(p) / 0.05)
+        step = mesh.train_step_fn(ds5, cam5, film5, cfg5, lr=GRAD_LR,
+                                  ops=wops)
+        if name == "kernels":
+            ops.reset_counts()
+        new, loss = step(dict(p5), target5 * 0.8, idx5)
+        torch.cuda.synchronize()
+        if name == "kernels":
+            launches = ops.counts()
+        grads[name] = {k: (p5[k] - new[k]) / GRAD_LR for k in new}
+        losses[name] = loss.item()
+    grel = {k: ((grads["kernels"][k] - grads["plain"][k]).norm()
+                / grads["plain"][k].norm().clamp(min=1e-30)).item()
+            for k in p5}
+    finite = all(torch.isfinite(g).all().item()
+                 for gs in grads.values() for g in gs.values())
+    _say(f"[8] train step 64x48 32spp depth 8: launches {launches}; loss "
+         f"kernels {losses['kernels']:.6e} plain {losses['plain']:.6e}; "
+         "grad rel " + ", ".join(f"{k} {v:.2e}" for k, v in grel.items())
+         + "; grad norm " + ", ".join(
+             f"{k} {v.norm().item():.4e}" for k, v in grads["kernels"].items())
+         + f"; finite {finite}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if not finite or max(grel.values()) > GRAD_GATE:
+        raise AssertionError("train step: kernel and plain gradients differ")
+    if abs(losses["kernels"] - losses["plain"]) > 1e-4 * losses["plain"]:
+        raise AssertionError("train step: losses differ")
+
+    wave = 1 << 16
+    n_waves = 256 * 256 * 16 // wave
+    target = img_full.reshape(-1, 3)
+    kd0 = torch.tensor(scene.materials.kd, device=dev) * 1.25
+    plain_bwd = integ.WaveOps(ci.intersect_clusters, ci.occluded_clusters,
+                              plain_backward_shade())
+    fb = {}
+    for name, wops, reps in (("kernels", integ.KERNEL_OPS, 3),
+                             ("plain backward", plain_bwd, 2)):
+        step = mesh.train_step_fn(ds, camera, film_cfg, config, ops=wops)
+        idx0 = torch.arange(wave, device=dev)
+        kd, loss0 = step(kd0, target, idx0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, reps + 1):
+            kd, _ = step(kd, target, (i % n_waves) * wave + idx0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _, loss1 = step(kd, target, idx0)
+        fb[name] = dict(paths_per_s=reps * wave / dt, loss_before=loss0.item(),
+                        loss_after=loss1.item(), steps=reps)
+        if not fb[name]["loss_after"] < fb[name]["loss_before"]:
+            raise AssertionError(f"{name}: the loss did not fall {fb[name]}")
+    step = mesh.train_step_fn(ds, camera, film_cfg, config)
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(kd0, target, torch.arange(wave, device=dev))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(kd0, target, torch.arange(wave, device=dev))
+        torch.cuda.synchronize()
+    busy, nk, own = _busy_s(prof)
+    _say(f"[8] fwd+bwd 256x256 16spp depth 8, waves of {wave}: "
+         + "; ".join(f"{k} {v['paths_per_s']:.0f} paths/s ({v['steps']} "
+                     f"steps), loss on wave 0 {v['loss_before']:.6e} -> "
+                     f"{v['loss_after']:.6e}" for k, v in fb.items())
+         + f"; one kernel-path step {1e3 * step_s:.1f} ms, device busy "
+         f"{1e3 * busy:.1f} ms in {nk} launches (share "
+         f"{busy / step_s:.2f}), of which "
+         + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in own.items())
+         + f" ({card})")
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -305,16 +572,25 @@ def main(argv=None):
                     "arendur_tpu/shapes/pallas_intersect.py:195"),
         "bounce_shade": (src + "cbounce.cu",
                          "arendur_tpu/render/cbounce.py:955"),
+        "bounce_shade_bwd": (src + "cbounce_bwd.cu",
+                             "arendur_tpu/render/cbounce.py:1051"),
     }
-    rows = [dict(name=k, route="cuda", source=meta[k][0],
-                 replaces=meta[k][1], launches=launches[k],
-                 **kern_rows[k]) for k in ("closest_hit", "any_hit",
-                                           "bounce_shade")]
+    rows = []
+    for k in ("closest_hit", "any_hit", "bounce_shade", "bounce_shade_bwd"):
+        r = dict(kern_rows[k])
+        b_ms, b_by = r.pop("bound")
+        rows.append(dict(name=k, route="cuda", source=meta[k][0],
+                         replaces=meta[k][1], launches=launches[k], **r,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kernels=rows, paths_per_s=rates,
                            mse_ds4=mse_ds4, dmean=dmean, dplain=dplain,
-                           k1=k1, k2=k2, k3=k3), f, indent=1)
+                           k1=k1, k2=k2, k3=k3, k4=k4, ptxas=ptxas,
+                           train_grad_rel=grel, train_losses=losses,
+                           fwd_bwd=fb, step_s=step_s, step_busy_s=busy,
+                           step_kernel_s=own),
+                      f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

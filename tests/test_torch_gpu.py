@@ -31,6 +31,11 @@ T_RTOL = 1e-5          # t where the slots agree (FMA vs cuBLAS order)
 ELEM_GATE = 0.999      # K3: share of elements within RTOL / ATOL
 RTOL, ATOL = 1e-4, 1e-5
 PLAIN_ATOL = 3e-3      # render: kernel path vs plain path, per pixel
+K4_RTOL, K4_ATOL = 1e-3, 1e-5   # K4: summation order differs
+K4_TAB_GATE = 1e-3     # K4: ||d - d_plain|| / ||d_plain||, table cotangents
+GRAD_GATE = 1e-3       # train step: ||g - g_plain|| / ||g_plain||
+GRAD_LR = 1e3          # a step large enough that (p - p_new) / lr keeps
+                       # the gradient to f32 precision
 
 
 @pytest.fixture(scope="module")
@@ -108,19 +113,39 @@ def test_bounce_shade_kernel_matches_plain(card, cornell, which):
 
 
 @pytest.mark.gpu
-def test_bounce_shade_backward_replays_plain_body(card, cornell):
-    ds = cornell[0]
-    mtab = ds.mtab.clone().requires_grad_(True)
+@pytest.mark.parametrize("which", ["cornell", "all-branches"])
+def test_bounce_shade_backward_kernel_matches_plain(card, cornell, which,
+                                                    monkeypatch):
+    """K4 (the CUDA backward) against autograd over the plain body, and
+    the backward never reaches the plain body."""
+    ds = cornell[0] if which == "cornell" else sc.DeviceScene.build(
+        fuzz.all_branches_scene(sc.SceneBuilder()), card)
+    tabs = (ds.ltab, ds.mtab, ds.stab)
     x = torch.tensor(fuzz.fuzz_bounce_inputs(
-        ds.ltab.cpu().numpy(), ds.mtab.cpu().numpy(),
-        ds.stab.cpu().numpy(), seed=4, n=1024).T.copy(), device=card)
-    cb.bounce_shade_t(x, ds.ltab, mtab, ds.stab, ds.static, 4,
-                      0.05)[6:12].sum().backward()
-    g = mtab.grad.clone()
-    mtab.grad = None
-    cb.cbody_reference(x, ds.ltab, mtab, ds.stab, ds.static, 4,
-                       0.05)[6:12].sum().backward()
-    torch.testing.assert_close(g[:, 1:4], mtab.grad[:, 1:4])
+        *(t.cpu().numpy() for t in tabs), seed=4, n=N).T.copy(),
+        device=card)
+    ct = torch.tensor(np.random.default_rng(5).normal(
+        size=(cb.OUT_COLS, N)).astype(np.float32), device=card)
+    ref = cb.cbody_vjp_reference(x, *tabs, ct, ds.static, 4, 0.05)
+
+    def plain_body(*args, **kw):
+        raise AssertionError("the CUDA backward ran the plain body")
+
+    for name in ("cbody", "cbody_reference", "cbody_vjp_reference"):
+        monkeypatch.setattr(cb, name, plain_body)
+    ins = [t.clone().requires_grad_(True) for t in (x,) + tabs]
+    before = ops.BOUNCE_SHADE_BWD.launches
+    out = cb.bounce_shade_t(*ins, ds.static, 4, 0.05)
+    got = torch.autograd.grad(out, ins, ct)
+    assert ops.BOUNCE_SHADE_BWD.launches == before + 1
+    close = torch.isclose(got[0], ref[0], rtol=K4_RTOL, atol=K4_ATOL)
+    assert close.float().mean().item() >= ELEM_GATE
+    for g, r in zip(got[1:], ref[1:]):
+        assert torch.isfinite(g).all()
+        assert ((g - r).norm() / r.norm()).item() <= K4_TAB_GATE
+    again = ops.bounce_shade_bwd(x, *tabs, ct, ds.static, 4, 0.05)
+    for g, a in zip(got[1:], again[1:]):
+        assert torch.equal(g, a)
 
 
 @pytest.mark.gpu
@@ -131,9 +156,34 @@ def test_render_kernel_path_matches_plain_path(card, cornell):
     img_k = integ.render(ds, camera, film, config)
     launches = ops.counts()
     img_p = integ.render(ds, camera, film, config, ops=integ.PLAIN_OPS)
-    assert min(launches.values()) >= 1, launches
+    forward = ("closest_hit", "any_hit", "bounce_shade")
+    assert min(launches[k] for k in forward) >= 1, launches
     assert torch.isfinite(img_k).all() and img_k.max() > 0.05
     torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)
+
+
+@pytest.mark.gpu
+def test_train_step_kernel_path_matches_plain_path(card, cornell):
+    from arendur_tpu_torch.parallel import mesh
+    ds, camera, film, config = cornell
+    config = dataclasses.replace(config, max_depth=4)
+    m = ds.materials
+    params = {k: torch.tensor(v, device=card) for k, v in
+              (("kd", m.kd), ("ks", m.ks), ("roughness", m.roughness))}
+    w, h = film.resolution
+    idx = torch.arange(w * h * config.spp, device=card)
+    target = torch.full((w * h, 3), 0.1, device=card)
+    grads = {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        new, loss = mesh.train_step_fn(ds, camera, film, config, lr=GRAD_LR,
+                                       ops=wops)(dict(params), target, idx)
+        assert torch.isfinite(loss)
+        grads[name] = {k: (params[k] - new[k]) / GRAD_LR for k in new}
+    for k in params:
+        g, gp = grads["kernels"][k], grads["plain"][k]
+        assert torch.isfinite(g).all() and torch.isfinite(gp).all()
+        assert ((g - gp).norm() / gp.norm()).item() <= GRAD_GATE, k
 
 
 @pytest.mark.gpu
