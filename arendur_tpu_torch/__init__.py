@@ -1,9 +1,11 @@
 """arendur_tpu_torch: the PyTorch + CUDA port of arendur_tpu.
 
 The wavefront path tracer's main path (one Cornell-box wave through
-the fused bounce shade) on an NVIDIA H100, with hand-written Hopper
-kernels for closest hit, shadow any-hit and the bounce shade
-(``arendur_tpu_torch/kernels``).  The JAX package ``arendur_tpu``
+the fused bounce shade, or through the hit / texel lookup / shade
+split on textured scenes) and its material-fitting train step on an
+NVIDIA H100, with hand-written Hopper kernels for closest hit, shadow
+any-hit, the bounce shade and its backward, and the two halves of the
+textured bounce (``arendur_tpu_torch/kernels``).  The JAX package ``arendur_tpu``
 stays the reference: every module here keeps its counterpart's name
 and layout, and the tests hold each one against it on the CPU.
 

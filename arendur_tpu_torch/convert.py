@@ -3,7 +3,8 @@
 The JAX package keeps its SceneData, CameraData and FilmConfig leaves
 as NumPy arrays on the host; these functions read those leaves (by
 attribute, without importing JAX) and build the port's objects, so both
-packages can run on identical cluster tables, cameras and films.  This
+packages can run on identical cluster tables, cameras, films and
+texture atlases.  This
 plays the part weight conversion plays in a model port.
 """
 
@@ -17,6 +18,7 @@ from arendur_tpu_torch.filming import camera as cam
 from arendur_tpu_torch.filming import film as flm
 from arendur_tpu_torch.sampling import filters as filt
 from arendur_tpu_torch.shapes import sphere as sph
+from arendur_tpu_torch.texturing import texture as tx
 
 _TRI = ("tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
         "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat", "tri_light")
@@ -77,3 +79,14 @@ def film_from_numpy(film_cfg) -> flm.FilmConfig:
     return flm.FilmConfig(resolution=tuple(film_cfg.resolution),
                           filter=spec, crop_min=tuple(film_cfg.crop_min),
                           crop_max=tuple(film_cfg.crop_max))
+
+
+def atlas_from_numpy(atlas, device="cpu"):
+    """The JAX package's TextureAtlas (its leaves read as NumPy arrays)
+    as the port's, on `device`; None stays None."""
+    if atlas is None:
+        return None
+    return tx.TextureAtlas.from_arrays(
+        *(np.asarray(getattr(atlas, k)) for k in (
+            "texels", "offset", "width", "height", "n_levels", "wrap",
+            "scale", "uv_scale", "uv_shift")), device=device)

@@ -141,3 +141,20 @@ def generate_rays(cam: CameraData, pfilm: torch.Tensor,
     o_world = tf.transform_point(t(cam.view_parent), o)
     d_world = tf.transform_vector(t(cam.view_parent), d)
     return o_world, d_world
+
+
+def generate_ray_differentials(cam: CameraData, pfilm: torch.Tensor,
+                               plens: torch.Tensor):
+    """The main ray and the directions of its x / y differential rays
+    (ref: perspective.rs:292-320): (o, d, rxd, ryd), the differentials
+    sharing the main ray's origin, as in the pinhole reference."""
+    dev = pfilm.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    o, d = generate_rays(cam, pfilm, plens)
+    n = pfilm.shape[0]
+    pfilm3 = torch.cat([pfilm, torch.zeros(n, 1, device=dev)], dim=-1)
+    pview = tf.transform_point(t(cam.raster_view), pfilm3)
+    view_parent = t(cam.view_parent)
+    rxd = tf.transform_vector(view_parent, _normalize(pview + t(cam.dx)))
+    ryd = tf.transform_vector(view_parent, _normalize(pview + t(cam.dy)))
+    return o, d, rxd, ryd

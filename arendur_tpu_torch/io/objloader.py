@@ -12,6 +12,7 @@ each mtl onto a material-table row:
 * otherwise                 -> Plastic(diffuse, specular, roughness)
 
 roughness = clamp((1000 - Ns) / 1000, 0, 1)  (mod.rs:121-123).
+map_Kd / map_Ks / map_bump images go into the builder's texture atlas.
 A default Matte(kd=(0.5, 0.6, 0.7)) backs faces without a material
 (mod.rs:166-172).  Ke is ignored, as in the reference.
 """
@@ -169,39 +170,87 @@ def parse_obj(path: str) -> List[ObjMesh]:
     return meshes
 
 
-def material_row_from_mtl(mtl: Optional[Mtl]) -> dict:
-    """Apply the reference's inference rules (component/mod.rs:139-172).
-    Image maps (map_Kd, map_Ks, bump) are not ported yet and raise."""
+def load_image(path: str) -> Optional[np.ndarray]:
+    """Decode an image file to [H,W,3] float32 in [0,1] (the `image`
+    crate analogue).  Returns None if the file is missing or
+    unreadable."""
+    try:
+        from PIL import Image
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"), np.float32) / 255.0
+        return arr
+    except Exception:
+        return None
+
+
+def texture_id_for(atlas_builder, tex_cache: Dict, base: str,
+                   fname: str, gamma: bool) -> int:
+    """Load and register an image texture, deduplicated by (path,
+    gamma) as the reference's shared mipmap cache is
+    (component/mod.rs:105-148).  -1 where there is no file name, no
+    atlas, or the file cannot be read."""
+    if not fname or atlas_builder is None:
+        return -1
+    path = fname if os.path.isabs(fname) else os.path.join(base, fname)
+    key = (os.path.normpath(path), gamma)
+    if key in tex_cache:
+        return tex_cache[key]
+    img = load_image(path)
+    tid = -1 if img is None else atlas_builder.add_image(img, gamma=gamma)
+    tex_cache[key] = tid
+    return tid
+
+
+def material_row_from_mtl(mtl: Optional[Mtl], atlas_builder=None,
+                          tex_cache=None, base: str = "") -> dict:
+    """Apply the reference's inference rules (component/mod.rs:139-172),
+    loading the diffuse / specular / bump image maps when an atlas
+    builder is given (sRGB-decoded color maps, linear bump,
+    mod.rs:108-137)."""
     from arendur_tpu_torch import materials as mats
     if mtl is None:
         return dict(mtype=mats.M_MATTE, kd=(0.5, 0.6, 0.7), sigma=0.0)
-    if mtl.diffuse_texture or mtl.specular_texture or mtl.bump_texture:
-        raise NotImplementedError(
-            f"material {mtl.name!r}: image textures are not yet ported")
-    kd, ks = mtl.diffuse, mtl.specular
+    tex_cache = tex_cache if tex_cache is not None else {}
+    kd_tex = texture_id_for(atlas_builder, tex_cache, base,
+                            mtl.diffuse_texture, gamma=True)
+    ks_tex = texture_id_for(atlas_builder, tex_cache, base,
+                            mtl.specular_texture, gamma=True)
+    bump_tex = texture_id_for(atlas_builder, tex_cache, base,
+                              mtl.bump_texture, gamma=False)
+    # a textured channel keeps a white constant fallback, as the
+    # reference's ImageTexture-or-Constant arms do (mod.rs:110-120)
+    kd = (1.0, 1.0, 1.0) if kd_tex >= 0 else mtl.diffuse
+    ks = (1.0, 1.0, 1.0) if ks_tex >= 0 else mtl.specular
+    texes = dict(kd_tex=kd_tex, ks_tex=ks_tex, bump_tex=bump_tex)
     roughness = float(np.clip((1000.0 - mtl.shininess) / 1000.0, 0.0, 1.0))
     dissolve = float(np.clip(mtl.dissolve, 0.0, 1.0))
     spec_mean = float(np.mean(mtl.specular))
     if "4" in mtl.illum:
         return dict(mtype=mats.M_GLASS, kd=kd, ks=ks,
-                    roughness=roughness, eta=mtl.optical_density)
+                    roughness=roughness, eta=mtl.optical_density, **texes)
     if abs(dissolve - 1.0) > 1e-6:
         return dict(mtype=mats.M_TRANSLUCENT, kd=kd,
-                    ks=ks, roughness=roughness, dissolve=dissolve)
-    if spec_mean == 0.0 or not np.isfinite(spec_mean):
-        return dict(mtype=mats.M_MATTE, kd=kd, sigma=0.0)
-    return dict(mtype=mats.M_PLASTIC, kd=kd, ks=ks, roughness=roughness)
+                    ks=ks, roughness=roughness, dissolve=dissolve, **texes)
+    if (spec_mean == 0.0 or not np.isfinite(spec_mean)) and ks_tex < 0:
+        return dict(mtype=mats.M_MATTE, kd=kd, sigma=0.0, **texes)
+    return dict(mtype=mats.M_PLASTIC, kd=kd, ks=ks, roughness=roughness,
+                **texes)
 
 
 def load_obj_into(builder, path: str, transform=None):
     """component::load_obj analogue: parse, infer materials, append
-    all (object, material) groups to a SceneBuilder."""
+    all (object, material) groups to a SceneBuilder.  Image maps are
+    registered on the builder's atlas."""
     mat_ids: Dict[str, int] = {}
+    atlas_builder = getattr(builder, "atlas", None)
+    tex_cache = getattr(builder, "tex_cache", {})
+    base = os.path.dirname(os.path.abspath(path))
     for mesh in parse_obj(path):
         key = mesh.material.name if mesh.material else "<default>"
         if key not in mat_ids:
-            mat_ids[key] = builder.add_material(
-                **material_row_from_mtl(mesh.material))
+            mat_ids[key] = builder.add_material(**material_row_from_mtl(
+                mesh.material, atlas_builder=atlas_builder,
+                tex_cache=tex_cache, base=base))
         builder.add_mesh(mesh.vertices, mesh.faces, mat_ids[key],
                          normals=mesh.normals, uvs=mesh.uvs,
                          transform=transform)

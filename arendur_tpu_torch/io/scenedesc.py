@@ -3,8 +3,9 @@
 e.g. examples/cornellbox/cb.json).
 
 parse_scene(path) returns (SceneData, CameraData, FilmConfig,
-RenderConfig, outputfilename).  Image textures and mesh instancing are
-not ported yet and raise NotImplementedError.
+RenderConfig, outputfilename); the scene's image textures ride the
+RenderConfig as a TextureAtlas.  Mesh instancing and emission textures
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from arendur_tpu_torch.filming import camera as cam
 from arendur_tpu_torch.filming import film as flm
 from arendur_tpu_torch.sampling import filters as filt
 from arendur_tpu_torch.render.integrator import RenderConfig
-from arendur_tpu_torch.io.objloader import load_obj_into
+from arendur_tpu_torch.io.objloader import load_obj_into, texture_id_for
 
 
 def _mat4(obj) -> np.ndarray:
@@ -58,17 +59,30 @@ class _Named:
 
 
 class _TextureRegistry:
-    """Named RGB/gray constant textures, Constant and Product descs
-    (ref: arencli.rs:376-440).  Image, Mix and textured products are
-    not ported yet."""
+    """Named RGB / gray textures with Constant, Image, Product and Mix
+    descs (ref: arencli.rs:376-440).  An RGB texture resolves to a
+    (constant rgb, atlas texture id) pair, the material table's channel
+    form (id -1: the constant is used)."""
 
-    def __init__(self):
+    def __init__(self, builder, base):
+        self.builder = builder
+        self.base = base
         self.rgb = _Named()
         self.gray = _Named()
 
+    def _image(self, desc) -> int:
+        body = desc["Image"]
+        return texture_id_for(self.builder.atlas, self.builder.tex_cache,
+                              self.base,
+                              body.get("path", body.get("filename", "")),
+                              gamma=bool(body.get("gamma", True)))
+
     def _build_rgb(self, desc):
         if "Constant" in desc:
-            return _rgb(desc["Constant"]["value"])
+            return _rgb(desc["Constant"]["value"]), -1
+        if "Image" in desc:
+            return (1.0, 1.0, 1.0), self._image(desc)
+        atlas = self.builder.atlas
         if "Product" in desc:
             body = desc["Product"]
             ta = self.rgb.values.get(body["ta"])
@@ -76,18 +90,46 @@ class _TextureRegistry:
             if ta is None or tb is None:
                 # the reference drops a product of unknown operands
                 # (arencli.rs:417-426); mirrored as neutral white
-                return (1.0, 1.0, 1.0)
-            return tuple(a * b for a, b in zip(ta, tb))
+                return (1.0, 1.0, 1.0), -1
+            (ca, ia), (cb, ib) = ta, tb
+            if ia < 0 and ib < 0:
+                return tuple(a * b for a, b in zip(ca, cb)), -1
+            if ia >= 0 and ib >= 0:
+                return (1.0, 1.0, 1.0), atlas.add_product(ia, tb=ib)
+            img, const = (ia, cb) if ia >= 0 else (ib, ca)
+            if all(abs(c - 1.0) < 1e-9 for c in const):
+                return (1.0, 1.0, 1.0), img
+            return (1.0, 1.0, 1.0), atlas.add_product(img, const=const)
+        if "Mix" in desc:
+            # {"Mix": {"ta", "tb", "l": float}} over named textures (the
+            # reference's MixTexture, textures/mod.rs:62-94)
+            body = desc["Mix"]
+            ta = self.rgb.values.get(body["ta"])
+            tb = self.rgb.values.get(body["tb"])
+            if ta is None or tb is None:
+                return (1.0, 1.0, 1.0), -1
+            lv = float(body.get("l", 0.5))
+            (ca, ia), (cb, ib) = ta, tb
+            if ia < 0 and ib < 0:
+                return tuple(a * (1 - lv) + b * lv
+                             for a, b in zip(ca, cb)), -1
+            mk = lambda c: atlas.add_image(
+                np.broadcast_to(np.asarray(c, np.float32), (1, 1, 3)))
+            i0 = ia if ia >= 0 else mk(ca)
+            i1 = ib if ib >= 0 else mk(cb)
+            return (1.0, 1.0, 1.0), atlas.add_mix(i0, i1, l=lv)
         raise NotImplementedError(
-            f"texture desc {list(desc.keys())} is not yet ported")
+            f"texture desc {list(desc.keys())} is not supported")
 
     def resolve_rgb(self, named, default=(0.0, 0.0, 0.0)):
         out = self.rgb.resolve(named, self._build_rgb)
-        return out if out is not None else default
+        return out if out is not None else (default, -1)
 
     def _build_gray(self, desc):
         if "Constant" in desc:
             return float(desc["Constant"]["value"])
+        if "Image" in desc:
+            return None  # a gray image channel keeps its default
         if "Product" in desc:
             body = desc["Product"]
             ta = self.gray.values.get(body["ta"])
@@ -96,7 +138,7 @@ class _TextureRegistry:
                 return None
             return ta * tb
         raise NotImplementedError(
-            f"texture desc {list(desc.keys())} is not yet ported")
+            f"texture desc {list(desc.keys())} is not supported")
 
     def resolve_gray(self, named, default=0.0):
         if named is None:
@@ -110,23 +152,25 @@ def _material_row(desc, textures: _TextureRegistry) -> dict:
     gray = textures.resolve_gray
     (kind, body), = desc.items()
     if kind == "Matte":
-        return dict(mtype=mats.M_MATTE, kd=rgb(body["kd"]),
+        kd, kd_tex = rgb(body["kd"])
+        return dict(mtype=mats.M_MATTE, kd=kd, kd_tex=kd_tex,
                     sigma=gray(body["sigma"], 0.0))
+    if kind not in ("Plastic", "Glass", "Translucent"):
+        raise ValueError(f"unknown material kind {kind}")
+    kd, kd_tex = rgb(body["diffuse"])
+    ks, ks_tex = rgb(body["specular"])
+    texes = dict(kd=kd, kd_tex=kd_tex, ks=ks, ks_tex=ks_tex)
     if kind == "Plastic":
-        return dict(mtype=mats.M_PLASTIC, kd=rgb(body["diffuse"]),
-                    ks=rgb(body["specular"]),
-                    roughness=gray(body["roughness"], 0.5))
+        return dict(mtype=mats.M_PLASTIC,
+                    roughness=gray(body["roughness"], 0.5), **texes)
     if kind == "Glass":
-        return dict(mtype=mats.M_GLASS, kd=rgb(body["diffuse"]),
-                    ks=rgb(body["specular"]),
+        return dict(mtype=mats.M_GLASS,
                     roughness=gray(body["roughness"], 0.0),
-                    eta=float(body.get("eta", 1.5)))
+                    eta=float(body.get("eta", 1.5)), **texes)
     if kind == "Translucent":
-        return dict(mtype=mats.M_TRANSLUCENT, kd=rgb(body["diffuse"]),
-                    ks=rgb(body["specular"]),
+        return dict(mtype=mats.M_TRANSLUCENT,
                     roughness=gray(body["roughness"], 0.5),
-                    dissolve=float(body.get("dissolve", 1.0)))
-    raise ValueError(f"unknown material kind {kind}")
+                    dissolve=float(body.get("dissolve", 1.0)), **texes)
 
 
 def parse_scene(path: str, spp_override: Optional[int] = None,
@@ -136,7 +180,7 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
     base = os.path.dirname(os.path.abspath(path))
 
     builder = sc.SceneBuilder()
-    textures = _TextureRegistry()
+    textures = _TextureRegistry(builder, base)
     named_mats = _Named()
     mat_ids: Dict[str, int] = {}
     sphere_specs: Dict[str, dict] = {}
@@ -190,8 +234,13 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
             light_named = body.get("light")
             emission = None
             if light_named is not None:
-                emission = textures.rgb.resolve(light_named,
+                resolved = textures.rgb.resolve(light_named,
                                                 textures._build_rgb)
+                if resolved is not None:
+                    emission, etex = resolved
+                    if etex >= 0:
+                        raise NotImplementedError(
+                            "emission textures are not yet ported")
             transform = _mat4(body.get("transform"))
             spec = dict(radius=float(sphere["radius"]),
                         zmin=float(sphere["zmin"]),
@@ -253,6 +302,9 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
         dx = max(1, int(np.sqrt(spp)))
         dy = max(1, spp // dx)
     config = RenderConfig(max_depth=int(desc.get("max_depth", 8)),
-                          spp=spp, sample_dx=dx, sample_dy=dy)
+                          spp=spp, sample_dx=dx, sample_dy=dy,
+                          textures=builder.build_textures(),
+                          tex_filter=str(desc.get("tex_filter",
+                                                  "trilinear")))
     return scene, camera, film_cfg, config, desc.get(
         "outputfilename", "out.png")

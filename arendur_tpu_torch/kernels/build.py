@@ -138,5 +138,9 @@ def load() -> _Kernels:
                 P, P, P, I, I, P, I, P, I, L, P, P, P, P, P, L, I, P, P, P,
                 P, P, P, P, P, P]
             lib.arendur_bounce_shade_bwd.restype = I
+            lib.arendur_hit_shade.argtypes = [P, P, I, L, P, P]
+            lib.arendur_hit_shade.restype = I
+            lib.arendur_shade_split.argtypes = [P, P, I, I, L, P, P, P]
+            lib.arendur_shade_split.restype = I
             _lib = lib
         return _lib

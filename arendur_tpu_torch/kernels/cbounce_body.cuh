@@ -45,7 +45,7 @@ HDB void tri_dpduv(V3 v0, V3 v1, V3 v2, F u0, F w0, F u1,
 }
 
 HDB void sphere_shading_from_row(Row s, V3 p, V3* pos_, V3* ng_,
-                                V3* dpdu_, V3* perr_) {
+                                V3* dpdu_, V3* dpdv_, V3* perr_) {
   F radius = s[16], thetamin = s[17], thetamax = s[18], phimax = s[19];
   F thetadelta = thetamax - thetamin;
   F theta = acos_poly(clampf_(p.z / mx(radius, 1e-20f),
@@ -62,6 +62,7 @@ HDB void sphere_shading_from_row(Row s, V3 p, V3* pos_, V3* ng_,
   *ng_ = vnormalize(vcross(dpdu, dpdv));
   *pos_ = pos;
   *dpdu_ = dpdu;
+  *dpdv_ = dpdv;
   *perr_ = vscale(vabs(pos), (float)(5.0 * 0x1p-24));
 }
 
@@ -815,74 +816,95 @@ HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
 // the bounce body
 // ---------------------------------------------------------------------------
 
-// xv[c] = the lane's input column c; res = its first 28 output columns
-// (the rest are zero); rows = the table row each row slot read.
-HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
-                   F res[28], int rows[N_ROW_SLOTS]) {
+// The first half of the bounce: the hit's shading info from the lane's
+// input columns 0:39 (the layout the fused and the split hit input
+// share).  Sets rows[SLOT_S]; b0 / b1 are the triangle barycentrics.
+struct HitInfo {
+  V3 pos, pos_err, ng, ns, dpdu, dpdv;
+  F b0, b1;
+  int mat_id, light_id;
+  bool hitmask, is_sph;
+};
+
+HDB void hit_info(const F* xv, const Tables& tb, HitInfo* h,
+                  int rows[N_ROW_SLOTS]) {
 #define X(c) xv[c]
   V3 o_ray = v3(X(0), X(1), X(2));
   V3 d = v3(X(3), X(4), X(5));
-  bool hitmask = X(7) > 0.5f;
-  bool is_sph = X(8) > 0.5f;
+  h->hitmask = X(7) > 0.5f;
+  h->is_sph = X(8) > 0.5f;
   int s_idx = (int)X(9);
   V3 p_local = v3(X(10), X(11), X(12));
-  F tr[26];
-  for (int j = 0; j < 26; ++j) tr[j] = X(13 + j);
+  const F* tr = xv + 13;
   rows[SLOT_S] = row_idx(s_idx, tb.ns);
   Row srow = mkrow(tb.stab + 24 * rows[SLOT_S], SLOT_S);
+#undef X
 
-  // hit info
   V3 tv0 = v3(tr[0], tr[1], tr[2]), tv1 = v3(tr[3], tr[4], tr[5]),
      tv2 = v3(tr[6], tr[7], tr[8]);
-  F b0, b1;
-  bary_from_vertices(o_ray, d, tv0, tv1, tv2, &b0, &b1);
+  bary_from_vertices(o_ray, d, tv0, tv1, tv2, &h->b0, &h->b1);
+  F b0 = h->b0, b1 = h->b1;
   F b2 = 1.0f - b0 - b1;
-  V3 pos, pos_err, ng, ns, dpdu;
-  if (is_sph) {
-    sphere_shading_from_row(srow, p_local, &pos, &ng, &dpdu, &pos_err);
-    ns = ng;
+  if (h->is_sph) {
+    sphere_shading_from_row(srow, p_local, &h->pos, &h->ng, &h->dpdu,
+                            &h->dpdv, &h->pos_err);
+    h->ns = h->ng;
   } else {
-    pos = vadd(vadd(vscale(tv0, b0), vscale(tv1, b1)), vscale(tv2, b2));
-    pos_err = vscale(vadd(vadd(vabs(vscale(tv0, b0)), vabs(vscale(tv1, b1))),
-                          vabs(vscale(tv2, b2))),
-                     GAMMA7);
-    V3 dpdv;
+    h->pos = vadd(vadd(vscale(tv0, b0), vscale(tv1, b1)), vscale(tv2, b2));
+    h->pos_err =
+        vscale(vadd(vadd(vabs(vscale(tv0, b0)), vabs(vscale(tv1, b1))),
+                    vabs(vscale(tv2, b2))),
+               GAMMA7);
     tri_dpduv(tv0, tv1, tv2, tr[18], tr[19], tr[20], tr[21], tr[22], tr[23],
-              &dpdu, &dpdv);
+              &h->dpdu, &h->dpdv);
     V3 n0 = v3(tr[9], tr[10], tr[11]), n1 = v3(tr[12], tr[13], tr[14]),
        n2 = v3(tr[15], tr[16], tr[17]);
     V3 ns_raw = vnormalize(vadd(vadd(vscale(n0, b0), vscale(n1, b1)),
                                 vscale(n2, b2)));
-    ng = vnormalize(vcross(dpdu, dpdv));
-    ns = vdot(ns_raw, ng) < 0.0f ? vneg(ns_raw) : ns_raw;
+    h->ng = vnormalize(vcross(h->dpdu, h->dpdv));
+    h->ns = vdot(ns_raw, h->ng) < 0.0f ? vneg(ns_raw) : ns_raw;
   }
-  int mat_id = (int)(is_sph ? rawf(srow, 20) : val(tr[24]));
-  int light_id = (int)(is_sph ? rawf(srow, 21) : val(tr[25]));
-  light_id = hitmask ? light_id : -1;
+  h->mat_id = (int)(h->is_sph ? rawf(srow, 20) : val(tr[24]));
+  int light_id = (int)(h->is_sph ? rawf(srow, 21) : val(tr[25]));
+  h->light_id = h->hitmask ? light_id : -1;
+}
 
-  rows[SLOT_M] = row_idx(mat_id > 0 ? mat_id : 0, tb.nm);
-  Row mrow = mkrow(tb.mtab + 16 * rows[SLOT_M], SLOT_M);
-  int mtype = (int)rawf(mrow, 0);
-  V3 kd = v3(mrow[1], mrow[2], mrow[3]);
-  V3 ks = v3(mrow[4], mrow[5], mrow[6]);
-  F sigma = mrow[7], rough = mrow[8], eta = mrow[9], dissolve = mrow[10];
+// What the shade proper reads besides the light table: the hit info and
+// the texture-resolved material parameters, the path state and the
+// lane's sample numbers.
+struct ShadeIn {
+  V3 d, pos, pos_err, ng, ns, dpdu;
+  int mtype;
+  V3 kd, ks;
+  F sigma, rough, eta, dissolve;
+  int light_id;
+  bool hitmask;
+  V3 beta, L;
+  bool specular;
+  int sel_prev;
+  F wb_prev;
+  bool nee_prev, alive;
+  int lidx;
+  F selpdf;
+  float ul0, ul1, ub0, ub1, u_rr, bounce;
+};
 
-  V3 beta = v3(X(39), X(40), X(41));
-  V3 L = v3(X(42), X(43), X(44));
-  bool specular = X(45) > 0.5f;
-  int sel_prev = (int)X(46);
-  F wb_prev = X(47);
-  bool nee_prev = X(48) > 0.5f;
-  bool alive = X(49) > 0.5f;
-  int lidx = (int)X(50);
-  F selpdf = X(51);
-  float ul0 = val(X(52)), ul1 = val(X(53)), ub0 = val(X(54)),
-        ub1 = val(X(55));
-  float u_rr = val(X(56));
-  float bounce = val(X(57));
-#undef X
+// The second half of the bounce: emission, the material recipe, NEE,
+// the BSDF sample, beta and Russian roulette.  res = the first 28
+// output columns (the rest are zero); sets rows[SLOT_LE] / [SLOT_LS].
+HDB void shade_core(const ShadeIn& s, const Tables& tb, const ShadeCfg& cfg,
+                    F res[28], int rows[N_ROW_SLOTS]) {
+  const V3 d = s.d, pos = s.pos, pos_err = s.pos_err, ng = s.ng;
+  V3 beta = s.beta, L = s.L;
+  bool specular = s.specular;
+  int sel_prev = s.sel_prev;
+  F wb_prev = s.wb_prev;
+  bool nee_prev = s.nee_prev, alive = s.alive;
+  int lidx = s.lidx, light_id = s.light_id;
+  F selpdf = s.selpdf;
+  float bounce = s.bounce;
 
-  bool lane_active = alive && hitmask;
+  bool lane_active = alive && s.hitmask;
 
   // (2) emitted radiance
   rows[SLOT_LE] = row_idx(light_id > 0 ? light_id : 0, tb.nl);
@@ -895,12 +917,12 @@ HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
 
   // (3) scattering + NEE
   V3 wo = vneg(d);
-  Slots bsdf = build_slots(mtype, kd, ks, sigma, rough, eta, dissolve, ns, ng,
-                           dpdu);
+  Slots bsdf = build_slots(s.mtype, s.kd, s.ks, s.sigma, s.rough, s.eta,
+                           s.dissolve, s.ns, ng, s.dpdu);
   bool do_nee = lane_active && (match_count(bsdf, ALL_NON_SPECULAR) > 0);
   rows[SLOT_LS] = row_idx(lidx > 0 ? lidx : 0, tb.nl);
   Row lrow = mkrow(tb.ltab + (long)tb.cl * rows[SLOT_LS], SLOT_LS);
-  LightSample ls = light_sample_rows(lrow, cfg, pos, ul0, ul1);
+  LightSample ls = light_sample_rows(lrow, cfg, pos, s.ul0, s.ul1);
   V3 f_raw;
   F spdf;
   bsdf_eval_pdf(bsdf, wo, ls.wi, cfg, &f_raw, &spdf);
@@ -921,7 +943,7 @@ HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
   V3 f, wi;
   F pdf;
   int kind;
-  bsdf_sample(bsdf, wo, ub0, ub1, cfg, &f, &wi, &pdf, &kind);
+  bsdf_sample(bsdf, wo, s.ub0, s.ub1, cfg, &f, &wi, &pdf, &kind);
   bool cont = lane_active && !is_black(f) && (pdf > 0.0f);
   bool spec_new = (kind & SPECULAR) != 0;
   specular = (lane_active && spec_new) || (!lane_active && specular);
@@ -948,7 +970,7 @@ HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
   float q = cfg.rr_q;
   bool rr_active = (bounce + 1.0f) >= (float)cfg.min_depth;
   bool roulette = rr_active && (lum < cfg.rr_threshold);
-  bool killed = roulette && (u_rr < q);
+  bool killed = roulette && (s.u_rr < q);
   beta = (roulette && !killed) ? vscale(beta, cfg.rr_scale) : beta;
   alive = alive && !killed;
 
@@ -960,4 +982,49 @@ HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
              sh_t, need_sh_out ? 1.0f : 0.0f,
              contrib_out.x, contrib_out.y, contrib_out.z};
   for (int j = 0; j < 28; ++j) res[j] = r[j];
+}
+
+// The fused bounce (K3, and K4 on the taped scalar): xv[c] = the lane's
+// input column c; res = its first 28 output columns (the rest are zero);
+// rows = the table row each row slot read.
+HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
+                    F res[28], int rows[N_ROW_SLOTS]) {
+  HitInfo h;
+  hit_info(xv, tb, &h, rows);
+  rows[SLOT_M] = row_idx(h.mat_id > 0 ? h.mat_id : 0, tb.nm);
+  Row mrow = mkrow(tb.mtab + 16 * rows[SLOT_M], SLOT_M);
+#define X(c) xv[c]
+  ShadeIn s;
+  s.d = v3(X(3), X(4), X(5));
+  s.pos = h.pos;
+  s.pos_err = h.pos_err;
+  s.ng = h.ng;
+  s.ns = h.ns;
+  s.dpdu = h.dpdu;
+  s.mtype = (int)rawf(mrow, 0);
+  s.kd = v3(mrow[1], mrow[2], mrow[3]);
+  s.ks = v3(mrow[4], mrow[5], mrow[6]);
+  s.sigma = mrow[7];
+  s.rough = mrow[8];
+  s.eta = mrow[9];
+  s.dissolve = mrow[10];
+  s.light_id = h.light_id;
+  s.hitmask = h.hitmask;
+  s.beta = v3(X(39), X(40), X(41));
+  s.L = v3(X(42), X(43), X(44));
+  s.specular = X(45) > 0.5f;
+  s.sel_prev = (int)X(46);
+  s.wb_prev = X(47);
+  s.nee_prev = X(48) > 0.5f;
+  s.alive = X(49) > 0.5f;
+  s.lidx = (int)X(50);
+  s.selpdf = X(51);
+  s.ul0 = val(X(52));
+  s.ul1 = val(X(53));
+  s.ub0 = val(X(54));
+  s.ub1 = val(X(55));
+  s.u_rr = val(X(56));
+  s.bounce = val(X(57));
+#undef X
+  shade_core(s, tb, cfg, res, rows);
 }

@@ -32,7 +32,10 @@ CLOSEST_HIT = Kernel("closest_hit")
 ANY_HIT = Kernel("any_hit")
 BOUNCE_SHADE = Kernel("bounce_shade")
 BOUNCE_SHADE_BWD = Kernel("bounce_shade_bwd")
-KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE, BOUNCE_SHADE_BWD)
+HIT_SHADE = Kernel("hit_shade")
+SHADE_SPLIT = Kernel("shade_split")
+KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE, BOUNCE_SHADE_BWD, HIT_SHADE,
+           SHADE_SPLIT)
 
 
 def reset_counts():
@@ -156,6 +159,13 @@ def pack_shade_cfg(static, min_depth: int, rr_threshold: float,
     return words
 
 
+def _check_smem(*tables):
+    smem = 4 * sum(t.numel() for t in tables)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"scene tables take {smem} B, more than the "
+                         f"{SMEM_LIMIT} B of shared memory a block has")
+
+
 def _shade_args(xt, ltab, mtab, stab, static, min_depth, rr_threshold):
     """Checked, contiguous, detached inputs of K3 / K4 and the packed
     ShadeCfg."""
@@ -168,10 +178,7 @@ def _shade_args(xt, ltab, mtab, stab, static, min_depth, rr_threshold):
     _check(ltab, "ltab")
     _check(mtab, "mtab", shape=(mtab.shape[0], 16))
     _check(stab, "stab", shape=(stab.shape[0], 24))
-    smem = 4 * (ltab.numel() + mtab.numel() + stab.numel())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"scene tables take {smem} B, more than the "
-                         f"{SMEM_LIMIT} B of shared memory a block has")
+    _check_smem(ltab, mtab, stab)
     cfg = pack_shade_cfg(static, min_depth, rr_threshold,
                          sph.THETA_UNIFORM_COMPAT)
     return xt, ltab, mtab, stab, cfg
@@ -193,6 +200,49 @@ def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
         cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), _stream(xt))
     _raise_on(code, "bounce_shade")
     BOUNCE_SHADE.launched()
+    return out
+
+
+def hit_shade(xt, stab):
+    """K5: the hit body, [HIT_IN_COLS, N] -> [HIT_OUT_COLS, N] on the
+    card (geometry only: no gradient)."""
+    from arendur_tpu_torch.render import cbounce as cb
+    lib = build.load()
+    xt, stab = xt.detach().contiguous(), stab.detach().contiguous()
+    n = xt.shape[1]
+    _check(xt, "xt", shape=(cb.HIT_IN_COLS, n))
+    _check(stab, "stab", shape=(stab.shape[0], 24))
+    _check_smem(stab)
+    out = torch.empty(cb.HIT_OUT_COLS, n, dtype=torch.float32,
+                      device=xt.device)
+    code = lib.arendur_hit_shade(xt.data_ptr(), stab.data_ptr(),
+                                 stab.shape[0], n, out.data_ptr(),
+                                 _stream(xt))
+    _raise_on(code, "hit_shade")
+    HIT_SHADE.launched()
+    return out
+
+
+def shade_split(xt, ltab, static, min_depth: int, rr_threshold: float):
+    """K6: the split shade body over texture-resolved columns,
+    [SHADE_IN_COLS, N] -> [OUT_COLS, N] on the card."""
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.shapes import sphere as sph
+    lib = build.load()
+    xt, ltab = xt.detach().contiguous(), ltab.detach().contiguous()
+    n = xt.shape[1]
+    _check(xt, "xt", shape=(cb.SHADE_IN_COLS, n))
+    _check(ltab, "ltab")
+    _check_smem(ltab)
+    cfg = pack_shade_cfg(static, min_depth, rr_threshold,
+                         sph.THETA_UNIFORM_COMPAT)
+    nl, cl = ltab.shape
+    out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
+    code = lib.arendur_shade_split(
+        xt.data_ptr(), ltab.data_ptr(), nl, cl, n,
+        cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), _stream(xt))
+    _raise_on(code, "shade_split")
+    SHADE_SPLIT.launched()
     return out
 
 

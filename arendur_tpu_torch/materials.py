@@ -5,10 +5,13 @@ Materials are rows of a host-side NumPy table; ``param_table`` packs
 them into the [M,16] rows the bounce shade reads (``param_table_t``:
 the same rows as a tensor whose kd / ks / roughness columns may carry
 gradient), and
-``slot_presence`` / ``dist_presence`` derive the host-static sets of
-BSDF families and microfacet models the table can produce.  The
-per-lane recipe (``build_slots``) lives with the bounce body in
-render/cbounce.py.
+``slot_presence`` / ``dist_presence`` / ``tex_channel_presence`` derive
+the host-static sets of BSDF families, microfacet models and texture
+channels the table can produce.  On textured scenes ``resolve_params``
+reads each hit's row and replaces its kd / ks / sigma by texture
+lookups and its shading frame by the bump-mapped one, before the shade
+kernel builds the BSDF.  The per-lane recipe (``build_slots``) lives
+with the bounce body in render/cbounce.py.
 
 * Matte       -> LambertianR (sigma==0) or Oren-Nayar   (matte.rs:38-65)
 * Plastic     -> AshikhminShirley(Beckmann)             (plastic.rs:39-64)
@@ -39,7 +42,7 @@ MAX_SLOTS = 3  # glass uses 3 (fresnel + TS-R + TS-T); others fewer
 @dataclasses.dataclass(frozen=True, eq=False)
 class MaterialTable:
     """M materials as SoA rows (NumPy).  *_tex hold image-texture ids
-    (-1 = constant); the port has no textures yet, so they stay -1."""
+    of the scene's atlas (-1 = the constant column is used)."""
     mtype: np.ndarray      # [M] int32
     kd: np.ndarray         # [M,3]
     ks: np.ndarray         # [M,3]
@@ -172,3 +175,97 @@ def dist_presence(table: MaterialTable):
             for stype, dist in slots.items():
                 out.setdefault(stype, set()).add(dist)
     return tuple(sorted((k, tuple(sorted(v))) for k, v in out.items()))
+
+
+def tex_channel_presence(table: MaterialTable):
+    """Host-static (kd, ks, sigma, bump) bool 4-tuple: the texture
+    channels any material row uses.  resolve_params skips the lookups
+    of the others."""
+    return tuple(bool((np.asarray(c) >= 0).any()) for c in
+                 (table.kd_tex, table.ks_tex, table.sigma_tex,
+                  table.bump_tex))
+
+
+def _dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _cross(a, b):
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], -1)
+
+
+def apply_bump(textures, bump_tex, uv, ns, ng, dpdu, dpdv, duvdx=None,
+               duvdy=None):
+    """Bump mapping (ref: material/mod.rs:42-86): finite differences of
+    the gray bump texture along u and v shift the shading frame.
+    Returns (ns', dpdu').  The step is half the uv footprint, or the
+    reference's 0.0005 where the lane has none."""
+    from arendur_tpu_torch.texturing import texture as tx
+    if textures is None:
+        return ns, dpdu
+    if duvdx is not None:
+        du = 0.5 * (torch.abs(duvdx[..., 0]) + torch.abs(duvdy[..., 0]))
+        dv = 0.5 * (torch.abs(duvdx[..., 1]) + torch.abs(duvdy[..., 1]))
+        du = torch.where(du == 0.0, 5e-4, du)
+        dv = torch.where(dv == 0.0, 5e-4, dv)
+    else:
+        du = torch.full(uv.shape[:-1], 5e-4, dtype=torch.float32,
+                        device=uv.device)
+        dv = du
+    zero = torch.zeros_like(du)
+    disp = tx.eval_gray(textures, bump_tex, uv, zero)
+    disp_u = tx.eval_gray(textures, bump_tex,
+                          uv + torch.stack([du, zero], -1), zero)
+    disp_v = tx.eval_gray(textures, bump_tex,
+                          uv + torch.stack([zero, dv], -1), zero)
+    ddu = (disp_u - disp) / du
+    ddv = (disp_v - disp) / dv
+    dpdu_b = dpdu + ddu[..., None] * ns
+    dpdv_b = dpdv + ddv[..., None] * ns
+    c = _cross(dpdu_b, dpdv_b)
+    ns_b = c * torch.sqrt(1.0 / torch.clamp(_dot(c, c)[..., None],
+                                            min=1e-30))
+    # keep the bumped normal in the original shading hemisphere
+    ns_b = torch.where(_dot(ns_b, ns)[..., None] < 0.0, -ns_b, ns_b)
+    has_bump = (bump_tex >= 0)[..., None]
+    return (torch.where(has_bump, ns_b, ns),
+            torch.where(has_bump, dpdu_b, dpdu))
+
+
+def resolve_params(mtab: torch.Tensor, mat_id, ns, ng, dpdu, uv=None,
+                   textures=None, dpdv=None, duvdx=None, duvdy=None,
+                   tex_filter: str = "trilinear", tex_present=None):
+    """The hit's material parameters, texture-resolved (the pre-recipe
+    half of the JAX package's compute_scattering).  mtab: the [M,16]
+    rows of ``param_table`` on the lanes' device.  Returns (mtype, kd,
+    ks, sigma, roughness, eta, dissolve, ns', dpdu'), ns / dpdu possibly
+    bump-mapped.  tex_present: ``tex_channel_presence`` of the table
+    (host-static; None looks up every channel)."""
+    row = mtab[mat_id.long()]
+    mtype = row[:, 0].to(torch.int32)
+    kd = row[:, 1:4]
+    ks = row[:, 4:7]
+    sigma = row[:, 7]
+    roughness = row[:, 8]
+    eta = row[:, 9]
+    dissolve = row[:, 10]
+    if textures is not None and uv is not None:
+        from arendur_tpu_torch.texturing import texture as tx
+        has = lambda i: tex_present is None or bool(tex_present[i])
+        tid = lambda c: row[:, c].to(torch.int32)
+        if has(0):
+            kd = tx.eval_rgb(textures, tid(11), uv, kd, duvdx=duvdx,
+                             duvdy=duvdy, filter=tex_filter)
+        if has(1):
+            ks = tx.eval_rgb(textures, tid(12), uv, ks, duvdx=duvdx,
+                             duvdy=duvdy, filter=tex_filter)
+        if has(2):
+            sigma = tx.eval_gray(textures, tid(13), uv, sigma,
+                                 duvdx=duvdx, duvdy=duvdy)
+        if dpdv is not None and has(3):
+            ns, dpdu = apply_bump(textures, tid(14), uv, ns, ng, dpdu,
+                                  dpdv, duvdx=duvdx, duvdy=duvdy)
+    return mtype, kd, ks, sigma, roughness, eta, dissolve, ns, dpdu

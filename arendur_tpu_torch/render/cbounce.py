@@ -18,6 +18,18 @@ which replaces the Pallas kernel ``cbounce._bwd_kernel``); on CPU
 tensors autograd runs over the plain body.  ``cbody_vjp_reference`` is
 the backward kernel's plain version.
 
+Textured scenes split the bounce in two around the texel lookups (port
+of arendur_tpu/render/cbounce.py:814-948, 1185-1338): ``cbody_hit``
+([HIT_IN_COLS=41, N] -> [HIT_OUT_COLS=28, N]: hit info, uv and the
+ray-cone uv footprint) and ``cbody_shade`` ([SHADE_IN_COLS=50, N] ->
+[OUT_COLS, N]: the shade proper on texture-resolved material columns).
+``hit_shade_t`` / ``shade_split_t`` dispatch them like
+``bounce_shade_t``: CUDA tensors launch kernels/cbounce_split.cu
+(replacing the Pallas kernels ``cbounce._kernel_hit`` and
+``_kernel_shade``), CPU tensors run ``cbody_hit_reference`` /
+``cbody_shade_reference``.  The split shade's backward is autograd over
+its plain body on either device, as the JAX package's is.
+
 Scene-table rows are direct indexed loads (no row cap).
 """
 
@@ -600,10 +612,11 @@ def build_slots(mtype, kd, ks, sigma, rough, eta, dissolve,
 # the bounce body
 # ---------------------------------------------------------------------------
 
-def _hit_info(col, stab):
+def _hit_info(col, stab, with_uv: bool = False):
     """Hit shading-info construction (the first half of the bounce):
-    (pos, pos_err, ng, ns, dpdu, mat_id, light_id, hitmask).  The uv and
-    dpdv the textured split also returns are not needed here."""
+    (pos, pos_err, ng, ns, dpdu, dpdv, uv, mat_id, light_id, hitmask).
+    dpdv and uv, which only the textured split reads, are None unless
+    with_uv, so the untextured body runs no op for them."""
     o_ray = (col(0), col(1), col(2))
     d = (col(3), col(4), col(5))
     hitmask = col(C_HIT) > 0.5
@@ -621,16 +634,44 @@ def _hit_info(col, stab):
     ng_t = vnormalize(vcross(dpdu_t, dpdv_t))
     flip = vdot(ns_raw, ng_t) < 0.0
     ns_t = vwhere(flip, vneg(ns_raw), ns_raw)
-    pos_s, ng_s, dpdu_s, _, perr_s = sphere_shading_from_row(srow, p_local)
+    pos_s, ng_s, dpdu_s, dpdv_s, perr_s = sphere_shading_from_row(
+        srow, p_local)
     pos = vwhere(is_sph, pos_s, pos_t)
     pos_err = vwhere(is_sph, perr_s, perr_t)
     ng = vwhere(is_sph, ng_s, ng_t)
     ns = vwhere(is_sph, ng_s, ns_t)
     dpdu = vwhere(is_sph, dpdu_s, dpdu_t)
+    dpdv = uv = None
+    if with_uv:
+        dpdv = vwhere(is_sph, dpdv_s, dpdv_t)
+        # triangle: barycentric interpolation; sphere: (phi, theta) chart
+        b2 = 1.0 - b0 - b1
+        uv_t = (b0 * tcol(18) + b1 * tcol(20) + b2 * tcol(22),
+                b0 * tcol(19) + b1 * tcol(21) + b2 * tcol(23))
+        uv_s = _sphere_uv(srow, p_local)
+        uv = (W(is_sph, uv_s[0], uv_t[0]), W(is_sph, uv_s[1], uv_t[1]))
     mat_id = W(is_sph, srow.col_abs(20), tcol(24)).to(torch.int32)
     light_id = W(is_sph, srow.col_abs(21), tcol(25)).to(torch.int32)
     light_id = W(hitmask, light_id, -1)
-    return pos, pos_err, ng, ns, dpdu, mat_id, light_id, hitmask
+    return (pos, pos_err, ng, ns, dpdu, dpdv, uv, mat_id, light_id,
+            hitmask)
+
+
+def _sphere_uv(srow: CRow, p):
+    """uv at a local sphere point (twin: cbounce._sphere_uv, on the
+    polynomial atan2 / acos the kernels share)."""
+    radius = srow.col_abs(16)
+    thetamin = srow.col_abs(17)
+    thetamax = srow.col_abs(18)
+    phimax = srow.col_abs(19)
+    phi = cm.atan2_poly(p[1], p[0])
+    phi = W(phi < 0.0, phi + 2.0 * PI, phi)
+    u = phi / cm._max(phimax, 1e-8)
+    theta = cm.acos_poly(torch.clamp(p[2] / cm._max(radius, 1e-20),
+                                     -1.0 + 1e-7, 1.0 - 1e-7))
+    v = (theta - thetamin) / W(torch.abs(thetamax - thetamin) < 1e-8, 1.0,
+                               thetamax - thetamin)
+    return u, v
 
 
 def _shade_core(d, pos, pos_err, ng, ns, dpdu, mtype, kd, ks, sigma,
@@ -730,8 +771,8 @@ def cbody(col, ltab, mtab, stab, *, presence, dist_sets, lcidx,
     """Component-form bounce shade (untextured path).  col(i) is the
     i-th input column [N]; returns the OUT_COLS output columns."""
     d = (col(3), col(4), col(5))
-    pos, pos_err, ng, ns, dpdu, mat_id, light_id, hitmask = _hit_info(
-        col, stab)
+    (pos, pos_err, ng, ns, dpdu, _, _, mat_id, light_id,
+     hitmask) = _hit_info(col, stab)
 
     mrow = CRow(mtab, cm._max(mat_id, 0))
     mtype = mrow.col_abs(0).to(torch.int32)
@@ -752,6 +793,137 @@ def cbody(col, ltab, mtab, stab, *, presence, dist_sets, lcidx,
         col(C_SELPDF), (col(52), col(53)), (col(54), col(55)),
         col(C_U_RR), col(C_BOUNCE), ltab,
         presence=presence, dist_sets=dist_sets, lcidx=lcidx,
+        lpresent=lpresent, emi_cols=emi_cols, min_depth=min_depth,
+        rr_threshold=rr_threshold, full_phi=full_phi)
+
+
+# ---------------------------------------------------------------------------
+# the textured split: the hit body (kernel K5) resolves hit info, uv and
+# the ray-cone uv footprint; the texel lookups run outside the kernels
+# (materials.resolve_params); the shade body (kernel K6) runs the shade
+# proper on the resolved material columns
+# ---------------------------------------------------------------------------
+
+# hit input: columns 0:39 of the fused layout + cone width and spread
+H_CONE_W = 39
+H_SPREAD = 40
+HIT_IN_COLS = 41
+# hit output: pos 0:3 perr 3:6 ng 6:9 ns 9:12 dpdu 12:15 dpdv 15:18
+# uv 18:20 duvdx 20:22 duvdy 22:24 mat_id 24 light_id 25 cone_w 26 (pad 27)
+HIT_OUT_COLS = 28
+
+
+def _solve_duv_c(nrm, dpdu, dpdv, dp):
+    """Component twin of geometry/dxy._solve_duv: the axis where |n| is
+    largest is dropped by comparison masks."""
+    anx, any_, anz = torch.abs(nrm[0]), torch.abs(nrm[1]), torch.abs(nrm[2])
+    amax0 = (anx >= any_) & (anx >= anz)
+    amax2 = ~amax0 & (anz > any_)
+    pick_a0 = lambda v: W(amax0, v[1], v[0])
+    pick_a1 = lambda v: W(amax2, v[1], v[2])
+    A00 = pick_a0(dpdu)
+    A01 = pick_a0(dpdv)
+    A10 = pick_a1(dpdu)
+    A11 = pick_a1(dpdv)
+    b0 = pick_a0(dp)
+    b1 = pick_a1(dp)
+    det = A00 * A11 - A01 * A10
+    ok = torch.abs(det) > 1e-20
+    inv = W(ok, 1.0 / W(ok, det, 1.0), 0.0)
+    du = (A11 * b0 - A01 * b1) * inv
+    dv = (A00 * b1 - A10 * b0) * inv
+    return du, dv
+
+
+def _cone_duv_c(r, d, ng, dpdu, dpdv):
+    """Component twin of geometry/dxy.cone_duv.  The inverse length is
+    1 / sqrt (correctly rounded here and in the kernel), not rsqrt."""
+    cos_i = vdot(d, ng)
+    proj = vsub(d, vscale(ng, cos_i))
+    p2 = vlength2(proj)
+    rs = 1.0 / torch.sqrt(cm._max(p2, 1e-30))
+    nd = vnormalize(dpdu)
+    e1 = vwhere(p2 > 1e-12, vscale(proj, rs), nd)
+    e2 = vcross(ng, e1)
+    a1 = vscale(e1, r / cm._max(torch.abs(cos_i), 0.1))
+    a2 = vscale(e2, r)
+    dudx, dvdx = _solve_duv_c(ng, dpdu, dpdv, a1)
+    dudy, dvdy = _solve_duv_c(ng, dpdu, dpdv, a2)
+    return (dudx, dvdx), (dudy, dvdy)
+
+
+def cbody_hit(col, stab):
+    """The hit body: hit info, uv and the ray-cone footprint at the hit.
+    Returns the HIT_OUT_COLS output columns."""
+    d = (col(3), col(4), col(5))
+    t = col(C_T)
+    (pos, pos_err, ng, ns, dpdu, dpdv, uv, mat_id, light_id,
+     hitmask) = _hit_info(col, stab, with_uv=True)
+    cone_w = col(H_CONE_W)
+    spread = col(H_SPREAD)
+    ft = W(hitmask, t, 0.0)
+    r_cone = cone_w + spread * ft
+    (dudx, dvdx), (dudy, dvdy) = _cone_duv_c(r_cone, d, ng, dpdu, dpdv)
+    cone_out = W(hitmask, r_cone, cone_w)
+    zero = torch.zeros_like(t)
+    return [
+        pos[0], pos[1], pos[2], pos_err[0], pos_err[1], pos_err[2],
+        ng[0], ng[1], ng[2], ns[0], ns[1], ns[2],
+        dpdu[0], dpdu[1], dpdu[2], dpdv[0], dpdv[1], dpdv[2],
+        uv[0], uv[1], dudx, dvdx, dudy, dvdy,
+        mat_id.to(torch.float32), light_id.to(torch.float32),
+        cone_out, zero,
+    ]
+
+
+# shade input layout
+S_D = 0          # 0:3
+S_POS = 3        # 3:6
+S_PERR = 6       # 6:9
+S_NG = 9         # 9:12
+S_NS = 12        # 12:15
+S_DPDU = 15      # 15:18
+S_MTYPE = 18
+S_KD = 19        # 19:22
+S_KS = 22        # 22:25
+S_SIGMA = 25
+S_ROUGH = 26
+S_ETA = 27
+S_DISSOLVE = 28
+S_LIGHT_ID = 29
+S_HIT = 30
+S_BETA = 31      # 31:34
+S_L = 34         # 34:37
+S_SPECULAR = 37
+S_SEL_PREV = 38
+S_WB_PREV = 39
+S_NEE_PREV = 40
+S_ALIVE = 41
+S_LIDX = 42
+S_SELPDF = 43
+S_U_LIGHT = 44   # 44:46
+S_U_BSDF = 46    # 46:48
+S_U_RR = 48
+S_BOUNCE = 49
+SHADE_IN_COLS = 50
+
+
+def cbody_shade(col, ltab, *, presence, dist_sets, lcidx, lpresent,
+                emi_cols, min_depth, rr_threshold, full_phi):
+    """The shade body: the bounce shade proper over texture-resolved
+    material columns.  Returns the OUT_COLS output columns."""
+    c3 = lambda j: (col(j), col(j + 1), col(j + 2))
+    return _shade_core(
+        c3(S_D), c3(S_POS), c3(S_PERR), c3(S_NG), c3(S_NS), c3(S_DPDU),
+        col(S_MTYPE).to(torch.int32), c3(S_KD), c3(S_KS), col(S_SIGMA),
+        col(S_ROUGH), col(S_ETA), col(S_DISSOLVE),
+        col(S_LIGHT_ID).to(torch.int32), col(S_HIT) > 0.5, c3(S_BETA),
+        c3(S_L), col(S_SPECULAR) > 0.5, col(S_SEL_PREV).to(torch.int32),
+        col(S_WB_PREV), col(S_NEE_PREV) > 0.5, col(S_ALIVE) > 0.5,
+        col(S_LIDX).to(torch.int32), col(S_SELPDF),
+        (col(S_U_LIGHT), col(S_U_LIGHT + 1)),
+        (col(S_U_BSDF), col(S_U_BSDF + 1)), col(S_U_RR), col(S_BOUNCE),
+        ltab, presence=presence, dist_sets=dist_sets, lcidx=lcidx,
         lpresent=lpresent, emi_cols=emi_cols, min_depth=min_depth,
         rr_threshold=rr_threshold, full_phi=full_phi)
 
@@ -832,3 +1004,83 @@ def unpack_out_t(out: torch.Tensor) -> dict:
         nee_prev=out[16] > 0.5,
         sh_o=v3(17), sh_d=v3(20), sh_t=out[23],
         need_shadow=out[24] > 0.5, contrib=v3(25))
+
+
+def cbody_hit_reference(xt: torch.Tensor, stab: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the hit kernel: [HIT_IN_COLS, N] ->
+    [HIT_OUT_COLS, N]."""
+    return torch.stack(cbody_hit(lambda i: xt[i], stab), dim=0)
+
+
+def cbody_shade_reference(xt, ltab, static: sc.ShadeStatic, min_depth: int,
+                          rr_threshold: float) -> torch.Tensor:
+    """Plain PyTorch version of the split shade kernel:
+    [SHADE_IN_COLS, N] -> [OUT_COLS, N]."""
+    outs = cbody_shade(lambda i: xt[i], ltab,
+                       **_static_kwargs(static, min_depth, rr_threshold))
+    return torch.stack(outs, dim=0)
+
+
+def cbody_shade_vjp_reference(xt, ltab, ct, static: sc.ShadeStatic,
+                              min_depth: int, rr_threshold: float):
+    """The split shade's backward: autograd over the plain shade body
+    for the output cotangent ct [OUT_COLS, N] -> (dx, dltab), as the
+    JAX package's _bwd_shade takes jax.vjp of its plain body."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (xt, ltab)]
+        out = cbody_shade_reference(*ins, static, min_depth, rr_threshold)
+        grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, ins))
+
+
+def hit_shade_t(xt: torch.Tensor, stab: torch.Tensor) -> torch.Tensor:
+    """The hit body over xt [HIT_IN_COLS, N] -> [HIT_OUT_COLS, N]: the
+    hand-written kernel for CUDA tensors, the plain version for CPU
+    tensors.  Geometry only: the result is detached (no gradient flows
+    through hit geometry, as in the JAX package)."""
+    xt, stab = xt.detach(), stab.detach()
+    if xt.is_cuda:
+        from arendur_tpu_torch.kernels import ops
+        return ops.hit_shade(xt, stab)
+    return cbody_hit_reference(xt, stab)
+
+
+class _ShadeSplitKernel(torch.autograd.Function):
+    """Forward: the split shade kernel (K6).  Backward: autograd over the
+    plain shade body, as the JAX package's custom_vjp does (it has no
+    backward kernel for this shade either)."""
+
+    @staticmethod
+    def forward(ctx, xt, ltab, static, min_depth, rr_threshold):
+        from arendur_tpu_torch.kernels import ops
+        ctx.save_for_backward(xt, ltab)
+        ctx.cfg = (static, min_depth, rr_threshold)
+        return ops.shade_split(xt, ltab, static, min_depth, rr_threshold)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = cbody_shade_vjp_reference(*ctx.saved_tensors, g, *ctx.cfg)
+        return tuple(grads) + (None, None, None)
+
+
+def shade_split_t(xt, ltab, static: sc.ShadeStatic, min_depth: int,
+                  rr_threshold: float) -> torch.Tensor:
+    """The split shade over xt [SHADE_IN_COLS, N] -> [OUT_COLS, N]: the
+    hand-written kernel for CUDA tensors, the plain version for CPU
+    tensors; differentiable in xt and ltab."""
+    if xt.is_cuda:
+        return _ShadeSplitKernel.apply(xt, ltab, static, min_depth,
+                                       rr_threshold)
+    return cbody_shade_reference(xt, ltab, static, min_depth, rr_threshold)
+
+
+def unpack_hit_t(out: torch.Tensor) -> dict:
+    """[HIT_OUT_COLS, N] hit output -> dict of row-form tensors."""
+    v3 = lambda j: out[j:j + 3].T
+    v2 = lambda j: out[j:j + 2].T
+    return dict(
+        pos=v3(0), pos_err=v3(3), ng=v3(6), ns=v3(9), dpdu=v3(12),
+        dpdv=v3(15), uv=v2(18), duvdx=v2(20), duvdy=v2(22),
+        mat_id=out[24].to(torch.int64), light_id=out[25].to(torch.int64),
+        cone_w=out[26])

@@ -10,7 +10,12 @@ plastic / glass.
 
 ``fuzz_bounce_inputs`` draws semantically plausible random rows of the
 [N, IN_COLS] bounce input (the generator of the JAX package's
-tests/test_cbounce.py, for the same table shapes).
+tests/test_cbounce.py, for the same table shapes);
+``fuzz_split_inputs`` turns such rows into the hit and shade inputs of
+the textured split.
+
+``checker_textured`` puts bench.py's checkerboard kd texture on every
+matte material of a scene (the textured render's measured cell).
 """
 
 from __future__ import annotations
@@ -114,3 +119,66 @@ def fuzz_bounce_inputs(ltab, mtab, stab, seed: int = 0, n: int = 2048):
     if x.shape[1] != IN_COLS:
         raise AssertionError(x.shape)
     return x
+
+
+def fuzz_split_inputs(ltab, mtab, stab, seed: int = 0, n: int = 2048,
+                      atlas=None, hit=None, tex_present=None):
+    """The textured split's inputs from fuzz rows, on the tables' device:
+    (hit input [HIT_IN_COLS, n], shade input [SHADE_IN_COLS, n], fused
+    input [IN_COLS, n]).  The hit input is columns 0:39 of
+    ``fuzz_bounce_inputs`` and a seeded cone width and spread; the shade
+    input packs hit(hit input, stab) (the plain hit body by default),
+    the material columns resolve_params gives over `atlas`, and the fuzz
+    path state, as the integrator packs them."""
+    import torch
+    from arendur_tpu_torch import materials as mats
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.render import integrator as integ
+    dev = ltab.device
+    x = torch.tensor(fuzz_bounce_inputs(
+        *(t.cpu().numpy() for t in (ltab, mtab, stab)), seed=seed, n=n),
+        device=dev)
+    rng = np.random.default_rng(seed + 100)
+    cone = lambda hi: torch.tensor(rng.uniform(0.0, hi, n),
+                                   dtype=torch.float32, device=dev)
+    carry = dict(o=x[:, 0:3], d=x[:, 3:6], cone_w=cone(0.02),
+                 cone_g=cone(4e-3), beta=x[:, 39:42], L=x[:, 42:45],
+                 specular=x[:, 45] > 0.5, sel_prev=x[:, 46],
+                 wb_prev=x[:, 47], nee_prev=x[:, 48] > 0.5,
+                 alive=x[:, 49] > 0.5)
+    raw = dict(t=x[:, 6], hit=x[:, 7] > 0.5, is_sphere=x[:, 8] > 0.5,
+               s_idx=x[:, 9], p_local=x[:, 10:13], trow=x[:, 13:39])
+    xh = integ.pack_hit_input(carry, raw)
+    hi = cb.unpack_hit_t((hit or cb.cbody_hit_reference)(xh, stab))
+    res = mats.resolve_params(
+        mtab, hi["mat_id"], hi["ns"], hi["ng"], hi["dpdu"], uv=hi["uv"],
+        textures=atlas, dpdv=hi["dpdv"], duvdx=hi["duvdx"],
+        duvdy=hi["duvdy"], tex_present=tex_present)
+    xs = integ.pack_shade_input(carry, raw, hi, res, x[:, 50], x[:, 51],
+                                x[:, 52:54], x[:, 54:56], x[:, 56], 0)
+    xs[cb.S_BOUNCE] = x[:, 57]
+    return xh, xs, x.T.contiguous()
+
+
+def checker_image(size: int = 256, cell: int = 16) -> np.ndarray:
+    """bench.py's checkerboard [size, size, 3]: texels
+    (0.8 c + 0.1, 0.5 c + 0.2, 0.6), c in {0, 1} alternating every
+    `cell` texels."""
+    ch = (np.indices((size, size)).sum(0) // cell % 2).astype(np.float32)
+    return np.stack([ch * 0.8 + 0.1, ch * 0.5 + 0.2,
+                     np.full_like(ch, 0.6)], -1)
+
+
+def checker_textured(scene, device="cpu"):
+    """bench.py's textured leg on a port SceneData: the checkerboard
+    (wrap repeat, no gamma) as the kd texture of every matte material.
+    Returns (scene, atlas on device)."""
+    import dataclasses
+    from arendur_tpu_torch.texturing.texture import AtlasBuilder
+    ab = AtlasBuilder()
+    tid = ab.add_image(checker_image())
+    m = scene.materials
+    kd_tex = np.where(np.asarray(m.mtype) == 0, tid,
+                      np.asarray(m.kd_tex)).astype(np.int32)
+    return (dataclasses.replace(scene, materials=dataclasses.replace(
+        m, kd_tex=kd_tex)), ab.build(device))

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator: the main path (port of the
-untextured fused-shade branch of arendur_tpu/render/integrator.py;
-ref: src/renderer/pt.rs).
+fused-shade branch of arendur_tpu/render/integrator.py and of its
+hybrid split for textured scenes; ref: src/renderer/pt.rs).
 
 A wave of N camera rays advances through max_depth bounces.  Each
 bounce runs:
@@ -13,11 +13,19 @@ bounce runs:
 4. the shadow any-hit (kernel K2) plus the spheres;
 5. one masked add of the NEE contribution.
 
+With ``config.textures`` set (a texturing.texture.TextureAtlas), step 3
+splits in three: the hit kernel (K5) resolves the hit's shading info,
+uv and the uv footprint of a ray cone carried per lane (width cone_w,
+spread cone_g, started from the camera's ray differentials); the texel
+lookups run in plain PyTorch (materials.resolve_params); the split
+shade kernel (K6) shades on the resolved material columns.  The
+untextured wave carries no cone and launches neither.
+
 After the loop, one more closest hit completes the deferred-MIS BSDF
 branch at the last vertex, and the lanes go back to their original
 order.  ``render`` runs the waves and splats them into the film.
 
-The three kernel calls go through a ``WaveOps``: ``KERNEL_OPS``
+The kernel calls go through a ``WaveOps``: ``KERNEL_OPS``
 (default) dispatches on the tensors' device, CUDA to the hand-written
 kernels and CPU to the plain versions; ``PLAIN_OPS`` names the plain
 PyTorch versions, so a caller can time the plain path on the card.
@@ -27,10 +35,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from arendur_tpu_torch import materials as mats
 from arendur_tpu_torch import scene as sc
 from arendur_tpu_torch.filming import camera as cam
 from arendur_tpu_torch.filming import film as flm
@@ -57,6 +67,11 @@ class RenderConfig:
     compact: bool = True        # dead-lane compaction per bounce
     defer_final_mis: bool = True  # the closest hit after the loop that
                                   # completes the deferred-MIS branch
+    textures: Optional[object] = None   # texturing.texture.TextureAtlas
+    tex_filter: str = "trilinear"       # "trilinear" | "ewa"
+    cone_curvature: bool = True   # grow the texture-LOD cone's spread at
+                                  # specular bounces off curved surfaces
+                                  # (gamma' = gamma + 2 kappa w)
 
     @property
     def min_depth(self):
@@ -65,16 +80,20 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class WaveOps:
-    """The three kernel entries one bounce calls."""
+    """The kernel entries one bounce calls (hit_shade and shade_split
+    only on textured scenes)."""
     closest_hit: Callable
     any_hit: Callable
     bounce_shade: Callable
+    hit_shade: Callable
+    shade_split: Callable
 
 
 KERNEL_OPS = WaveOps(ci.intersect_clusters, ci.occluded_clusters,
-                     cb.bounce_shade_t)
+                     cb.bounce_shade_t, cb.hit_shade_t, cb.shade_split_t)
 PLAIN_OPS = WaveOps(ci.intersect_clusters_reference,
-                    ci.occluded_clusters_reference, cb.cbody_reference)
+                    ci.occluded_clusters_reference, cb.cbody_reference,
+                    cb.cbody_hit_reference, cb.cbody_shade_reference)
 
 
 def _compact_perm(alive: torch.Tensor):
@@ -194,6 +213,57 @@ def pack_bounce_input(carry: dict, raw: dict, lidx, selpdf, u_light,
     return x.T.contiguous()
 
 
+def pack_hit_input(carry: dict, raw: dict) -> torch.Tensor:
+    """The hit kernel's input [HIT_IN_COLS, N]: columns 0:39 of the
+    bounce input, then the lane's cone width and spread."""
+    f1 = lambda a: a.to(torch.float32)[:, None]
+    x = torch.cat([
+        carry["o"], carry["d"], raw["t"][:, None], f1(raw["hit"]),
+        f1(raw["is_sphere"]), f1(raw["s_idx"]), raw["p_local"],
+        raw["trow"], carry["cone_w"][:, None], carry["cone_g"][:, None],
+    ], dim=1)
+    return x.T.contiguous()
+
+
+def pack_shade_input(carry: dict, raw: dict, hi: dict, res: tuple, lidx,
+                     selpdf, u_light, u_bsdf, u_rr,
+                     bounce: int) -> torch.Tensor:
+    """The split shade kernel's input [SHADE_IN_COLS, N]: the hit info,
+    the texture-resolved material columns res (resolve_params' output)
+    and the path state (the layout of render/cbounce.py S_*)."""
+    mtype, kd, ks, sigma, rough, eta, dissolve, ns, dpdu = res
+    n = carry["o"].shape[0]
+    f1 = lambda a: a.to(torch.float32)[:, None]
+    x = torch.cat([
+        carry["d"], hi["pos"], hi["pos_err"], hi["ng"], ns, dpdu,
+        f1(mtype), kd, ks, sigma[:, None], rough[:, None], eta[:, None],
+        dissolve[:, None], f1(hi["light_id"]), f1(raw["hit"]),
+        carry["beta"], carry["L"], f1(carry["specular"]),
+        f1(carry["sel_prev"]), carry["wb_prev"][:, None],
+        f1(carry["nee_prev"]), f1(carry["alive"]), f1(lidx),
+        selpdf[:, None], u_light, u_bsdf, u_rr[:, None],
+        torch.full((n, 1), float(bounce), device=carry["o"].device),
+    ], dim=1)
+    return x.T.contiguous()
+
+
+def _length(a):
+    return torch.sqrt(a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1]
+                      + a[:, 2] * a[:, 2])
+
+
+def curv_spread(scene: sc.DeviceScene, config: RenderConfig, cone_g,
+                is_sph, s_idx, w_at_hit, spec_bounce):
+    """Curvature growth of the cone's spread at a specular bounce:
+    gamma' = gamma + 2 kappa w (ray cones), kappa = 1 / r on spheres
+    (the object-space radius) and 0 on flat triangles."""
+    if not config.cone_curvature:
+        return cone_g
+    radius = scene.spheres.radius[s_idx.long()]
+    kappa = torch.where(is_sph, 1.0 / torch.clamp(radius, min=1e-6), 0.0)
+    return cone_g + torch.where(spec_bounce, 2.0 * kappa * w_at_hit, 0.0)
+
+
 def initial_carry(o, d, keys) -> dict:
     """Per-lane wave state before the first bounce."""
     n = o.shape[0]
@@ -220,12 +290,29 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
     return_aux adds {"n_invalid": count of lanes whose radiance was
     dropped as invalid} (a device scalar)."""
     static = scene.static
+    textures = config.textures
     ws = smp.WaveSampler(base_key, pixel_id, sample_id,
                          kind=config.sampler, sample_dx=config.sample_dx,
                          sample_dy=config.sample_dy)
     pfilm = pixel_xy + ws.film_jitter()
-    o, d = cam.generate_rays(camera, pfilm, ws.u2(2))
-    carry = initial_carry(o, d, ws.keys)
+    plens = ws.u2(2)
+    if textures is None:
+        o, d = cam.generate_rays(camera, pfilm, plens)
+        carry = initial_carry(o, d, ws.keys)
+    else:
+        textures = textures.to(scene.device)
+        # host-static texture channels the table uses (from NumPy)
+        tex_present = mats.tex_channel_presence(scene.materials)
+        # the cone's spread: the angle to the camera's x / y differential
+        # rays, scaled by 1 / sqrt(spp) like the reference's
+        # scale_differentials (pt.rs:142)
+        o, d, rxd, ryd = cam.generate_ray_differentials(camera, pfilm,
+                                                        plens)
+        spread = torch.maximum(_length(rxd - d), _length(ryd - d))
+        spread = spread / float(np.sqrt(np.float32(max(config.spp, 1))))
+        carry = initial_carry(o, d, ws.keys)
+        carry["cone_w"] = torch.zeros_like(spread)
+        carry["cone_g"] = spread
     for bounce in range(config.max_depth):
         n_alive = None
         if config.compact:
@@ -236,11 +323,27 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
         u_sel, u_light, u_bsdf, u_rr = bounce_draws(config, c["keys"],
                                                     bounce)
         lidx, selpdf = nee.sample_one_light(scene, u_sel)
-        xt = pack_bounce_input(c, raw, lidx, selpdf, u_light, u_bsdf,
-                               u_rr, bounce)
-        out_t = ops.bounce_shade(xt, scene.ltab, scene.mtab, scene.stab,
-                                 static, config.min_depth,
-                                 float(config.rr_threshold))
+        if textures is None:
+            xt = pack_bounce_input(c, raw, lidx, selpdf, u_light, u_bsdf,
+                                   u_rr, bounce)
+            out_t = ops.bounce_shade(xt, scene.ltab, scene.mtab,
+                                     scene.stab, static, config.min_depth,
+                                     float(config.rr_threshold))
+        else:
+            # the textured split: hit kernel, texel lookups, shade
+            # kernel; the hit geometry is detached, as in the JAX package
+            hi = cb.unpack_hit_t(ops.hit_shade(
+                pack_hit_input(c, raw).detach(), scene.stab))
+            res = mats.resolve_params(
+                scene.mtab, hi["mat_id"], hi["ns"], hi["ng"], hi["dpdu"],
+                uv=hi["uv"], textures=textures, dpdv=hi["dpdv"],
+                duvdx=hi["duvdx"], duvdy=hi["duvdy"],
+                tex_filter=config.tex_filter, tex_present=tex_present)
+            xs = pack_shade_input(c, raw, hi, res, lidx, selpdf, u_light,
+                                  u_bsdf, u_rr, bounce)
+            out_t = ops.shade_split(xs, scene.ltab, static,
+                                    config.min_depth,
+                                    float(config.rr_threshold))
         r = cb.unpack_out_t(out_t)
         blocked = occluded(scene, r["sh_o"].contiguous(),
                            r["sh_d"].contiguous(), r["sh_t"].contiguous(),
@@ -252,6 +355,11 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
                      specular=r["specular"], sel_prev=r["sel_prev"],
                      wb_prev=r["wb_prev"], nee_prev=r["nee_prev"],
                      keys=c["keys"], orig=c["orig"])
+        if textures is not None:
+            carry["cone_w"] = hi["cone_w"]
+            carry["cone_g"] = curv_spread(
+                scene, config, c["cone_g"], raw["is_sphere"], raw["s_idx"],
+                hi["cone_w"], r["alive"] & r["specular"] & raw["hit"])
 
     # final deferred-MIS collection at the last vertex (the reference's
     # evaluate_direct bsdf-branch re-intersection, scene.rs:146-155)

@@ -3,7 +3,8 @@ arendur_tpu/scene.py; ref: src/renderer/scene.rs, src/component/).
 
 ``SceneBuilder`` accumulates geometry on the host and freezes it into a
 ``SceneData`` of NumPy arrays (meshes, spheres, lights, materials; no
-instancing and no textures yet).  ``DeviceScene.build`` moves the
+instancing yet); its image textures go into an atlas of their own
+(``build_textures``), which the render takes through its config.  ``DeviceScene.build`` moves the
 tables the render reads onto one device and computes, once and from
 NumPy, the host-static sets the bounce shade is specialised on (slot
 presence, distribution presence, the light column map, the light types
@@ -190,6 +191,13 @@ class SceneBuilder:
         self.sphere_rows = []
         self.material_rows = []
         self.light_rows = []
+        from arendur_tpu_torch.texturing.texture import AtlasBuilder
+        self.atlas = AtlasBuilder()   # image textures (obj / JSON maps)
+        self.tex_cache = {}           # (path, gamma) -> texture id
+
+    def build_textures(self, device="cpu"):
+        """Freeze the image-texture atlas (None if no textures)."""
+        return self.atlas.build(device)
 
     def add_material(self, **kw) -> int:
         self.material_rows.append(kw)
@@ -491,6 +499,10 @@ class DeviceScene:
         if scene.tri_cw is None:
             raise NotImplementedError(
                 "scenes without triangles are not yet ported")
+        etex = scene.lights.emission_tex
+        if etex is not None and (np.asarray(etex) >= 0).any():
+            raise NotImplementedError(
+                "emission textures are not yet ported")
         device = torch.device(device)
         t = lambda a, dt=torch.float32: torch.as_tensor(
             np.ascontiguousarray(a), dtype=dt, device=device)

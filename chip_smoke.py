@@ -29,12 +29,29 @@ Phases, one line each:
      of the kernel path and of the plain-backward path (the K1-K3
      forward, the backward by autograd over the plain body), the loss
      on one wave before and after the steps, and the device busy share
-     of one kernel-path step from a torch.profiler trace.
-Then the kernels JSON line (each kernel's launches in the kernel-path
-train step of phase 8, its times, and its bound: the larger of the
-bytes it must move over 3.35 TB/s and the operations this run's inputs
-need over 67 TFLOP/s of f32, the H100 SXM's data-sheet peaks), the
-card line, and the result line.
+     of one kernel-path step from a torch.profiler trace;
+  9. the textured split: the hit kernel (K5) and the split shade kernel
+     (K6) against their plain versions on the first bounce of a real
+     65,536-lane textured wave (bench.py's checkerboard kd texture on
+     every matte material of the Cornell box) and on fuzz input over
+     the textured Cornell tables and the all-branches tables; K5 ->
+     texel lookups -> K6 against K3 on untextured fuzz lanes; their
+     times by CUDA events on inputs rotated past the L2, and their
+     device time from a torch.profiler trace;
+ 10. the textured main path: a 64x48, 32 spp, depth-8 textured Cornell
+     render through the kernels against the same render on the plain
+     path (K1, K2, K5 and K6 must have launched, K3 must not); then
+     textured paths/s at 256x256, 16 spp, depth 8 on the kernel and
+     the plain path, their ratio to phase 6's untextured rate, and the
+     launches and device busy share of one textured wave from a
+     torch.profiler trace.
+Then the kernels JSON line (each kernel's launches in the run of its
+main path: K1-K4 in the kernel-path train step of phase 8, K5 and K6
+in phase 10's textured render; its ms and plain_ms, all by CUDA
+events; and its bound: the larger of the bytes it must move over
+3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s of
+f32, the H100 SXM's data-sheet peaks; a row whose ms is below its
+bound fails the run), the card line, and the result line.
 Any failure raises; the exit code is then non-zero and no result line
 is printed.  ``--out DIR`` also writes the measurements
 (chip_smoke.json) and the kernel-path image (.npy) into DIR.
@@ -42,6 +59,7 @@ is printed.  ``--out DIR`` also writes the measurements
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -64,8 +82,11 @@ GRAD_GATE = 1e-3         # train step: ||g - g_plain|| / ||g_plain||
 GRAD_LR = 1e3            # the step size the gradients are read back with
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_S = 67e12       # H100 SXM f32, outside the tensor cores
+L2_BYTES = 50 << 20      # H100 L2
 TRI_FLOPS = 128          # K1/K2: four 16-term dot products per triangle
 FORWARD_KERNELS = ("closest_hit", "any_hit", "bounce_shade")
+TRAIN_KERNELS = FORWARD_KERNELS + ("bounce_shade_bwd",)
+TEXTURED_KERNELS = ("closest_hit", "any_hit", "hit_shade", "shade_split")
 
 
 def _say(msg):
@@ -92,6 +113,63 @@ def time_ms(fn, iters=10):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def rotating(call, x):
+    """A call that cycles `call` over copies of x that together hold more
+    than twice the L2, so that each launch reads its input from device
+    memory and not from the cache the previous launch filled."""
+    copies = [x.clone() for _ in
+              range(2 * L2_BYTES // (x.numel() * x.element_size()) + 2)]
+    it = itertools.cycle(copies)
+    return lambda: call(next(it))
+
+
+def kernel_ms(fn, key, iters=10):
+    """Device time per launch of the kernel whose name holds `key`, from
+    a torch.profiler trace of `iters` calls (CUDA events around a call
+    also time the host's launch work, which a short kernel waits on)."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type.name == "CUDA" and key in e.name]
+    if not spans:
+        raise AssertionError(f"the profile holds no {key} kernel")
+    return 1e-3 * sum(spans) / len(spans)
+
+
+def plain_ops(fn):
+    """Operations of one call of a plain PyTorch version: one per output
+    element of each pointwise aten op and per input element of each
+    reduction (views, copies, gathers and allocations count none).  The
+    plain version takes every arm of a per-lane select that the tables
+    reach, where a kernel's lane takes one, so this is an upper count
+    of the kernel's operations on the same inputs."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                first = out[0] if isinstance(out, (tuple, list)) else out
+                self.n += first.numel()
+            elif torch.Tag.reduction in func.tags:
+                self.n += args[0].numel()
+            return out
+
+    with Count() as c:
+        fn()
+    return c.n
 
 
 def bound_ms(nbytes, nops):
@@ -128,6 +206,8 @@ def ptxas_report(logs):
                                          "table_partials_kernel",
                                          "table_reduce_kernel",
                                          "bounce_shade_kernel",
+                                         "hit_shade_kernel",
+                                         "shade_split_kernel",
                                          "closest", "any")
                              if k in line), line.split("'")[1][:40])
                 out[name] = ""
@@ -171,6 +251,7 @@ def _busy_s(prof):
     own = {}
     for e in events:
         for k in ("bounce_shade_bwd", "table_", "bounce_shade_kernel",
+                  "hit_shade_kernel", "shade_split_kernel",
                   "cluster_kernel"):
             if k in e.name:
                 own[k] = own.get(k, 0.0) + 1e-6 * (e.time_range.end
@@ -512,8 +593,12 @@ def main(argv=None):
          + "; grad norm " + ", ".join(
              f"{k} {v.norm().item():.4e}" for k, v in grads["kernels"].items())
          + f"; finite {finite}")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in TRAIN_KERNELS) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    if launches["hit_shade"] or launches["shade_split"]:
+        raise AssertionError(f"the untextured step launched K5 / K6: "
+                             f"{launches}")
+    train_launches = launches
     if not finite or max(grel.values()) > GRAD_GATE:
         raise AssertionError("train step: kernel and plain gradients differ")
     if abs(losses["kernels"] - losses["plain"]) > 1e-4 * losses["plain"]:
@@ -523,8 +608,8 @@ def main(argv=None):
     n_waves = 256 * 256 * 16 // wave
     target = img_full.reshape(-1, 3)
     kd0 = torch.tensor(scene.materials.kd, device=dev) * 1.25
-    plain_bwd = integ.WaveOps(ci.intersect_clusters, ci.occluded_clusters,
-                              plain_backward_shade())
+    plain_bwd = dataclasses.replace(integ.KERNEL_OPS,
+                                    bounce_shade=plain_backward_shade())
     fb = {}
     for name, wops, reps in (("kernels", integ.KERNEL_OPS, 3),
                              ("plain backward", plain_bwd, 2)):
@@ -564,6 +649,187 @@ def main(argv=None):
          + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in own.items())
          + f" ({card})")
 
+    # phase 9: K5 and K6 against their plain versions
+    scene_t, atlas_t = fuzz.checker_textured(scene, dev)
+    ds_t = sc.DeviceScene.build(scene_t, dev)
+    from arendur_tpu_torch import materials as mats
+    tex_present = mats.tex_channel_presence(scene_t.materials)
+    o_t, d_t, rxd, ryd = cam.generate_ray_differentials(
+        camera, pxy + ws.film_jitter(), ws.u2(2))
+    spread = torch.maximum((rxd - d_t).norm(dim=-1), (ryd - d_t).norm(dim=-1))
+    carry_t = integ.initial_carry(o_t, d_t, ws.keys)
+    carry_t["cone_w"] = torch.zeros_like(spread)
+    carry_t["cone_g"] = spread / 4.0
+    raw_t = integ.intersect_raw(ds_t, o_t, d_t, None, integ.PLAIN_OPS)
+
+    xh0 = integ.pack_hit_input(carry_t, raw_t)
+    hi0 = cb.unpack_hit_t(cb.cbody_hit_reference(xh0, ds_t.stab))
+    res0 = mats.resolve_params(
+        ds_t.mtab, hi0["mat_id"], hi0["ns"], hi0["ng"], hi0["dpdu"],
+        uv=hi0["uv"], textures=atlas_t, dpdv=hi0["dpdv"],
+        duvdx=hi0["duvdx"], duvdy=hi0["duvdy"], tex_present=tex_present)
+    xs0 = integ.pack_shade_input(carry_t, raw_t, hi0, res0, lidx, selpdf,
+                                 u_l, u_b, u_rr, 0)
+
+    def fuzz_split(dsx, atlas, seed, hit=None):
+        return fuzz.fuzz_split_inputs(
+            dsx.ltab, dsx.mtab, dsx.stab, seed=seed, n=n, atlas=atlas,
+            hit=hit, tex_present=mats.tex_channel_presence(dsx.materials))
+
+    split_cases = [("first bounce", xh0, xs0, ds_t)]
+    for nm, dsx, atlas in (("fuzz textured cornell", ds_t, atlas_t),
+                           ("fuzz all-branches", ds2, None)):
+        xh, xs, _ = fuzz_split(dsx, atlas, 5)
+        split_cases.append((nm, xh, xs, dsx))
+
+    def agree(a, b, flag_cols=()):
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        close = torch.isclose(a, b, rtol=K3_RTOL, atol=K3_ATOL) | both_nan
+        flags = min([1.0] + [(a[j] == b[j]).float().mean().item()
+                             for j in flag_cols])
+        exact = ((a == b) | both_nan).float().mean().item()
+        err = (a - b).abs()[close].max().item()
+        return close.float().mean().item(), flags, exact, err
+
+    k56 = []
+    k5_err = k6_err = 0.0
+    for nm, xh, xs, dsx in split_cases:
+        h_k = cb.hit_shade_t(xh, dsx.stab)
+        h_p = cb.cbody_hit_reference(xh, dsx.stab)
+        ids = torch.equal(h_k[24:26], h_p[24:26])
+        c5, _, e5, err5 = agree(h_k, h_p)
+        sargs = (dsx.ltab, dsx.static, config.min_depth, config.rr_threshold)
+        s_k = cb.shade_split_t(xs, *sargs)
+        s_p = cb.cbody_shade_reference(xs, *sargs)
+        c6, f6, e6, err6 = agree(s_k, s_p, flag_cols)
+        k5_err, k6_err = max(k5_err, err5), max(k6_err, err6)
+        k56.append(dict(set=nm, k5_close=c5, k5_exact=e5, k5_ids=ids,
+                        k6_close=c6, k6_flags=f6, k6_exact=e6))
+        if c5 < K3_GATE or not ids or c6 < K3_GATE or f6 < K3_GATE:
+            raise AssertionError(f"K5 / K6 {nm}: {k56[-1]}")
+    # the split against the fused kernel on untextured lanes
+    _, xs2k, xf2 = fuzz_split(ds2, None, 5, hit=cb.hit_shade_t)
+    split = cb.shade_split_t(xs2k, ds2.ltab, ds2.static, config.min_depth,
+                             config.rr_threshold)
+    fused = cb.bounce_shade_t(xf2, ds2.ltab, ds2.mtab, ds2.stab, ds2.static,
+                              config.min_depth, config.rr_threshold)
+    sf_close, sf_flags, sf_exact, _ = agree(split, fused, flag_cols)
+    if sf_close < K3_GATE or sf_flags < K3_GATE:
+        raise AssertionError(f"split vs fused: close {sf_close}, flags "
+                             f"{sf_flags}")
+    sargs0 = (ds_t.ltab, ds_t.static, config.min_depth, config.rr_threshold)
+    # kernel times as every row's: CUDA events over back-to-back calls,
+    # each on its own copy of the input, so that no call finds its input
+    # in the L2 (each input alone fits there)
+    k5_call = rotating(lambda x: ops.hit_shade(x, ds_t.stab), xh0)
+    k6_call = rotating(lambda x: ops.shade_split(x, *sargs0), xs0)
+    k5_ms, k6_ms = time_ms(k5_call), time_ms(k6_call)
+    k5_plain = time_ms(lambda: cb.cbody_hit_reference(xh0, ds_t.stab),
+                       iters=3)
+    k6_plain = time_ms(lambda: cb.cbody_shade_reference(xs0, *sargs0),
+                       iters=3)
+    # and the kernels' own device time, from the profiler, on the same
+    # rotated inputs (K3 on the same lanes for comparison)
+    x0_t = integ.pack_bounce_input(carry_t, raw_t, lidx, selpdf, u_l, u_b,
+                                   u_rr, 0)
+    k5_dev = kernel_ms(k5_call, "hit_shade_kernel")
+    k6_dev = kernel_ms(k6_call, "shade_split_kernel")
+    k3_dev = kernel_ms(rotating(lambda x: ops.bounce_shade(
+        x, ds_t.ltab, ds_t.mtab, ds_t.stab, ds_t.static, config.min_depth,
+        config.rr_threshold), x0_t), "bounce_shade_kernel")
+    # operations: each half's plain version on the same inputs
+    k5_ops = plain_ops(lambda: cb.cbody_hit_reference(xh0, ds_t.stab))
+    k6_ops = plain_ops(lambda: cb.cbody_shade_reference(xs0, *sargs0))
+    kern_rows["hit_shade"] = dict(
+        max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain,
+        bound=bound_ms(4 * n * (cb.HIT_IN_COLS + cb.HIT_OUT_COLS)
+                       + 4 * ds_t.stab.numel(), k5_ops))
+    kern_rows["shade_split"] = dict(
+        max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain,
+        bound=bound_ms(4 * n * (cb.SHADE_IN_COLS + cb.OUT_COLS)
+                       + 4 * ds_t.ltab.numel(), k6_ops))
+    _say("[9] K5 / K6 " + "; ".join(
+        f"{r['set']}: K5 close {r['k5_close']:.6f} bit-exact "
+        f"{r['k5_exact']:.4f} ids {r['k5_ids']}, K6 close "
+        f"{r['k6_close']:.6f} flags {r['k6_flags']:.6f} bit-exact "
+        f"{r['k6_exact']:.4f}" for r in k56)
+        + f"; K5 -> lookups -> K6 vs K3 (fuzz all-branches): close "
+        f"{sf_close:.6f}, flags {sf_flags:.6f}, bit-exact {sf_exact:.4f}; "
+        f"first bounce, per launch by events: K5 {k5_ms:.4f} ms vs plain "
+        f"{k5_plain:.3f} ms, K6 {k6_ms:.4f} ms vs plain {k6_plain:.3f} ms; "
+        f"device time by the profiler: K5 {k5_dev:.4f} ms, K6 "
+        f"{k6_dev:.4f} ms, K3 on the same lanes {k3_dev:.4f} ms; plain "
+        f"operations per lane K5 {k5_ops / n:.0f}, K6 {k6_ops / n:.0f}")
+
+    # phase 10: the textured main path
+    s10 = fuzz.checker_textured(s5, dev)
+    ds10 = sc.DeviceScene.build(s10[0], dev)
+    cfg10 = dataclasses.replace(cfg5, textures=s10[1])
+    ops.reset_counts()
+    img_tk = integ.render(ds10, cam5, film5, cfg10)
+    torch.cuda.synchronize()
+    tex_launches = ops.counts()
+    img_tp = integ.render(ds10, cam5, film5, cfg10, ops=integ.PLAIN_OPS)
+    dtex = float((img_tk - img_tp).abs().max().item())
+    if not torch.isfinite(img_tk).all() or img_tk.shape != (48, 64, 3):
+        raise AssertionError("textured render is not finite [48,64,3]")
+    if min(tex_launches[k] for k in TEXTURED_KERNELS) < 1 \
+            or tex_launches["bounce_shade"]:
+        raise AssertionError(f"textured path launches: {tex_launches}")
+    if dtex > PLAIN_ATOL:
+        raise AssertionError(f"textured kernel and plain paths differ: "
+                             f"{dtex}")
+    if out_dir:
+        np.save(os.path.join(out_dir, "cornell_textured_64x48_kernels.npy"),
+                img_tk.cpu().numpy())
+    config_t = dataclasses.replace(config, textures=atlas_t)
+    tex_rates = {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        integ.render(ds_t, camera, film_cfg,
+                     dataclasses.replace(config_t, spp=1, sample_dx=1,
+                                         sample_dy=1), ops=wops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = integ.render(ds_t, camera, film_cfg, config_t, ops=wops)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"textured {name} render not finite")
+        tex_rates[name] = 256 * 256 * 16 / dt
+    # one wave, textured and untextured: wall, device busy time, launches
+    waves = {}
+    for name, dsx, cfgx in (("textured", ds_t, config_t),
+                            ("untextured", ds, config)):
+        wave_args = (dsx, camera, cfgx, pxy, pid, sid, smp.make_base_key(0))
+        with torch.no_grad():
+            integ.trace_wave(*wave_args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            integ.trace_wave(*wave_args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                integ.trace_wave(*wave_args)
+                torch.cuda.synchronize()
+        waves[name] = (wall,) + _busy_s(prof)
+    wave_s, wbusy, wnk, wown = waves["textured"]
+    uwave_s, ubusy, unk, _ = waves["untextured"]
+    _say(f"[10] textured main path 64x48 32spp depth 8: launches "
+         f"{tex_launches}; max |kernel - plain| {dtex:.3e} (gate "
+         f"{PLAIN_ATOL}) | textured 256x256 16spp depth 8: kernels "
+         f"{tex_rates['kernels']:.0f} paths/s, plain {tex_rates['plain']:.0f}"
+         f" paths/s; textured / untextured (phase 6): kernels "
+         f"{tex_rates['kernels'] / rates['kernels']:.3f}, plain "
+         f"{tex_rates['plain'] / rates['plain']:.3f} | one textured wave "
+         f"{1e3 * wave_s:.1f} ms, device busy {1e3 * wbusy:.1f} ms in {wnk} "
+         f"launches (share {wbusy / wave_s:.2f}), of which "
+         + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in wown.items())
+         + f"; one untextured wave {1e3 * uwave_s:.1f} ms, device busy "
+         f"{1e3 * ubusy:.1f} ms in {unk} launches (share "
+         f"{ubusy / uwave_s:.2f}) ({card})")
+
     src = "arendur_tpu_torch/kernels/"
     meta = {
         "closest_hit": (src + "intersect.cu",
@@ -574,14 +840,23 @@ def main(argv=None):
                          "arendur_tpu/render/cbounce.py:955"),
         "bounce_shade_bwd": (src + "cbounce_bwd.cu",
                              "arendur_tpu/render/cbounce.py:1051"),
+        "hit_shade": (src + "cbounce_split.cu",
+                      "arendur_tpu/render/cbounce.py:1189"),
+        "shade_split": (src + "cbounce_split.cu",
+                        "arendur_tpu/render/cbounce.py:1235"),
     }
     rows = []
-    for k in ("closest_hit", "any_hit", "bounce_shade", "bounce_shade_bwd"):
+    for k in TRAIN_KERNELS + ("hit_shade", "shade_split"):
         r = dict(kern_rows[k])
         b_ms, b_by = r.pop("bound")
+        n_launch = (tex_launches if k in ("hit_shade", "shade_split")
+                    else train_launches)[k]
         rows.append(dict(name=k, route="cuda", source=meta[k][0],
-                         replaces=meta[k][1], launches=launches[k], **r,
+                         replaces=meta[k][1], launches=n_launch, **r,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        if b_ms > r["ms"]:
+            raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
+                                 f"{b_ms} ms")
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kernels=rows, paths_per_s=rates,
@@ -589,7 +864,18 @@ def main(argv=None):
                            k1=k1, k2=k2, k3=k3, k4=k4, ptxas=ptxas,
                            train_grad_rel=grel, train_losses=losses,
                            fwd_bwd=fb, step_s=step_s, step_busy_s=busy,
-                           step_kernel_s=own),
+                           step_kernel_s=own, k5_k6=k56,
+                           split_vs_fused=[sf_close, sf_flags, sf_exact],
+                           textured_launches=tex_launches,
+                           textured_dplain=dtex,
+                           textured_paths_per_s=tex_rates,
+                           textured_wave_s=wave_s,
+                           textured_wave_busy_s=wbusy,
+                           textured_wave_launches=wnk,
+                           textured_wave_kernel_s=wown,
+                           untextured_wave=[uwave_s, ubusy, unk],
+                           k5_k6_k3_device_ms=[k5_dev, k6_dev, k3_dev],
+                           k5_k6_plain_ops=[k5_ops, k6_ops]),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

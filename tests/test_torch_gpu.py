@@ -186,9 +186,83 @@ def test_train_step_kernel_path_matches_plain_path(card, cornell):
         assert ((g - gp).norm() / gp.norm()).item() <= GRAD_GATE, k
 
 
+def _split_inputs(ds, atlas, seed):
+    """K5 and K6 inputs from fuzz rows (render/fuzz.py)."""
+    xh, xs, _ = fuzz.fuzz_split_inputs(ds.ltab, ds.mtab, ds.stab, seed=seed,
+                                       n=N, atlas=atlas)
+    return xh, xs
+
+
+def _textured_cornell(card):
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        CB, spp_override=4, resolution_override=(24, 16))
+    scene, atlas = fuzz.checker_textured(scene, card)
+    return sc.DeviceScene.build(scene, card), camera, film, \
+        dataclasses.replace(config, textures=atlas)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["textured cornell", "all-branches"])
+def test_hit_and_split_shade_kernels_match_plain(card, which):
+    if which == "all-branches":
+        ds, atlas = sc.DeviceScene.build(
+            fuzz.all_branches_scene(sc.SceneBuilder()), card), None
+    else:
+        ds, _, _, config = _textured_cornell(card)
+        atlas = config.textures
+    xh, xs = _split_inputs(ds, atlas, 6)
+    before = (ops.HIT_SHADE.launches, ops.SHADE_SPLIT.launches)
+    h = cb.hit_shade_t(xh, ds.stab)
+    out = cb.shade_split_t(xs, ds.ltab, ds.static, 4, 0.05)
+    assert (ops.HIT_SHADE.launches, ops.SHADE_SPLIT.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, ref, flags in (
+            (h, cb.cbody_hit_reference(xh, ds.stab), (24, 25)),
+            (out, cb.cbody_shade_reference(xs, ds.ltab, ds.static, 4, 0.05),
+             (12, 13, 16, 24))):
+        close = torch.isclose(got, ref, rtol=RTOL, atol=ATOL) \
+            | (torch.isnan(got) & torch.isnan(ref))
+        assert close.float().mean().item() >= ELEM_GATE
+        for j in flags:
+            assert (got[j] == ref[j]).float().mean().item() >= SLOT_GATE
+
+
+@pytest.mark.gpu
+def test_split_shade_backward_is_the_plain_vjp(card):
+    """K6's autograd backward is autograd over the plain shade body."""
+    ds, _, _, config = _textured_cornell(card)
+    xh, xs = _split_inputs(ds, config.textures, 7)
+    ct = torch.tensor(np.random.default_rng(8).normal(
+        size=(cb.OUT_COLS, N)).astype(np.float32), device=card)
+    ins = [xs.clone().requires_grad_(True),
+           ds.ltab.clone().requires_grad_(True)]
+    got = torch.autograd.grad(cb.shade_split_t(*ins, ds.static, 4, 0.05),
+                              ins, ct)
+    ref = cb.cbody_shade_vjp_reference(xs, ds.ltab, ct, ds.static, 4, 0.05)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+def test_textured_render_kernel_path_matches_plain_path(card):
+    ds, camera, film, config = _textured_cornell(card)
+    config = dataclasses.replace(config, max_depth=4)
+    ops.reset_counts()
+    img_k = integ.render(ds, camera, film, config)
+    launches = ops.counts()
+    img_p = integ.render(ds, camera, film, config, ops=integ.PLAIN_OPS)
+    textured = ("closest_hit", "any_hit", "hit_shade", "shade_split")
+    assert min(launches[k] for k in textured) >= 1, launches
+    assert launches["bounce_shade"] == 0, launches
+    assert torch.isfinite(img_k).all() and img_k.max() > 0.05
+    torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_cpu_tensors(card):
     with pytest.raises(ValueError):
         ops.closest_hit(torch.zeros(1, 16, 1024), torch.zeros(1, 8),
                         torch.zeros(4, 3), torch.zeros(4, 3),
                         torch.zeros(4))
+    with pytest.raises(ValueError):
+        ops.hit_shade(torch.zeros(cb.HIT_IN_COLS, 4), torch.zeros(1, 24))

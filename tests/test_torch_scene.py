@@ -132,11 +132,15 @@ def test_numpy_bvh_matches_reference():
 
 
 def test_unported_descs_raise(tmp_path):
+    """Emission textures are not ported: an Image desc on a sphere
+    light raises (an Image on a material loads, see
+    tests/test_torch_texture.py)."""
     import json
     with open(CB) as f:
         desc = json.load(f)
-    desc["components"][1]["value"]["Shaped"]["material"]["value"][
-        "Matte"]["kd"]["value"] = {"Image": {"path": "x.png"}}
+    desc["components"][1]["value"]["Shaped"]["light"]["value"] = {
+        "Image": {"path": os.path.join(REPO,
+                                       "examples/texturedquad/checker.png")}}
     p = tmp_path / "scene.json"
     p.write_text(json.dumps(desc).replace(
         "./examples/cornellbox/", os.path.join(REPO, "examples/cornellbox/")
@@ -146,13 +150,29 @@ def test_unported_descs_raise(tmp_path):
 
 
 @pytest.mark.parametrize("key", ["map_Kd", "map_Ks", "map_bump"])
-def test_mtl_image_maps_raise(tmp_path, key):
+def test_mtl_image_maps_load_as_jax(tmp_path, key):
+    """Image maps of an mtl load into the builder's atlas; the material
+    row matches the JAX package's loader."""
+    from PIL import Image
+    Image.fromarray(np.full((4, 6, 3), 128, np.uint8)).save(
+        str(tmp_path / "t.png"))
     (tmp_path / "m.mtl").write_text(f"newmtl a\nKd 0.5 0.5 0.5\n{key} t.png\n")
     (tmp_path / "m.obj").write_text(
         "mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nusemtl a\nf 1 2 3\n")
+    from arendur_tpu.io import objloader as jobj
     from arendur_tpu_torch.io import objloader
-    with pytest.raises(NotImplementedError):
-        objloader.load_obj_into(tsc.SceneBuilder(), str(tmp_path / "m.obj"))
+    tb, jb = tsc.SceneBuilder(), jsc.SceneBuilder()
+    objloader.load_obj_into(tb, str(tmp_path / "m.obj"))
+    jobj.load_obj_into(jb, str(tmp_path / "m.obj"))
+    assert tb.material_rows == jb.material_rows
+    chan = {"map_Kd": "kd_tex", "map_Ks": "ks_tex",
+            "map_bump": "bump_tex"}[key]
+    assert tb.material_rows[0][chan] == 0 and len(tb.atlas.images) == 1
+
+
+# the test's name from when image maps raised NotImplementedError, kept
+# so that the history of its results stays one series
+test_mtl_image_maps_raise = test_mtl_image_maps_load_as_jax
 
 
 def test_import_pulls_in_no_jax():
