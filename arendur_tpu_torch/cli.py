@@ -55,6 +55,11 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="checkpoint/resume (not yet ported)")
     ap.add_argument("--checkpoint-every", type=int, default=4)
+    ap.add_argument("--composed", action="store_true",
+                    help="render through the composed bounce even where "
+                         "the fused one serves (the JAX CLI's "
+                         "ARENDUR_SHADE=xla); scenes with emission "
+                         "textures always take it")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="per-wave progress + invalid-sample warnings")
     args = ap.parse_args(argv)
@@ -99,7 +104,8 @@ def main(argv=None):
     t0 = time.time()
     dscene = sc.DeviceScene.build(scene, device)
     img = integ.render(dscene, camera, film_cfg, config,
-                       progress=args.verbose).cpu()
+                       progress=args.verbose,
+                       composed=args.composed).cpu()
     dt = time.time() - t0
     print(f"Done! Time used: {dt:.4f}s")
     flm.save_png(img, out)

@@ -4,8 +4,9 @@ e.g. examples/cornellbox/cb.json).
 
 parse_scene(path) returns (SceneData, CameraData, FilmConfig,
 RenderConfig, outputfilename); the scene's image textures ride the
-RenderConfig as a TextureAtlas.  Mesh instancing and emission textures
-are not ported yet and raise NotImplementedError.
+RenderConfig as a TextureAtlas, emission profiles of sphere lights
+included.  Mesh instancing is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -233,24 +234,34 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
             mat_id = mat_ids[mname]
             light_named = body.get("light")
             emission = None
+            etex, etex_mean = -1, 1.0
             if light_named is not None:
+                # emission profile: the constant part times an optional
+                # image texture at the surface point (ref:
+                # component/shape.rs:91-130); lights and materials share
+                # one namespace of named textures (arencli.rs:90,125-127)
                 resolved = textures.rgb.resolve(light_named,
                                                 textures._build_rgb)
                 if resolved is not None:
                     emission, etex = resolved
                     if etex >= 0:
-                        raise NotImplementedError(
-                            "emission textures are not yet ported")
+                        # the 1x1 mip level is the texture's mean: the
+                        # power weight (ref: shape.rs:160-167)
+                        etex_mean = float(builder.atlas.images[etex]
+                                          ["levels"][-1].mean())
             transform = _mat4(body.get("transform"))
             spec = dict(radius=float(sphere["radius"]),
                         zmin=float(sphere["zmin"]),
                         zmax=float(sphere["zmax"]),
                         phimax=float(sphere["phimax"]),
-                        mat_id=mat_id, emission=emission)
+                        mat_id=mat_id, emission=emission,
+                        emission_tex=etex, emission_tex_mean=etex_mean)
             sphere_specs[name] = dict(spec=spec, transform=transform)
             builder.add_sphere(spec["radius"], spec["zmin"], spec["zmax"],
                                spec["phimax"], mat_id,
-                               transform=transform, emission=emission)
+                               transform=transform, emission=emission,
+                               emission_tex=etex,
+                               emission_tex_mean=etex_mean)
         elif kind == "Transformed":
             if body["original"] in mesh_specs:
                 raise NotImplementedError(
@@ -262,7 +273,9 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
             s = orig["spec"]
             builder.add_sphere(s["radius"], s["zmin"], s["zmax"],
                                s["phimax"], s["mat_id"],
-                               transform=composed, emission=s["emission"])
+                               transform=composed, emission=s["emission"],
+                               emission_tex=s["emission_tex"],
+                               emission_tex_mean=s["emission_tex_mean"])
 
     for spec in mesh_specs.values():
         load_obj_into(builder, spec["fname"], transform=spec["transform"])

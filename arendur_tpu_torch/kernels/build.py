@@ -142,5 +142,8 @@ def load() -> _Kernels:
             lib.arendur_hit_shade.restype = I
             lib.arendur_shade_split.argtypes = [P, P, I, I, L, P, P, P]
             lib.arendur_shade_split.restype = I
+            for name in ("arendur_slot_sample", "arendur_slot_eval_pdf"):
+                getattr(lib, name).argtypes = [P, L, I, P, P, P]
+                getattr(lib, name).restype = I
             _lib = lib
         return _lib

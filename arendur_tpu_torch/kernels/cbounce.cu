@@ -1,6 +1,9 @@
 // Bounce-shade kernel for Hopper (sm_90a): replaces the Pallas TPU
 // kernel arendur_tpu/render/cbounce.py::_kernel (launched by _run,
-// entry bounce_shade_t).
+// entry bounce_shade_t), and also serves scenes whose tables have more
+// than 32 rows, for which the JAX package takes the row-form kernel
+// arendur_tpu/render/pallas_bounce.py::_kernel with its one-hot row
+// select: a direct indexed row load has no such cap.
 //
 // One thread shades one ray over the lane-transposed wave xt
 // [IN_COLS=58, N] -> out [OUT_COLS=32, N]: neighbouring threads read

@@ -724,9 +724,10 @@ HDB void slot_sample(int stype, V3 c0, V3 c1, F p0, F p1, F p2,
   }
 }
 
+// The slot sweeps over the kinds in `types` (the bounce passes ALL; the
+// slot-sweep kernels K8 / K9 pass their caller's set).
 HDB void bsdf_eval_pdf(const Slots& b, V3 wow, V3 wiw, const ShadeCfg& cfg,
-                      V3* f_, F* pdf_) {
-  const int types = ALL;
+                      V3* f_, F* pdf_, int types = ALL) {
   V3 wo = vnormalize(to_local(b.ts, b.bs, b.ns, wow));
   V3 wi = vnormalize(to_local(b.ts, b.bs, b.ns, wiw));
   bool is_refl = vdot(wow, b.ng) * vdot(wiw, b.ng) > 0.0f;
@@ -754,8 +755,7 @@ HDB void bsdf_eval_pdf(const Slots& b, V3 wow, V3 wiw, const ShadeCfg& cfg,
 
 HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
                     const ShadeCfg& cfg, V3* f_, V3* wiw_, F* pdf_,
-                    int* kind_) {
-  const int types = ALL;
+                    int* kind_, int types = ALL) {
   int nmatch = match_count(b, types);
   V3 wo = vnormalize(to_local(b.ts, b.bs, b.ns, wow));
   int idx = (int)(ux * (float)nmatch);

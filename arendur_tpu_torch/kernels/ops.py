@@ -3,8 +3,8 @@
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs and scratch, launches its kernel on PyTorch's current stream,
 raises if the launch was refused, and adds one to its ``launches``
-count.  The callers (shapes/cluster_intersect.py, render/cbounce.py)
-reach these only for CUDA tensors.
+count.  The callers (shapes/cluster_intersect.py, render/cbounce.py,
+bxdf/slot_shade.py) reach these only for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -34,8 +34,10 @@ BOUNCE_SHADE = Kernel("bounce_shade")
 BOUNCE_SHADE_BWD = Kernel("bounce_shade_bwd")
 HIT_SHADE = Kernel("hit_shade")
 SHADE_SPLIT = Kernel("shade_split")
+SLOT_SAMPLE = Kernel("slot_sample")
+SLOT_EVAL_PDF = Kernel("slot_eval_pdf")
 KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE, BOUNCE_SHADE_BWD, HIT_SHADE,
-           SHADE_SPLIT)
+           SHADE_SPLIT, SLOT_SAMPLE, SLOT_EVAL_PDF)
 
 
 def reset_counts():
@@ -126,37 +128,55 @@ CFG_WORDS = 42
 SMEM_LIMIT = 227 * 1024
 
 
+def _mask(types) -> int:
+    m = 0
+    for t in types:
+        m |= 1 << int(t)
+    return m
+
+
+def _slot_words(presence, dist_sets) -> list:
+    """The ShadeCfg's slot fields: per-column type masks, their union,
+    the single-column flag and the per-family distribution masks."""
+    all_types = (1 << 10) - 1
+    pres = ([_mask(c) for c in presence]
+            if presence is not None else [all_types] * 3)
+    nonempty = sum(1 for p in pres if p)
+    fam = [0] * 10
+    if dist_sets is not None:
+        for t, ds in dist_sets:
+            fam[int(t)] = _mask(ds)
+    return pres + [pres[0] | pres[1] | pres[2],
+                   int(presence is not None and nonempty <= 1)] + fam
+
+
+def _cfg(ints, floats) -> np.ndarray:
+    words = np.concatenate([np.asarray(ints, np.int32),
+                            np.asarray(floats, np.float32).view(np.int32)])
+    assert words.shape == (CFG_WORDS,)
+    return words
+
+
 def pack_shade_cfg(static, min_depth: int, rr_threshold: float,
                    theta_compat: bool) -> np.ndarray:
     """The kernels' ShadeCfg (kernels/cbounce.cuh) as 42 int32 words."""
-    def mask(types):
-        m = 0
-        for t in types:
-            m |= 1 << int(t)
-        return m
-    all_types = (1 << 10) - 1
-    pres = ([mask(c) for c in static.presence]
-            if static.presence is not None else [all_types] * 3)
-    nonempty = sum(1 for p in pres if p)
-    fam = [0] * 10
-    if static.dist_sets is not None:
-        for t, ds in static.dist_sets:
-            fam[int(t)] = mask(ds)
-    lpres = mask(static.lpresent) if static.lpresent is not None \
+    lpres = _mask(static.lpresent) if static.lpresent is not None \
         else (1 << 5) - 1
     cidx = dict(static.lcidx)
     cols = [cidx[c][0] if c in cidx else -1 for c in _LCOLS]
     q = max(float(rr_threshold), 0.05)
-    ints = pres + [pres[0] | pres[1] | pres[2],
-                   int(static.presence is not None and nonempty <= 1)] \
-        + fam + [lpres] + cols + [int(static.emi_cols[0]), int(min_depth),
-                                  int(bool(static.full_phi)),
-                                  int(bool(theta_compat))]
-    floats = np.asarray([rr_threshold, q, 1.0 / (1.0 - q)], np.float32)
-    words = np.concatenate([np.asarray(ints, np.int32),
-                            floats.view(np.int32)])
-    assert words.shape == (CFG_WORDS,)
-    return words
+    ints = _slot_words(static.presence, static.dist_sets) + [lpres] + cols \
+        + [int(static.emi_cols[0]), int(min_depth),
+           int(bool(static.full_phi)), int(bool(theta_compat))]
+    return _cfg(ints, [rr_threshold, q, 1.0 / (1.0 - q)])
+
+
+def pack_slot_cfg(present, dists) -> np.ndarray:
+    """The ShadeCfg of the slot-sweep kernels: the slot fields from a
+    BsdfSlots' present / dists sets, no light types, no light columns."""
+    ints = _slot_words(present, dists) + [0] + [-1] * len(_LCOLS) \
+        + [0, 0, 0, 0]
+    return _cfg(ints, [0.0, 0.0, 0.0])
 
 
 def _check_smem(*tables):
@@ -244,6 +264,44 @@ def shade_split(xt, ltab, static, min_depth: int, rr_threshold: float):
     _raise_on(code, "shade_split")
     SHADE_SPLIT.launched()
     return out
+
+
+def _slot_sweep(lib_fn, kernel: Kernel, xt, out_rows: int, types: int,
+                present, dists):
+    xt = xt.detach().contiguous()
+    n = xt.shape[1]
+    _check(xt, "xt")
+    cfg = pack_slot_cfg(present, dists)
+    out = torch.empty(out_rows, n, dtype=torch.float32, device=xt.device)
+    code = lib_fn(xt.data_ptr(), n, int(types),
+                  cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(),
+                  _stream(xt))
+    _raise_on(code, kernel.name)
+    kernel.launched()
+    return out
+
+
+def slot_sample(xt, types: int, present, dists):
+    """K8: the slot-mixture sample over the lane-major BSDF columns
+    (bxdf/slot_shade.py layout), [SLOT_COLS + 5, N] -> f wi pdf kind
+    [8, N] on the card."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    if xt.shape[0] != ssh.SAMPLE_IN_COLS:
+        raise ValueError(f"xt has {xt.shape[0]} rows, expected "
+                         f"{ssh.SAMPLE_IN_COLS}")
+    return _slot_sweep(build.load().arendur_slot_sample, SLOT_SAMPLE, xt,
+                       ssh.SAMPLE_OUT_COLS, types, present, dists)
+
+
+def slot_eval_pdf(xt, types: int, present, dists):
+    """K9: the fused evaluate + pdf of the slot mixture,
+    [SLOT_COLS + 6, N] -> f pdf [4, N] on the card."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    if xt.shape[0] != ssh.EVAL_IN_COLS:
+        raise ValueError(f"xt has {xt.shape[0]} rows, expected "
+                         f"{ssh.EVAL_IN_COLS}")
+    return _slot_sweep(build.load().arendur_slot_eval_pdf, SLOT_EVAL_PDF,
+                       xt, ssh.EVAL_OUT_COLS, types, present, dists)
 
 
 # K4's tape: nodes per lane (a fuzzed lane records up to ~2,300, a

@@ -10,8 +10,10 @@ the host-static sets of BSDF families, microfacet models and texture
 channels the table can produce.  On textured scenes ``resolve_params``
 reads each hit's row and replaces its kd / ks / sigma by texture
 lookups and its shading frame by the bump-mapped one, before the shade
-kernel builds the BSDF.  The per-lane recipe (``build_slots``) lives
-with the bounce body in render/cbounce.py.
+kernel builds the BSDF.  The per-lane recipe lives with the bounce body
+in component form (render/cbounce.py ``build_slots``); ``build_slots``
+and ``compute_scattering`` here return it as a row-form
+bxdf/slots.BsdfSlots for the composed path.
 
 * Matte       -> LambertianR (sigma==0) or Oren-Nayar   (matte.rs:38-65)
 * Plastic     -> AshikhminShirley(Beckmann)             (plastic.rs:39-64)
@@ -269,3 +271,35 @@ def resolve_params(mtab: torch.Tensor, mat_id, ns, ng, dpdu, uv=None,
             ns, dpdu = apply_bump(textures, tid(14), uv, ns, ng, dpdu,
                                   dpdv, duvdx=duvdx, duvdy=duvdy)
     return mtype, kd, ks, sigma, roughness, eta, dissolve, ns, dpdu
+
+
+def build_slots(mtype, kd, ks, sigma, roughness, eta, dissolve, ns, ng,
+                dpdu, presence=None, dist_sets=None):
+    """The material recipe over resolved per-lane parameters ([N] or
+    [N,3] rows) -> a row-form BsdfSlots (twin: materials.build_slots;
+    the math is render/cbounce.py's component form)."""
+    from arendur_tpu_torch.bxdf.slots import BsdfSlots
+    from arendur_tpu_torch.render import cbounce as cb
+    c = lambda x: (x[:, 0], x[:, 1], x[:, 2])
+    return BsdfSlots.from_c(cb.build_slots(
+        mtype, c(kd), c(ks), sigma, roughness, eta, dissolve, c(ns), c(ng),
+        c(dpdu), presence=presence, dist_sets=dist_sets))
+
+
+def compute_scattering(table: MaterialTable, mtab: torch.Tensor, mat_id,
+                       ns, ng, dpdu, uv=None, textures=None, dpdv=None,
+                       duvdx=None, duvdy=None,
+                       tex_filter: str = "trilinear", tex_present=None):
+    """The BSDF slot table of N hits (twin: materials.compute_scattering):
+    the hit's material row of mtab (``param_table`` of `table` on the
+    lanes' device), texture-resolved where the row names a texture, then
+    the recipe.  `table` gives the host-static slot and distribution
+    sets."""
+    (mtype, kd, ks, sigma, roughness, eta, dissolve, ns, dpdu) = \
+        resolve_params(mtab, mat_id, ns, ng, dpdu, uv=uv,
+                       textures=textures, dpdv=dpdv, duvdx=duvdx,
+                       duvdy=duvdy, tex_filter=tex_filter,
+                       tex_present=tex_present)
+    return build_slots(mtype, kd, ks, sigma, roughness, eta, dissolve, ns,
+                       ng, dpdu, presence=slot_presence(table),
+                       dist_sets=dist_presence(table))

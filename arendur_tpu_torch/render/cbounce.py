@@ -253,8 +253,10 @@ def _sample_sphere_local_row(radius, zmin, zmax, thetamin, thetamax,
     return p, nrm, 1.0 / area
 
 
-def light_sample_rows(lrow: CRow, present, pos, u2):
-    """Twin: nee.light_sample_rows (need_uv=False path)."""
+def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False):
+    """Twin: nee.light_sample_rows.  need_uv adds "uv", the (u, v) of
+    the sampled light point (the emission-texture lookup of the composed
+    path); the bounce shade runs without it, as the JAX kernels do."""
     has = lambda t: present is None or t in present
     lt = lrow.col1("ltype").to(torch.int32)
     emission = lrow.col3("emission")
@@ -281,8 +283,14 @@ def light_sample_rows(lrow: CRow, present, pos, u2):
         front_s = vdot(vsub(pos_local, lp_l), ln_l) > 0.0
         pfrom_s = cm.tp16(o2w, lp_l)
         rad_s = vwhere(front_s, emission, zero3)
+        if need_uv:
+            uv_s = sc.sphere_uv(
+                torch.stack(lp_l, -1), lrow.col1("s_radius"),
+                lrow.col1("s_thetamin"), lrow.col1("s_thetamax"),
+                lrow.col1("s_phimax"))[:2]
     else:
         pfrom_s, rad_s, pdf_s = zero3, zero3, zero1
+        uv_s = (zero1, zero1)
 
     has_tris = has(sc.L_AREA_TRI) and "tri_v0" in lrow._cidx
     if has_tris:
@@ -310,8 +318,15 @@ def light_sample_rows(lrow: CRow, present, pos, u2):
         pdf_t = W((d2_t < 1e-12) | ~torch.isfinite(pdf_t), 0.0, pdf_t)
         front_t = vdot(vsub(pos, lp_t), ln_t) > 0.0
         rad_t = vwhere(front_t, emission, zero3)
+        if need_uv:
+            uv0 = (lrow.col1("tri_uv0"), lrow.col1("tri_uv0", 1))
+            uv1 = (lrow.col1("tri_uv1"), lrow.col1("tri_uv1", 1))
+            uv2 = (lrow.col1("tri_uv2"), lrow.col1("tri_uv2", 1))
+            uv_t = tuple(bary[0] * uv0[j] + bary[1] * uv1[j]
+                         + bary[2] * uv2[j] for j in range(2))
     else:
         lp_t, pdf_t, rad_t = zero3, zero1, zero3
+        uv_t = (zero1, zero1)
 
     lpos = lrow.col3("pos")
     if has(sc.L_POINT) or has(sc.L_SPOT):
@@ -371,8 +386,11 @@ def light_sample_rows(lrow: CRow, present, pos, u2):
         delta = torch.zeros_like(lt, dtype=torch.bool)
     else:
         delta = (lt == sc.L_POINT) | (lt == sc.L_SPOT)
-    return dict(radiance=radiance, pdf=pdf, pfrom=pfrom, wi=wi,
-                delta=delta)
+    out = dict(radiance=radiance, pdf=pdf, pfrom=pfrom, wi=wi, delta=delta)
+    if need_uv:
+        out["uv"] = tuple(pick(uv_s[j], uv_t[j], zero1, zero1, zero1, zero1)
+                          for j in range(2))
+    return out
 
 
 def _refine_p_local(o, d, t, radius):

@@ -16,6 +16,16 @@ the textured split.
 
 ``checker_textured`` puts bench.py's checkerboard kd texture on every
 matte material of a scene (the textured render's measured cell).
+
+``fuzz_slot_inputs`` draws the slot-sweep inputs of the JAX package's
+tests/test_pallas_shade.py (its five material recipes, optionally
+grazing wo for total internal reflection); ``fuzz_slots`` turns them
+into a port BsdfSlots on a device.
+
+``spread_materials`` copies each material row of a scene several times
+and spreads the triangles and spheres over the copies: the tables grow
+past 32 rows (the JAX package's fused-kernel cap) and the image stays
+the same.
 """
 
 from __future__ import annotations
@@ -182,3 +192,78 @@ def checker_textured(scene, device="cpu"):
                       np.asarray(m.kd_tex)).astype(np.int32)
     return (dataclasses.replace(scene, materials=dataclasses.replace(
         m, kd_tex=kd_tex)), ab.build(device))
+
+
+# the five recipes of tests/test_pallas_shade.py: matte Lambert, matte
+# Oren-Nayar, plastic (Ashikhmin-Shirley, Beckmann), three-slot glass,
+# translucent (Ashikhmin-Shirley + Lambert transmission)
+SLOT_ROWS = (
+    dict(mtype=0, kd=(.5, .4, .3)),
+    dict(mtype=0, kd=(.6, .6, .2), sigma=20.0),
+    dict(mtype=1, kd=(.4, .2, .1), ks=(.5, .5, .5), roughness=500.0),
+    dict(mtype=2, kd=(.9, .9, .9), ks=(1., 1., 1.), eta=1.5,
+         roughness=200.0),
+    dict(mtype=3, kd=(.5, .5, .5), ks=(.3, .3, .3), dissolve=0.5,
+         roughness=300.0),
+)
+
+
+def _unit32(v):
+    v = v.astype(np.float32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def fuzz_slot_inputs(n: int = 1024, seed: int = 0, rows=SLOT_ROWS,
+                     grazing: bool = False) -> dict:
+    """NumPy inputs of the slot sweeps, drawn in the order of the JAX
+    package's _mixed_bsdf fixture: material rows, mat_id [n] int32,
+    ns [n,3] (also the geometric normal), dpdu, wo [n,3], u [n,2] and a
+    second direction wi [n,3] (float32).  grazing pushes wo nearly into
+    the surface plane (total internal reflection on glass lanes)."""
+    rng = np.random.RandomState(seed)
+    mat_id = rng.randint(0, len(rows), n).astype(np.int32)
+    ns = _unit32(rng.normal(size=(n, 3)))
+    dpdu = rng.normal(size=(n, 3)).astype(np.float32)
+    wo = rng.normal(size=(n, 3)).astype(np.float32)
+    if grazing:
+        wo = wo - ns * (wo * ns).sum(-1, keepdims=True) * np.float32(0.995)
+    wo = _unit32(wo)
+    u = rng.uniform(size=(n, 2)).astype(np.float32)
+    wi = _unit32(rng.normal(size=(n, 3)))
+    return dict(rows=list(rows), mat_id=mat_id, ns=ns, dpdu=dpdu, wo=wo,
+                u=u, wi=wi)
+
+
+def fuzz_slots(inputs: dict, device="cpu"):
+    """(BsdfSlots, wo, u, wi) on `device` from ``fuzz_slot_inputs``: the
+    port's compute_scattering over the rows' material table."""
+    import torch
+    from arendur_tpu_torch import materials as mats
+    t = lambda a: torch.as_tensor(a, device=device)
+    table = mats.make_material_table(inputs["rows"])
+    mtab = t(mats.param_table(table))
+    ns = t(inputs["ns"])
+    b = mats.compute_scattering(table, mtab, t(inputs["mat_id"]), ns, ns,
+                                t(inputs["dpdu"]))
+    return b, t(inputs["wo"]), t(inputs["u"]), t(inputs["wi"])
+
+
+def spread_materials(scene, copies: int = 5):
+    """The scene with each of its M material rows repeated `copies`
+    times (M * copies rows); triangle i takes copy i % copies of its
+    row and sphere s copy s % copies.  Every copy is the same row, so
+    the image does not change."""
+    import dataclasses
+    m = scene.materials
+    nm = len(np.asarray(m.mtype))
+    rep = lambda a: np.concatenate([np.asarray(a)] * copies, 0)
+    table = type(m)(**{f.name: rep(getattr(m, f.name))
+                       for f in dataclasses.fields(m)})
+    tm = np.asarray(scene.tri_mat)
+    tri_mat = (tm + nm * (np.arange(len(tm)) % copies)).astype(tm.dtype)
+    s = scene.spheres
+    sm = np.asarray(s.mat_id)
+    sph_mat = (sm + nm * (np.arange(len(sm)) % copies)).astype(sm.dtype)
+    return dataclasses.replace(
+        scene, materials=table, tri_mat=tri_mat,
+        spheres=dataclasses.replace(s, mat_id=sph_mat))

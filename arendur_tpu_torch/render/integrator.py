@@ -21,6 +21,18 @@ lookups run in plain PyTorch (materials.resolve_params); the split
 shade kernel (K6) shades on the resolved material columns.  The
 untextured wave carries no cone and launches neither.
 
+Scenes the fused and split branches do not serve, those whose area
+lights carry an emission texture, take the composed bounce (the JAX
+package's per-bounce composition, integrator.py:440-547): the full
+closest hit (scene.intersect, K1), the emission through the texture,
+the material's BSDF (materials.compute_scattering), the NEE light
+branch (lighting/nee.py: the fused evaluate + pdf, kernel K9, and the
+shadow any-hit, K2), the continuation sample (kernel K8), the MIS
+weight, beta and Russian roulette, each a separate step.  A caller can
+ask for the composed path on any scene (``composed=True``, the JAX
+package's ARENDUR_SHADE=xla), so the paths can be held against each
+other.
+
 After the loop, one more closest hit completes the deferred-MIS BSDF
 branch at the last vertex, and the lanes go back to their original
 order.  ``render`` runs the waves and splats them into the film.
@@ -42,6 +54,9 @@ import torch
 
 from arendur_tpu_torch import materials as mats
 from arendur_tpu_torch import scene as sc
+from arendur_tpu_torch.bxdf import slot_shade as ssh
+from arendur_tpu_torch.bxdf import slots as sl
+from arendur_tpu_torch.bxdf.types import ALL, ALL_NON_SPECULAR, SPECULAR
 from arendur_tpu_torch.filming import camera as cam
 from arendur_tpu_torch.filming import film as flm
 from arendur_tpu_torch.lighting import nee
@@ -80,20 +95,25 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class WaveOps:
-    """The kernel entries one bounce calls (hit_shade and shade_split
-    only on textured scenes)."""
+    """The kernel entries one bounce calls: bounce_shade on the fused
+    branch, hit_shade and shade_split on the textured split,
+    bsdf_sample and bsdf_eval_pdf on the composed bounce."""
     closest_hit: Callable
     any_hit: Callable
     bounce_shade: Callable
     hit_shade: Callable
     shade_split: Callable
+    bsdf_sample: Callable
+    bsdf_eval_pdf: Callable
 
 
 KERNEL_OPS = WaveOps(ci.intersect_clusters, ci.occluded_clusters,
-                     cb.bounce_shade_t, cb.hit_shade_t, cb.shade_split_t)
+                     cb.bounce_shade_t, cb.hit_shade_t, cb.shade_split_t,
+                     ssh.bsdf_sample, ssh.bsdf_eval_pdf)
 PLAIN_OPS = WaveOps(ci.intersect_clusters_reference,
                     ci.occluded_clusters_reference, cb.cbody_reference,
-                    cb.cbody_hit_reference, cb.cbody_shade_reference)
+                    cb.cbody_hit_reference, cb.cbody_shade_reference,
+                    sl.bsdf_sample, sl.bsdf_eval_pdf)
 
 
 def _compact_perm(alive: torch.Tensor):
@@ -167,10 +187,7 @@ def occluded(scene: sc.DeviceScene, o, d, tmax, n_alive=None,
              ops: WaveOps = KERNEL_OPS) -> torch.Tensor:
     """Shadow any-hit against triangles and spheres (ray geometry
     detached, as in intersect_raw)."""
-    o, d, tmax = o.detach(), d.detach(), tmax.detach()
-    blocked = ops.any_hit(scene.cw, scene.cbox, o, d, tmax,
-                          n_alive=n_alive)
-    return blocked | sph.intersect_spheres(scene.spheres, o, d, tmax)["hit"]
+    return sc.occluded(scene, o, d, tmax, n_alive, any_hit=ops.any_hit)
 
 
 def bounce_draws(config: RenderConfig, keys: torch.Tensor, bounce: int):
@@ -264,6 +281,95 @@ def curv_spread(scene: sc.DeviceScene, config: RenderConfig, cone_g,
     return cone_g + torch.where(spec_bounce, 2.0 * kappa * w_at_hit, 0.0)
 
 
+def _rdot(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def composed_bounce(scene: sc.DeviceScene, config: RenderConfig, c: dict,
+                    bounce: int, n_alive, ops: WaveOps, textures=None,
+                    tex_present=None) -> dict:
+    """One composed bounce over the wave state c (twin: the XLA
+    composition of integrator.bounce_step, ref: pt.rs:72-122): returns
+    the next state."""
+    d, beta, L = c["d"], c["beta"], c["L"]
+    hit = sc.intersect(scene, c["o"], d, n_alive=n_alive,
+                       closest_hit=ops.closest_hit)
+    lane_active = c["alive"] & hit.hit
+
+    # (2) emitted radiance, weight 1 for camera hits and specular
+    # continuations, plus the deferred MIS weight at the light NEE chose
+    emit_gate = lane_active & (hit.light_id >= 0)
+    w_emit = torch.where(c["specular"] | (bounce == 0), 1.0, 0.0) \
+        + torch.where(c["nee_prev"] & (hit.light_id == c["sel_prev"]),
+                      c["wb_prev"], 0.0)
+    le = sc.light_emission(scene, hit.light_id, hit.uv, textures)
+    L = L + torch.where(emit_gate[:, None], w_emit[:, None] * beta * le,
+                        0.0)
+
+    # (3) scattering and NEE
+    wo = -d
+    out = {}
+    duvdx = duvdy = None
+    if textures is not None:
+        from arendur_tpu_torch.geometry import dxy
+        ft = torch.where(hit.hit, hit.t, 0.0)
+        r_cone = c["cone_w"] + c["cone_g"] * ft
+        duvdx, duvdy = dxy.cone_duv(r_cone, d, hit.ng, hit.dpdu, hit.dpdv)
+        out["cone_w"] = torch.where(hit.hit, r_cone, c["cone_w"])
+    bsdf = mats.compute_scattering(
+        scene.materials, scene.mtab, hit.mat_id, hit.ns, hit.ng, hit.dpdu,
+        uv=hit.uv, textures=textures, dpdv=hit.dpdv, duvdx=duvdx,
+        duvdy=duvdy, tex_filter=config.tex_filter, tex_present=tex_present)
+    do_nee = lane_active & (sl.match_count(bsdf, ALL_NON_SPECULAR) > 0)
+    u_sel, u_light, u_bsdf, u_rr = bounce_draws(config, c["keys"], bounce)
+    direct, lidx, selpdf = nee.uniform_sample_one_light(
+        scene, hit, bsdf, wo, u_sel, u_light, n_alive, textures,
+        eval_pdf=ops.bsdf_eval_pdf, any_hit=ops.any_hit)
+    L = L + torch.where(do_nee[:, None], beta * direct, 0.0)
+
+    # (4) the BSDF sample for the continuation, also the MIS BSDF sample
+    f, wi, pdf, kind = ops.bsdf_sample(bsdf, wo, u_bsdf, ALL)
+    cont = lane_active & ~cm.is_black((f[:, 0], f[:, 1], f[:, 2])) \
+        & (pdf > 0.0)
+    specular = torch.where(lane_active, (kind & SPECULAR) != 0,
+                           c["specular"])
+    wb = nee.path_mis_weight(scene, lidx, selpdf, hit.pos, wi, pdf, kind, f)
+    ratio = torch.abs(_rdot(wi, bsdf.ns)) / torch.clamp(pdf, min=1e-20)
+    cont = cont & ~(ratio > 1e12)
+    ratio = torch.where(cont, torch.clamp(ratio, max=1e12), 0.0)
+    new_beta = beta * f * ratio[:, None]
+    beta_ok = cm.valid((new_beta[:, 0], new_beta[:, 1], new_beta[:, 2]))
+    beta = torch.where((cont & beta_ok)[:, None], new_beta, beta)
+    alive = lane_active & cont & beta_ok
+    o = torch.stack(cb.offset_ray_origin(
+        tuple(hit.pos.unbind(1)), tuple(hit.pos_err.unbind(1)),
+        tuple(hit.ng.unbind(1)), tuple(wi.unbind(1))), -1)
+    # dead lanes may carry a zero direction (total internal reflection)
+    degenerate = _rdot(wi, wi) < 1e-12
+    d_next = torch.where(degenerate[:, None],
+                         torch.tensor([0.0, 0.0, 1.0], device=wi.device), wi)
+    alive = alive & ~degenerate
+
+    # (5) Russian roulette
+    lum = cm.luminance((beta[:, 0], beta[:, 1], beta[:, 2]))
+    q = max(config.rr_threshold, 0.05)
+    roulette = (lum < config.rr_threshold) & (bounce + 1 >= config.min_depth)
+    killed = roulette & (u_rr < q)
+    beta = torch.where((roulette & ~killed)[:, None], beta / (1.0 - q), beta)
+    alive = alive & ~killed
+    out.update(o=o, d=d_next, L=L, beta=beta, alive=alive, specular=specular,
+               sel_prev=torch.where(lane_active, lidx, c["sel_prev"]),
+               wb_prev=torch.where(lane_active, wb, c["wb_prev"]),
+               nee_prev=do_nee, keys=c["keys"], orig=c["orig"])
+    if textures is not None:
+        is_sph = hit.hit & (hit.prim >= scene.n_tris)
+        s_idx = torch.clamp(hit.prim - scene.n_tris, min=0)
+        out["cone_g"] = curv_spread(scene, config, c["cone_g"], is_sph, s_idx,
+                                    out["cone_w"],
+                                    alive & ((kind & SPECULAR) != 0))
+    return out
+
+
 def initial_carry(o, d, keys) -> dict:
     """Per-lane wave state before the first bounce."""
     n = o.shape[0]
@@ -282,15 +388,20 @@ def initial_carry(o, d, keys) -> dict:
 def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
                config: RenderConfig, pixel_xy, pixel_id, sample_id,
                base_key, ops: WaveOps = KERNEL_OPS,
-               return_aux: bool = False):
+               return_aux: bool = False, composed: bool = False):
     """Trace one wave of rays; returns (pfilm [N,2], L [N,3]).
 
     pixel_xy: [N,2] pixel coords (float); pixel_id / sample_id: [N]
     integer ids for the stateless sampler, all on the scene's device.
     return_aux adds {"n_invalid": count of lanes whose radiance was
-    dropped as invalid} (a device scalar)."""
+    dropped as invalid} (a device scalar).  composed=True takes the
+    composed bounce on any scene; a scene whose lights carry emission
+    textures, which only the composed bounce reads, takes it always (as
+    the JAX package's _mega_eligible decides)."""
     static = scene.static
     textures = config.textures
+    tex_present = None
+    composed = composed or scene.emission_textured
     ws = smp.WaveSampler(base_key, pixel_id, sample_id,
                          kind=config.sampler, sample_dx=config.sample_dx,
                          sample_dy=config.sample_dy)
@@ -319,6 +430,10 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
             perm, n_alive = _compact_perm(carry["alive"])
             carry = _permute(carry, perm)
         c = carry
+        if composed:
+            carry = composed_bounce(scene, config, c, bounce, n_alive, ops,
+                                    textures, tex_present)
+            continue
         raw = intersect_raw(scene, c["o"], c["d"], n_alive, ops)
         u_sel, u_light, u_bsdf, u_rr = bounce_draws(config, c["keys"],
                                                     bounce)
@@ -370,12 +485,19 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
             perm, n_need = _compact_perm(need)
             carry = _permute(carry, perm)
             need = need[perm]
-        hit_f, light_f = intersect_light(scene, carry["o"], carry["d"],
-                                         n_need, ops)
+        if composed:
+            # the final hit's emission through the light's texture
+            hf = sc.intersect(scene, carry["o"], carry["d"], n_alive=n_need,
+                              closest_hit=ops.closest_hit)
+            hit_f, light_f = hf.hit, hf.light_id
+            le_f = sc.light_emission(scene, light_f, hf.uv, textures)
+        else:
+            hit_f, light_f = intersect_light(scene, carry["o"], carry["d"],
+                                             n_need, ops)
+            e0 = static.emi_cols[0]
+            le_f = scene.ltab[torch.clamp(light_f, min=0), e0:e0 + 3]
         gate = need & hit_f & (light_f >= 0) \
             & (light_f == carry["sel_prev"])
-        e0 = static.emi_cols[0]
-        le_f = scene.ltab[torch.clamp(light_f, min=0), e0:e0 + 3]
         carry["L"] = carry["L"] + torch.where(
             gate[:, None], carry["wb_prev"][:, None] * carry["beta"] * le_f,
             0.0)
@@ -392,9 +514,11 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
 
 def render(scene: sc.DeviceScene, camera: cam.CameraData,
            film_cfg: flm.FilmConfig, config: RenderConfig,
-           ops: WaveOps = KERNEL_OPS, progress: bool = False):
+           ops: WaveOps = KERNEL_OPS, progress: bool = False,
+           composed: bool = False):
     """Full render on the scene's device: iterate waves over
-    (pixels x spp), splat to the film, finalize.  Returns [H, W, 3]."""
+    (pixels x spp), splat to the film, finalize.  Returns [H, W, 3].
+    composed: as in trace_wave."""
     dev = scene.device
     w, h = film_cfg.resolution
     spp = config.spp
@@ -417,7 +541,8 @@ def render(scene: sc.DeviceScene, camera: cam.CameraData,
         with torch.no_grad():
             pfilm, L, aux = trace_wave(scene, camera, config, pixel_xy,
                                        pixel_id, sample_id, base_key,
-                                       ops=ops, return_aux=True)
+                                       ops=ops, return_aux=True,
+                                       composed=composed)
         if dense:
             state = flm.film_splat_pixmajor(film_cfg, state,
                                             pfilm - pixel_xy, L,

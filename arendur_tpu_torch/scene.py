@@ -3,13 +3,18 @@ arendur_tpu/scene.py; ref: src/renderer/scene.rs, src/component/).
 
 ``SceneBuilder`` accumulates geometry on the host and freezes it into a
 ``SceneData`` of NumPy arrays (meshes, spheres, lights, materials; no
-instancing yet); its image textures go into an atlas of their own
-(``build_textures``), which the render takes through its config.  ``DeviceScene.build`` moves the
-tables the render reads onto one device and computes, once and from
-NumPy, the host-static sets the bounce shade is specialised on (slot
-presence, distribution presence, the light column map, the light types
-present, full-phi spheres).  Primitive ids: [0, T) triangles,
+instancing yet); its image textures, material maps and emission
+profiles alike, go into an atlas of their own (``build_textures``),
+which the render takes through its config.  ``DeviceScene.build``
+moves the tables the render reads onto one device and computes, once
+and from NumPy, the host-static sets the bounce shade is specialised on
+(slot presence, distribution presence, the light column map, the light
+types present, full-phi spheres).  Primitive ids: [0, T) triangles,
 [T, T+S) spheres.
+
+For the composed bounce, ``intersect`` returns the full closest-hit
+record ``Hit`` and ``light_emission`` / ``emission_tex_factor`` read an
+area light's radiance through its emission texture.
 """
 
 from __future__ import annotations
@@ -204,9 +209,13 @@ class SceneBuilder:
         return len(self.material_rows) - 1
 
     def add_mesh(self, vertices, faces, mat_id: int, normals=None,
-                 uvs=None, transform=None, emission=None):
+                 uvs=None, transform=None, emission=None,
+                 emission_tex: int = -1, emission_tex_mean=1.0):
         """Add a triangle mesh: vertices [V,3], faces [F,3] int;
-        transform: optional 4x4 (row layout, projective divide)."""
+        transform: optional 4x4 (row layout, projective divide).  An
+        emissive mesh's radiance is emission times the atlas texture
+        emission_tex at the surface uv (-1: constant); emission_tex_mean
+        (the texture's mean) weighs its power for light selection."""
         v = np.asarray(vertices, np.float32)
         f = np.asarray(faces, np.int64)
         if transform is not None:
@@ -242,7 +251,8 @@ class SceneBuilder:
                 light_ids[i] = len(self.light_rows)
                 self.light_rows.append(dict(
                     ltype=L_AREA_TRI, prim=base_tri + i,
-                    emission=tuple(emission)))
+                    emission=tuple(emission), emission_tex=emission_tex,
+                    tex_mean=emission_tex_mean))
         self.tv0.append(p0)
         self.tv1.append(p1)
         self.tv2.append(p2)
@@ -256,7 +266,9 @@ class SceneBuilder:
         self.tlight.append(light_ids)
 
     def add_sphere(self, radius, zmin, zmax, phimax, mat_id: int,
-                   transform=None, emission=None):
+                   transform=None, emission=None, emission_tex: int = -1,
+                   emission_tex_mean=1.0):
+        """Add a sphere (emission and its texture as in add_mesh)."""
         o2w = (np.eye(4, dtype=np.float32) if transform is None
                else np.asarray(transform, np.float32))
         light_id = -1
@@ -264,7 +276,8 @@ class SceneBuilder:
             light_id = len(self.light_rows)
             self.light_rows.append(dict(
                 ltype=L_AREA_SPHERE, prim=len(self.sphere_rows),
-                emission=tuple(emission)))
+                emission=tuple(emission), emission_tex=emission_tex,
+                tex_mean=emission_tex_mean))
         self.sphere_rows.append(dict(
             o2w=o2w, radius=radius, zmin=zmin, zmax=zmax, phimax=phimax,
             mat_id=mat_id, light_id=light_id))
@@ -316,8 +329,10 @@ class SceneBuilder:
 
     def _light_power(self, row, tri_areas, sphere_areas) -> float:
         """Power for the light-selection distribution (ref:
-        scene.rs:36-44; area power = mean*area*pi)."""
-        e = np.asarray(row["emission"], np.float32)
+        scene.rs:36-44; area power = mean*area*pi, the mean of a
+        textured emission scaled by the texture's mean)."""
+        e = np.asarray(row["emission"], np.float32) \
+            * float(row.get("tex_mean", 1.0))
         lum = float(e @ np.asarray([0.212671, 0.715160, 0.072169],
                                    np.float32))
         lt = row["ltype"]
@@ -409,6 +424,7 @@ class SceneBuilder:
             lpos[i] = row.get("pos", (0, 0, 0))
             laux[i] = row.get("aux", (0, 0, 1))
             lpar[i] = row.get("params", (0, 0, 0, 0))
+            letex[i] = row.get("emission_tex", -1)
             powers[i] = self._light_power(row, tri_areas, sphere_areas)
         lights = LightTable(
             ltype=lt, prim=lprim, emission=lem, pos=lpos,
@@ -493,6 +509,7 @@ class DeviceScene:
     light_func_int: float
     static: ShadeStatic
     materials: mats.MaterialTable  # the NumPy rows mtab was packed from
+    emission_textured: bool = False  # some light has an emission texture
 
     @staticmethod
     def build(scene: SceneData, device) -> "DeviceScene":
@@ -500,9 +517,6 @@ class DeviceScene:
             raise NotImplementedError(
                 "scenes without triangles are not yet ported")
         etex = scene.lights.emission_tex
-        if etex is not None and (np.asarray(etex) >= 0).any():
-            raise NotImplementedError(
-                "emission textures are not yet ported")
         device = torch.device(device)
         t = lambda a, dt=torch.float32: torch.as_tensor(
             np.ascontiguousarray(a), dtype=dt, device=device)
@@ -518,4 +532,174 @@ class DeviceScene:
             spheres=sph.DeviceSpheres.from_soa(scene.spheres, device),
             light_cdf=t(dist.cdf), light_func=t(dist.func),
             light_func_int=float(dist.func_int),
-            static=shade_static(scene), materials=scene.materials)
+            static=shade_static(scene), materials=scene.materials,
+            emission_textured=bool(etex is not None
+                                   and (np.asarray(etex) >= 0).any()))
+
+
+# ---------------------------------------------------------------------------
+# the full closest hit and the emission profile (the composed bounce)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Hit:
+    """Wavefront surface-interaction record (twin: scene.Hit)."""
+    hit: torch.Tensor       # [N] bool
+    t: torch.Tensor         # [N], inf on misses
+    prim: torch.Tensor      # [N] int64, -1 = miss
+    pos: torch.Tensor       # [N,3]
+    pos_err: torch.Tensor   # [N,3]
+    ng: torch.Tensor        # [N,3] geometric normal
+    ns: torch.Tensor        # [N,3] shading normal (toward ng)
+    dpdu: torch.Tensor      # [N,3]
+    dpdv: torch.Tensor      # [N,3]
+    uv: torch.Tensor        # [N,2]
+    mat_id: torch.Tensor    # [N] int32
+    light_id: torch.Tensor  # [N] int32 (-1 if not emissive)
+
+
+def sphere_uv(p, radius, thetamin, thetamax, phimax):
+    """(u, v) at local sphere points p [N,3] (twin: the uv of
+    sphere._local_duv, sphere.rs:248-277: polynomial atan2, acos)."""
+    from arendur_tpu_torch.render import cmath as cm
+    phi = cm.atan2_poly(p[:, 1], p[:, 0])
+    phi = torch.where(phi < 0.0, phi + 2.0 * np.pi, phi)
+    theta = torch.acos(torch.clamp(p[:, 2] / radius, -1.0 + 1e-7,
+                                   1.0 - 1e-7))
+    return phi / phimax, (theta - thetamin) / (thetamax - thetamin), theta
+
+
+def sphere_hit_info(stab: torch.Tensor, s_idx, p_local):
+    """Shading info of sphere hits from the shade-table rows (twin:
+    sphere.sphere_hit_info): (pos, ng, uv, dpdu, dpdv, pos_err)."""
+    from arendur_tpu_torch.render import cmath as cm
+    row = stab[s_idx.long()]
+    radius, phimax = row[:, 16], row[:, 19]
+    thetamin, thetamax = row[:, 17], row[:, 18]
+    u, v, theta = sphere_uv(p_local, radius, thetamin, thetamax, phimax)
+    p = p_local
+    inv_zr = 1.0 / torch.sqrt(torch.clamp(p[:, 0] ** 2 + p[:, 1] ** 2,
+                                          min=1e-30))
+    cphi, sphi = p[:, 0] * inv_zr, p[:, 1] * inv_zr
+    dpdu_l = (-phimax * p[:, 1], phimax * p[:, 0], torch.zeros_like(u))
+    dt = thetamax - thetamin
+    dpdv_l = (dt * (p[:, 2] * cphi), dt * (p[:, 2] * sphi),
+              dt * (-radius * torch.sin(theta)))
+    o2w = tuple(row[:, j] for j in range(16))
+    st = lambda c: torch.stack(c, -1)
+    pos = st(cm.tp16(o2w, (p[:, 0], p[:, 1], p[:, 2])))
+    dpdu = cm.tv16(o2w, dpdu_l)
+    dpdv = cm.tv16(o2w, dpdv_l)
+    ng = st(cm.vnormalize(cm.vcross(dpdu, dpdv)))
+    pos_err = pos.abs() * (5.0 * 2.0 ** -24)
+    return pos, ng, torch.stack([u, v], -1), st(dpdu), st(dpdv), pos_err
+
+
+def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
+              closest_hit=None) -> Hit:
+    """Closest hit of N rays against the scene with full shading info
+    (twin: scene.intersect): the cluster closest hit (K1 on CUDA
+    tensors, or the given `closest_hit` entry), the analytic spheres,
+    and the hit record, with benign defaults on miss lanes.  The ray
+    geometry is detached, as in the JAX package."""
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.render import cmath as cm
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    o, d = o.detach(), d.detach()
+    n = o.shape[0]
+    if tmax is None:
+        tmax = torch.full((n,), float("inf"), device=o.device)
+    t_k, slot = (closest_hit or ci.intersect_clusters)(
+        scene.cw, scene.cbox, o, d, tmax.detach(), n_alive=n_alive)
+    tri_hit = slot >= 0
+    tri_idx = torch.where(tri_hit,
+                          scene.remap[torch.clamp(slot, min=0).long()], -1)
+    t_tri = torch.where(tri_hit, t_k, float("inf"))
+    trow = scene.tpack[torch.clamp(tri_idx, min=0)]
+    tcol = lambda j: trow[:, j]
+    oc = (o[:, 0], o[:, 1], o[:, 2])
+    dc = (d[:, 0], d[:, 1], d[:, 2])
+    b0, b1 = cb.bary_from_vertices(oc, dc, (tcol(0), tcol(1), tcol(2)),
+                                   (tcol(3), tcol(4), tcol(5)),
+                                   (tcol(6), tcol(7), tcol(8)))
+    pos_t, perr_t, dpdu_t, dpdv_t, ns_raw = cb.tri_shading_from_row(
+        tcol, b0, b1)
+    b2 = 1.0 - b0 - b1
+    uv_t = torch.stack([b0 * tcol(18) + b1 * tcol(20) + b2 * tcol(22),
+                        b0 * tcol(19) + b1 * tcol(21) + b2 * tcol(23)], -1)
+    ng_t = cm.vnormalize(cm.vcross(dpdu_t, dpdv_t))
+    # the shading normal turned toward the geometric one (ref:
+    # interaction.rs:167-181)
+    ns_t = cm.vwhere(cm.vdot(ns_raw, ng_t) < 0.0, cm.vneg(ns_raw), ns_raw)
+    st = lambda c: torch.stack(c, -1)
+
+    sp = sph.intersect_spheres(scene.spheres, o, d,
+                               torch.minimum(tmax, t_tri))
+    use_sphere = sp["hit"]
+    s_idx = torch.clamp(sp["sphere_idx"], min=0).long()
+    pos_s, ng_s, uv_s, dpdu_s, dpdv_s, perr_s = sphere_hit_info(
+        scene.stab, s_idx, sp["p_local"])
+    srow = scene.stab[s_idx]
+    hit = tri_hit | use_sphere
+    pick = lambda a, b: torch.where(use_sphere[:, None], a, b)
+    hm = hit[:, None]
+    z = torch.zeros_like(o)
+    axis = lambda j: z + torch.eye(3, device=o.device)[j]
+    return Hit(
+        hit=hit,
+        t=torch.where(hit, torch.where(use_sphere, sp["t"], t_tri),
+                      float("inf")),
+        prim=torch.where(hit, torch.where(use_sphere, scene.n_tris + s_idx,
+                                          tri_idx), -1),
+        pos=torch.where(hm, pick(pos_s, st(pos_t)), 0.0),
+        pos_err=torch.where(hm, pick(perr_s, st(perr_t)), 0.0),
+        ng=torch.where(hm, pick(ng_s, st(ng_t)), axis(2)),
+        ns=torch.where(hm, pick(ng_s, st(ns_t)), axis(2)),
+        dpdu=torch.where(hm, pick(dpdu_s, st(dpdu_t)), axis(0)),
+        dpdv=torch.where(hm, pick(dpdv_s, st(dpdv_t)), axis(1)),
+        uv=torch.where(hm, pick(uv_s, uv_t), 0.0),
+        mat_id=torch.where(hit, torch.where(use_sphere, srow[:, 20],
+                                            tcol(24)), 0.0).to(torch.int32),
+        light_id=torch.where(hit, torch.where(use_sphere, srow[:, 21],
+                                              tcol(25)), -1.0).to(torch.int32))
+
+
+def occluded(scene: "DeviceScene", o, d, tmax, n_alive=None,
+             any_hit=None) -> torch.Tensor:
+    """Shadow any-hit against triangles (K2 on CUDA tensors, or the
+    given `any_hit` entry) and spheres; the ray geometry is detached
+    (twin: scene.occluded)."""
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    o, d, tmax = o.detach(), d.detach(), tmax.detach()
+    blocked = (any_hit or ci.occluded_clusters)(scene.cw, scene.cbox, o, d,
+                                                tmax, n_alive=n_alive)
+    return blocked | sph.intersect_spheres(scene.spheres, o, d, tmax)["hit"]
+
+
+def _light_cols(scene: "DeviceScene", name: str) -> slice:
+    lo, hi = dict(scene.static.lcidx)[name]
+    return slice(lo, hi)
+
+
+def emission_tex_factor(scene: "DeviceScene", lidx, uv, textures=None):
+    """The emission-profile texture of light lidx [N] at uv [N,2]
+    (white where the light has none; twin: scene.emission_tex_factor,
+    ref: component/shape.rs:115-129)."""
+    ones = torch.ones(uv.shape[0], 3, device=uv.device)
+    if textures is None:
+        return ones
+    from arendur_tpu_torch.texturing.texture import eval_rgb
+    tex_id = scene.ltab[torch.clamp(lidx, min=0).long(),
+                        _light_cols(scene, "emission_tex")]
+    return eval_rgb(textures, tex_id[:, 0].to(torch.int32), uv, ones)
+
+
+def light_emission(scene: "DeviceScene", lidx, uv, textures=None):
+    """Emitted radiance of light lidx [N] at surface uv [N,2]: the
+    constant part times the emission-profile texture (twin:
+    scene.light_emission)."""
+    em = scene.ltab[torch.clamp(lidx, min=0).long(),
+                    _light_cols(scene, "emission")]
+    if textures is None:
+        return em
+    return em * emission_tex_factor(scene, lidx, uv, textures)

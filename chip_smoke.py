@@ -44,10 +44,34 @@ Phases, one line each:
      textured paths/s at 256x256, 16 spp, depth 8 on the kernel and
      the plain path, their ratio to phase 6's untextured rate, and the
      launches and device busy share of one textured wave from a
-     torch.profiler trace.
+     torch.profiler trace;
+ 11. the slot sweeps: the slot-sample kernel (K8) and the eval-pdf
+     kernel (K9) against their plain versions on the first composed
+     bounce of a real 65,536-lane wave of the emission-textured Cornell
+     box (examples/cornellbox/cb_etex.json) and on 65,536 fuzz lanes
+     (the five material recipes with the kind sets ALL and
+     ALL_NON_SPECULAR, grazing glass lanes, a pruned single-recipe
+     table); their times by CUDA events on inputs rotated past the L2
+     and their device time from a torch.profiler trace;
+ 12. the composed main path on cb_etex.json: a 64x48, 32 spp, depth-8
+     render through the kernels against the plain path (K1, K2, K8 and
+     K9 must have launched, K3 / K5 / K6 must not); cb.json forced
+     through the composed bounce against its fused render; composed
+     paths/s at 256x256, 16 spp, depth 8 on the kernel and the plain
+     path and their ratio to phase 6's fused rate; the launches of
+     each kernel in one composed wave, and its device busy share from
+     a torch.profiler trace;
+ 13. the wide tables: the Cornell box with each material row copied 5
+     times (45 rows, more than the 32 of the JAX package's fused
+     kernel; K7 serves such tables on the TPU): K3 against its plain
+     version on the first bounce of a real wave and on fuzz lanes, its
+     time on that first bounce, and its 64x48, 32 spp, depth-8 render
+     against the 9-row render.
 Then the kernels JSON line (each kernel's launches in the run of its
 main path: K1-K4 in the kernel-path train step of phase 8, K5 and K6
-in phase 10's textured render; its ms and plain_ms, all by CUDA
+in phase 10's textured render, K8 and K9 in phase 12's composed
+render, K7 (K3 on the wide tables) in phase 13's render; its ms and
+plain_ms, all by CUDA
 events; and its bound: the larger of the bytes it must move over
 3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s of
 f32, the H100 SXM's data-sheet peaks; a row whose ms is below its
@@ -87,10 +111,15 @@ TRI_FLOPS = 128          # K1/K2: four 16-term dot products per triangle
 FORWARD_KERNELS = ("closest_hit", "any_hit", "bounce_shade")
 TRAIN_KERNELS = FORWARD_KERNELS + ("bounce_shade_bwd",)
 TEXTURED_KERNELS = ("closest_hit", "any_hit", "hit_shade", "shade_split")
+COMPOSED_KERNELS = ("closest_hit", "any_hit", "slot_sample", "slot_eval_pdf")
+FUSED_ATOL = 2e-3        # forced composed vs fused (tests/test_pallas_shade)
+
+
+_T0 = time.perf_counter()
 
 
 def _say(msg):
-    print(msg, flush=True)
+    print(f"{msg} [{time.perf_counter() - _T0:.0f} s]", flush=True)
 
 
 def card_line():
@@ -125,24 +154,69 @@ def rotating(call, x):
     return lambda: call(next(it))
 
 
+def profiled(fn, key="", tries=3):
+    """A torch.profiler trace of one fn() and its device events whose
+    name holds `key`.  The profiler now and then hands back a trace
+    without the device events of a run, so a trace that holds none is
+    taken again, up to `tries` times; ([], None) if none held any."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type.name == "CUDA" and key in e.name]
+        if events:
+            return events, prof
+    return [], None
+
+
+def queued_ms(fn, iters=10):
+    """Device time per call of fn() by CUDA events around `iters` calls
+    that the host queues while the card sleeps, so that no launch waits
+    on the host's launch work (the gaps between launches are counted)."""
+    import torch
+    cycles = 1 << 25
+    for _ in range(4):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        host_behind = e0.query()
+        torch.cuda.synchronize()
+        if not host_behind:
+            return e0.elapsed_time(e1) / iters
+        cycles *= 4
+    raise AssertionError("the host could not queue the calls ahead of "
+                         "the card")
+
+
 def kernel_ms(fn, key, iters=10):
     """Device time per launch of the kernel whose name holds `key`, from
     a torch.profiler trace of `iters` calls (CUDA events around a call
-    also time the host's launch work, which a short kernel waits on)."""
-    import torch
-    from torch.profiler import profile, ProfilerActivity
+    also time the host's launch work, which a short kernel waits on),
+    and beside it the same by queued_ms.  Where no trace held the kernel,
+    the queued time stands for both, and a line says so."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type.name == "CUDA" and key in e.name]
+    spans, _ = profiled(run, key)
+    queued = queued_ms(fn, iters)
     if not spans:
-        raise AssertionError(f"the profile holds no {key} kernel")
-    return 1e-3 * sum(spans) / len(spans)
+        _say(f"the profiler's traces held no {key}: its device time is "
+             f"the queued-events time {queued:.4f} ms")
+        return queued, queued
+    return 1e-3 * sum(e.time_range.end - e.time_range.start
+                      for e in spans) / len(spans), queued
 
 
 def plain_ops(fn):
@@ -208,6 +282,8 @@ def ptxas_report(logs):
                                          "bounce_shade_kernel",
                                          "hit_shade_kernel",
                                          "shade_split_kernel",
+                                         "slot_sample_kernel",
+                                         "slot_eval_pdf_kernel",
                                          "closest", "any")
                              if k in line), line.split("'")[1][:40])
                 out[name] = ""
@@ -242,6 +318,14 @@ def plain_backward_shade():
     return Fn.apply
 
 
+def wave_profile(fn):
+    """A trace of one fn() that holds its device events, for _busy_s."""
+    _, prof = profiled(fn)
+    if prof is None:
+        raise AssertionError("no profiler trace held the device events")
+    return prof
+
+
 def _busy_s(prof):
     """Device time of a profile: the union of its kernel intervals
     (a sum of key_averages() would count an op's kernels twice), their
@@ -252,6 +336,7 @@ def _busy_s(prof):
     for e in events:
         for k in ("bounce_shade_bwd", "table_", "bounce_shade_kernel",
                   "hit_shade_kernel", "shade_split_kernel",
+                  "slot_sample_kernel", "slot_eval_pdf_kernel",
                   "cluster_kernel"):
             if k in e.name:
                 own[k] = own.get(k, 0.0) + 1e-6 * (e.time_range.end
@@ -294,6 +379,7 @@ def main(argv=None):
     from arendur_tpu_torch.sampling import sampler as smp
     from arendur_tpu_torch.shapes import cluster_intersect as ci
     from arendur_tpu_torch.lighting import nee
+    from arendur_tpu_torch import materials as mats
 
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -628,17 +714,13 @@ def main(argv=None):
         if not fb[name]["loss_after"] < fb[name]["loss_before"]:
             raise AssertionError(f"{name}: the loss did not fall {fb[name]}")
     step = mesh.train_step_fn(ds, camera, film_cfg, config)
-    from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step(kd0, target, torch.arange(wave, device=dev))
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(kd0, target, torch.arange(wave, device=dev))
-        torch.cuda.synchronize()
-    busy, nk, own = _busy_s(prof)
+    busy, nk, own = _busy_s(wave_profile(
+        lambda: step(kd0, target, torch.arange(wave, device=dev))))
     _say(f"[8] fwd+bwd 256x256 16spp depth 8, waves of {wave}: "
          + "; ".join(f"{k} {v['paths_per_s']:.0f} paths/s ({v['steps']} "
                      f"steps), loss on wave 0 {v['loss_before']:.6e} -> "
@@ -652,7 +734,6 @@ def main(argv=None):
     # phase 9: K5 and K6 against their plain versions
     scene_t, atlas_t = fuzz.checker_textured(scene, dev)
     ds_t = sc.DeviceScene.build(scene_t, dev)
-    from arendur_tpu_torch import materials as mats
     tex_present = mats.tex_channel_presence(scene_t.materials)
     o_t, d_t, rxd, ryd = cam.generate_ray_differentials(
         camera, pxy + ws.film_jitter(), ws.u2(2))
@@ -732,9 +813,9 @@ def main(argv=None):
     # rotated inputs (K3 on the same lanes for comparison)
     x0_t = integ.pack_bounce_input(carry_t, raw_t, lidx, selpdf, u_l, u_b,
                                    u_rr, 0)
-    k5_dev = kernel_ms(k5_call, "hit_shade_kernel")
-    k6_dev = kernel_ms(k6_call, "shade_split_kernel")
-    k3_dev = kernel_ms(rotating(lambda x: ops.bounce_shade(
+    k5_dev, k5_q = kernel_ms(k5_call, "hit_shade_kernel")
+    k6_dev, k6_q = kernel_ms(k6_call, "shade_split_kernel")
+    k3_dev, k3_q = kernel_ms(rotating(lambda x: ops.bounce_shade(
         x, ds_t.ltab, ds_t.mtab, ds_t.stab, ds_t.static, config.min_depth,
         config.rr_threshold), x0_t), "bounce_shade_kernel")
     # operations: each half's plain version on the same inputs
@@ -758,7 +839,8 @@ def main(argv=None):
         f"first bounce, per launch by events: K5 {k5_ms:.4f} ms vs plain "
         f"{k5_plain:.3f} ms, K6 {k6_ms:.4f} ms vs plain {k6_plain:.3f} ms; "
         f"device time by the profiler: K5 {k5_dev:.4f} ms, K6 "
-        f"{k6_dev:.4f} ms, K3 on the same lanes {k3_dev:.4f} ms; plain "
+        f"{k6_dev:.4f} ms, K3 on the same lanes {k3_dev:.4f} ms; by queued events "
+        f"K5 {k5_q:.4f} ms, K6 {k6_q:.4f} ms, K3 {k3_q:.4f} ms; plain "
         f"operations per lane K5 {k5_ops / n:.0f}, K6 {k6_ops / n:.0f}")
 
     # phase 10: the textured main path
@@ -809,10 +891,7 @@ def main(argv=None):
             integ.trace_wave(*wave_args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                integ.trace_wave(*wave_args)
-                torch.cuda.synchronize()
+            prof = wave_profile(lambda: integ.trace_wave(*wave_args))
         waves[name] = (wall,) + _busy_s(prof)
     wave_s, wbusy, wnk, wown = waves["textured"]
     uwave_s, ubusy, unk, _ = waves["untextured"]
@@ -830,6 +909,204 @@ def main(argv=None):
          f"{1e3 * ubusy:.1f} ms in {unk} launches (share "
          f"{ubusy / uwave_s:.2f}) ({card})")
 
+    # phase 11: K8 and K9 against their plain versions
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    etex_json = os.path.join(REPO, "examples/cornellbox/cb_etex.json")
+    s_e, _, _, cfg_e, _ = scenedesc.parse_scene(
+        etex_json, spp_override=16, resolution_override=(256, 256))
+    config_e = dataclasses.replace(config, textures=cfg_e.textures)
+    ds_e = sc.DeviceScene.build(s_e, dev)
+    atlas_e = cfg_e.textures.to(dev)
+    hit_e = sc.intersect(ds_e, o_cam, d_cam)
+    b_e = mats.compute_scattering(
+        ds_e.materials, ds_e.mtab, hit_e.mat_id, hit_e.ns, hit_e.ng,
+        hit_e.dpdu, uv=hit_e.uv, textures=atlas_e, dpdv=hit_e.dpdv)
+    lidx_e, _ = nee.sample_one_light(ds_e, u_sel)
+    wi_e = nee.light_sample(ds_e, lidx_e, hit_e.pos, u_l)["wi"]
+    slot_cases = [("first bounce", b_e, -d_cam, u_b, wi_e, 31)]
+    for nm, kw, types in (("fuzz recipes ALL", {}, 31),
+                          ("fuzz recipes ALL_NON_SPECULAR", {}, 15),
+                          ("fuzz grazing glass",
+                           dict(grazing=True, rows=fuzz.SLOT_ROWS[3:4]), 31),
+                          ("fuzz pruned matte",
+                           dict(rows=fuzz.SLOT_ROWS[0:1]), 31)):
+        bf, wof, uf, wif = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(n, 9, **kw),
+                                           dev)
+        slot_cases.append((nm, bf, wof, uf, wif, types))
+
+    def close_share(a, b):
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        close = torch.isclose(a, b, rtol=K3_RTOL, atol=K3_ATOL) | both_nan
+        exact = ((a == b) | both_nan).float().mean().item()
+        return close.float().mean().item(), exact, \
+            (a - b).abs()[close].max().item()
+
+    k89 = []
+    k8_err = k9_err = 0.0
+    for nm, bx, wox, ux, wix, types in slot_cases:
+        got = ssh.bsdf_sample(bx, wox, ux, types)
+        ref = sl.bsdf_sample(bx, wox, ux, types)
+        kinds = (got[3] == ref[3]).float().mean().item()
+        s8 = [close_share(got[j], ref[j]) for j in range(3)]
+        got9 = ssh.bsdf_eval_pdf(bx, wox, wix, types)
+        ref9 = sl.bsdf_eval_pdf(bx, wox, wix, types)
+        s9 = [close_share(got9[j], ref9[j]) for j in range(2)]
+        k8_err = max([k8_err] + [v[2] for v in s8])
+        k9_err = max([k9_err] + [v[2] for v in s9])
+        k89.append(dict(set=nm, types=types, k8_close=min(v[0] for v in s8),
+                        k8_exact=min(v[1] for v in s8), k8_kinds=kinds,
+                        k9_close=min(v[0] for v in s9),
+                        k9_exact=min(v[1] for v in s9)))
+        if min(k89[-1]["k8_close"], k89[-1]["k9_close"], kinds) < K3_GATE:
+            raise AssertionError(f"K8 / K9 {nm}: {k89[-1]}")
+    xs8 = ssh.pack_slots(b_e, -d_cam, u_b)
+    xs9 = ssh.pack_slots(b_e, -d_cam, wi_e)
+    slot_args = (31, b_e.present, b_e.dists)
+    k8_call = rotating(lambda x: ops.slot_sample(x, *slot_args), xs8)
+    k9_call = rotating(lambda x: ops.slot_eval_pdf(x, *slot_args), xs9)
+    k8_ms, k9_ms = time_ms(k8_call), time_ms(k9_call)
+    k8_plain = time_ms(lambda: sl.bsdf_sample(b_e, -d_cam, u_b), iters=3)
+    k9_plain = time_ms(lambda: sl.bsdf_eval_pdf(b_e, -d_cam, wi_e), iters=3)
+    k8_dev, k8_q = kernel_ms(k8_call, "slot_sample_kernel")
+    k9_dev, k9_q = kernel_ms(k9_call, "slot_eval_pdf_kernel")
+    k8_ops = plain_ops(lambda: sl.bsdf_sample(b_e, -d_cam, u_b))
+    k9_ops = plain_ops(lambda: sl.bsdf_eval_pdf(b_e, -d_cam, wi_e))
+    kern_rows["slot_sample"] = dict(
+        max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain,
+        bound=bound_ms(4 * n * (ssh.SAMPLE_IN_COLS + ssh.SAMPLE_OUT_COLS),
+                       k8_ops))
+    kern_rows["slot_eval_pdf"] = dict(
+        max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain,
+        bound=bound_ms(4 * n * (ssh.EVAL_IN_COLS + ssh.EVAL_OUT_COLS),
+                       k9_ops))
+    _say("[11] K8 / K9 " + "; ".join(
+        f"{r['set']} (types {r['types']}): K8 close {r['k8_close']:.6f} "
+        f"bit-exact {r['k8_exact']:.4f} kinds {r['k8_kinds']:.6f}, K9 close "
+        f"{r['k9_close']:.6f} bit-exact {r['k9_exact']:.4f}" for r in k89)
+        + f"; first bounce, per launch by events: K8 {k8_ms:.4f} ms vs plain"
+        f" {k8_plain:.3f} ms, K9 {k9_ms:.4f} ms vs plain {k9_plain:.3f} ms; "
+        f"device time by the profiler: K8 {k8_dev:.4f} ms, K9 {k9_dev:.4f} "
+        f"ms; by queued events K8 {k8_q:.4f} ms, K9 {k9_q:.4f} ms; plain operations per lane K8 {k8_ops / n:.0f}, K9 "
+        f"{k9_ops / n:.0f}")
+
+    # phase 12: the composed main path
+    s12, cam12, film12, cfg12, _ = scenedesc.parse_scene(
+        etex_json, spp_override=32, resolution_override=(64, 48))
+    cfg12 = dataclasses.replace(cfg12, max_depth=8, wave_size=64 * 48 * 32)
+    ds12 = sc.DeviceScene.build(s12, dev)
+    ops.reset_counts()
+    img_ck = integ.render(ds12, cam12, film12, cfg12)
+    torch.cuda.synchronize()
+    comp_launches = ops.counts()
+    img_cp = integ.render(ds12, cam12, film12, cfg12, ops=integ.PLAIN_OPS)
+    dcomp = float((img_ck - img_cp).abs().max().item())
+    if not torch.isfinite(img_ck).all() or img_ck.shape != (48, 64, 3) \
+            or not img_ck.max() > 0.0:
+        raise AssertionError("composed render is not finite [48,64,3]")
+    if min(comp_launches[k] for k in COMPOSED_KERNELS) < 1 or any(
+            comp_launches[k] for k in ("bounce_shade", "hit_shade",
+                                       "shade_split")):
+        raise AssertionError(f"composed path launches: {comp_launches}")
+    if dcomp > PLAIN_ATOL:
+        raise AssertionError(f"composed kernel and plain paths differ: "
+                             f"{dcomp}")
+    img_forced = integ.render(ds5, cam5, film5, cfg5, composed=True)
+    dforced = float(np.abs(img_forced.cpu().numpy() - img_k).max())
+    if dforced > FUSED_ATOL:
+        raise AssertionError(f"cb.json composed vs fused: {dforced}")
+    if out_dir:
+        np.save(os.path.join(out_dir, "cornell_etex_64x48_kernels.npy"),
+                img_ck.cpu().numpy())
+    comp_rates = {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        integ.render(ds_e, camera, film_cfg,
+                     dataclasses.replace(config_e, spp=1, sample_dx=1,
+                                         sample_dy=1), ops=wops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = integ.render(ds_e, camera, film_cfg, config_e, ops=wops)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"composed {name} render not finite")
+        comp_rates[name] = 256 * 256 * 16 / dt
+    wave_args = (ds_e, camera, config_e, pxy, pid, sid, smp.make_base_key(0))
+    with torch.no_grad():
+        integ.trace_wave(*wave_args)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        integ.trace_wave(*wave_args)
+        torch.cuda.synchronize()
+        cwave_s = time.perf_counter() - t0
+        wave_launches = ops.counts()
+        prof = wave_profile(lambda: integ.trace_wave(*wave_args))
+    cbusy, cnk, cown = _busy_s(prof)
+    _say(f"[12] composed main path (cb_etex.json) 64x48 32spp depth 8: "
+         f"launches {comp_launches}; max |kernel - plain| {dcomp:.3e} (gate "
+         f"{PLAIN_ATOL}); cb.json composed vs fused max |diff| {dforced:.3e} "
+         f"(gate {FUSED_ATOL}) | composed 256x256 16spp depth 8: kernels "
+         f"{comp_rates['kernels']:.0f} paths/s, plain "
+         f"{comp_rates['plain']:.0f} paths/s; composed / fused (phase 6): "
+         f"kernels {comp_rates['kernels'] / rates['kernels']:.3f}, plain "
+         f"{comp_rates['plain'] / rates['plain']:.3f} | one composed wave "
+         f"{1e3 * cwave_s:.1f} ms, kernel launches {wave_launches}, device "
+         f"busy {1e3 * cbusy:.1f} ms in {cnk} launches (share "
+         f"{cbusy / cwave_s:.2f}), of which "
+         + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in cown.items())
+         + f" ({card})")
+
+    # phase 13: K3 on tables of more than 32 rows (K7's function)
+    ds_w = sc.DeviceScene.build(fuzz.spread_materials(scene), dev)
+    if ds_w.mtab.shape[0] <= 32:
+        raise AssertionError("the wide tables have 32 rows or fewer")
+    raw_w = integ.intersect_raw(ds_w, o_cam, d_cam, None, integ.PLAIN_OPS)
+    x0_w = integ.pack_bounce_input(carry, raw_w, lidx, selpdf, u_l, u_b,
+                                   u_rr, 0)
+    wargs = (ds_w.ltab, ds_w.mtab, ds_w.stab, ds_w.static, config.min_depth,
+             config.rr_threshold)
+    xf_w = torch.tensor(fuzz.fuzz_bounce_inputs(
+        *(t.cpu().numpy() for t in wargs[:3]), seed=2, n=n).T.copy(),
+        device=dev)
+    k7 = []
+    k7_err = 0.0
+    for nm, xt in (("first bounce", x0_w), ("fuzz", xf_w)):
+        out_k = cb.bounce_shade_t(xt, *wargs)
+        out_p = cb.cbody_reference(xt, *wargs)
+        fr, ex, err = close_share(out_k, out_p)
+        flags = min((out_k[j] == out_p[j]).float().mean().item()
+                    for j in flag_cols)
+        k7_err = max(k7_err, err)
+        k7.append((nm, fr, flags, ex))
+        if fr < K3_GATE or flags < K3_GATE:
+            raise AssertionError(f"K3 on wide tables, {nm}: {k7[-1]}")
+    k7_call = rotating(lambda x: ops.bounce_shade(x, *wargs), x0_w)
+    k7_ms = time_ms(k7_call)
+    k7_dev, k7_q = kernel_ms(k7_call, "bounce_shade_kernel")
+    k7_plain = time_ms(lambda: cb.cbody_reference(x0_w, *wargs), iters=3)
+    k7_ops = plain_ops(lambda: cb.cbody_reference(x0_w, *wargs))
+    kern_rows["bounce_shade_wide"] = dict(
+        max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain,
+        bound=bound_ms(4 * n * (cb.IN_COLS + cb.OUT_COLS) + 4 * sum(
+            t.numel() for t in wargs[:3]), k7_ops))
+    ds5_w = sc.DeviceScene.build(fuzz.spread_materials(s5), dev)
+    ops.reset_counts()
+    img_w = integ.render(ds5_w, cam5, film5, cfg5)
+    torch.cuda.synchronize()
+    wide_launches = ops.counts()
+    dwide = float(np.abs(img_w.cpu().numpy() - img_k).max())
+    if wide_launches["bounce_shade"] < 1 or dwide > 0.0:
+        raise AssertionError(f"wide tables: launches {wide_launches}, "
+                             f"max |wide - narrow| {dwide}")
+    _say(f"[13] K3 on {ds_w.mtab.shape[0]}-row material tables: " + "; ".join(
+        f"{nm}: close {fr:.6f}, flags {fl:.6f}, bit-exact {ex:.4f}"
+        for nm, fr, fl, ex in k7) + f"; first bounce {k7_ms:.4f} ms by "
+        f"events (device {k7_dev:.4f} ms, queued {k7_q:.4f} ms) vs plain {k7_plain:.3f} ms; "
+        f"64x48 32spp depth 8 render: launches {wide_launches}, max |wide - "
+        f"9-row| {dwide:.3e}")
+
     src = "arendur_tpu_torch/kernels/"
     meta = {
         "closest_hit": (src + "intersect.cu",
@@ -844,15 +1121,27 @@ def main(argv=None):
                       "arendur_tpu/render/cbounce.py:1189"),
         "shade_split": (src + "cbounce_split.cu",
                         "arendur_tpu/render/cbounce.py:1235"),
+        "bounce_shade_wide": (src + "cbounce.cu",
+                              "arendur_tpu/render/pallas_bounce.py:264"),
+        "slot_sample": (src + "slot_shade.cu",
+                        "arendur_tpu/bxdf/pallas_shade.py:139"),
+        "slot_eval_pdf": (src + "slot_shade.cu",
+                          "arendur_tpu/bxdf/pallas_shade.py:189"),
     }
+    main_launches = dict(train_launches)
+    main_launches.update({k: tex_launches[k]
+                          for k in ("hit_shade", "shade_split")})
+    main_launches.update({k: comp_launches[k]
+                          for k in ("slot_sample", "slot_eval_pdf")})
+    main_launches["bounce_shade_wide"] = wide_launches["bounce_shade"]
     rows = []
-    for k in TRAIN_KERNELS + ("hit_shade", "shade_split"):
+    for k in TRAIN_KERNELS + ("hit_shade", "shade_split",
+                              "bounce_shade_wide", "slot_sample",
+                              "slot_eval_pdf"):
         r = dict(kern_rows[k])
         b_ms, b_by = r.pop("bound")
-        n_launch = (tex_launches if k in ("hit_shade", "shade_split")
-                    else train_launches)[k]
         rows.append(dict(name=k, route="cuda", source=meta[k][0],
-                         replaces=meta[k][1], launches=n_launch, **r,
+                         replaces=meta[k][1], launches=main_launches[k], **r,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
         if b_ms > r["ms"]:
             raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
@@ -875,7 +1164,19 @@ def main(argv=None):
                            textured_wave_kernel_s=wown,
                            untextured_wave=[uwave_s, ubusy, unk],
                            k5_k6_k3_device_ms=[k5_dev, k6_dev, k3_dev],
-                           k5_k6_plain_ops=[k5_ops, k6_ops]),
+                           k5_k6_k3_queued_ms=[k5_q, k6_q, k3_q],
+                           k5_k6_plain_ops=[k5_ops, k6_ops],
+                           k8_k9=k89, k8_k9_device_ms=[k8_dev, k9_dev],
+                           k8_k9_queued_ms=[k8_q, k9_q],
+                           k8_k9_plain_ops=[k8_ops, k9_ops],
+                           composed_launches=comp_launches,
+                           composed_dplain=dcomp, forced_vs_fused=dforced,
+                           composed_paths_per_s=comp_rates,
+                           composed_wave=[cwave_s, cbusy, cnk],
+                           composed_wave_launches=wave_launches,
+                           composed_wave_kernel_s=cown,
+                           k7=k7, k7_device_ms=k7_dev, k7_queued_ms=k7_q, k7_plain_ops=k7_ops,
+                           wide_launches=wide_launches, wide_dmax=dwide),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

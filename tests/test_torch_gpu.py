@@ -266,3 +266,120 @@ def test_wrappers_reject_cpu_tensors(card):
                         torch.zeros(4))
     with pytest.raises(ValueError):
         ops.hit_shade(torch.zeros(cb.HIT_IN_COLS, 4), torch.zeros(1, 24))
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    with pytest.raises(ValueError):
+        ops.slot_sample(torch.zeros(ssh.SAMPLE_IN_COLS, 4), 31, None, None)
+    with pytest.raises(ValueError):
+        ops.slot_eval_pdf(torch.zeros(ssh.EVAL_IN_COLS, 4), 31, None, None)
+
+
+SLOT_CASES = {"recipes": dict(), "grazing": dict(grazing=True,
+                                                 rows=fuzz.SLOT_ROWS[3:4]),
+              "presence": dict(rows=fuzz.SLOT_ROWS[0:1])}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+@pytest.mark.parametrize("types", [31, 15])   # ALL, ALL_NON_SPECULAR
+def test_slot_kernels_match_plain(card, case, types):
+    """K8 and K9 against slots.bsdf_sample / bsdf_eval_pdf on the card:
+    elements within RTOL / ATOL, sampled kinds equal."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    b, wo, u, wi = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(
+        N, 9, **SLOT_CASES[case]), card)
+    before = (ops.SLOT_SAMPLE.launches, ops.SLOT_EVAL_PDF.launches)
+    got = ssh.bsdf_sample(b, wo, u, types) + ssh.bsdf_eval_pdf(b, wo, wi,
+                                                               types)
+    assert (ops.SLOT_SAMPLE.launches, ops.SLOT_EVAL_PDF.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = sl.bsdf_sample(b, wo, u, types) + sl.bsdf_eval_pdf(b, wo, wi,
+                                                             types)
+    assert torch.equal(got[3], ref[3])
+    for g, r in zip(got[:3] + got[4:], ref[:3] + ref[4:]):
+        close = torch.isclose(g, r, rtol=RTOL, atol=ATOL)
+        assert close.float().mean().item() >= ELEM_GATE
+
+
+@pytest.mark.gpu
+def test_slot_kernel_backward_is_the_plain_vjp(card):
+    """The backward of K8 / K9 is autograd over their plain versions:
+    the f and pdf cotangents flow, the sampled direction does not."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    b, wo, u, wi = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(N, 10), card)
+    rng = np.random.default_rng(11)
+    ct = [torch.tensor(rng.normal(size=s).astype(np.float32), device=card)
+          for s in ((N, 3), (N,))]
+    for kern, plain, x in (
+            (lambda bb, w: ssh.bsdf_sample(bb, w, u)[0::2],
+             lambda bb, w: sl.bsdf_sample(bb, w, u)[0::2], u),
+            (lambda bb, w: ssh.bsdf_eval_pdf(bb, w, wi),
+             lambda bb, w: sl.bsdf_eval_pdf(bb, w, wi), wi)):
+        grads = []
+        for fn in (kern, plain):
+            c0 = b.c0.clone().requires_grad_(True)
+            w = wo.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(fn(b.replace(c0=c0), w),
+                                             (c0, w), ct))
+        for g, r in zip(*grads):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    assert not ssh.bsdf_sample(b.replace(c0=b.c0.requires_grad_(True)),
+                               wo, u)[1].requires_grad
+
+
+@pytest.mark.gpu
+def test_composed_render_kernel_path_matches_plain_path(card):
+    """cb_etex.json (emission-textured sphere lights) through K1, K2,
+    K8 and K9 against the plain path; cb.json forced composed against
+    its fused render."""
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        os.path.join(REPO, "examples/cornellbox/cb_etex.json"),
+        spp_override=4, resolution_override=(24, 16))
+    ds = sc.DeviceScene.build(scene, card)
+    config = dataclasses.replace(config, max_depth=4)
+    ops.reset_counts()
+    img_k = integ.render(ds, camera, film, config)
+    launches = ops.counts()
+    img_p = integ.render(ds, camera, film, config, ops=integ.PLAIN_OPS)
+    composed = ("closest_hit", "any_hit", "slot_sample", "slot_eval_pdf")
+    assert min(launches[k] for k in composed) >= 1, launches
+    assert launches["bounce_shade"] == launches["shade_split"] == 0
+    assert torch.isfinite(img_k).all() and img_k.max() > 0.0
+    torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)
+    ds_cb, camera, film, config = _cornell_depth4(card)
+    fused = integ.render(ds_cb, camera, film, config)
+    forced = integ.render(ds_cb, camera, film, config, composed=True)
+    torch.testing.assert_close(forced, fused, rtol=0.0, atol=2e-3)
+
+
+def _cornell_depth4(card):
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        CB, spp_override=4, resolution_override=(24, 16))
+    return (sc.DeviceScene.build(scene, card), camera, film,
+            dataclasses.replace(config, max_depth=4))
+
+
+@pytest.mark.gpu
+def test_bounce_shade_kernel_serves_wide_tables(card):
+    """K3 on a Cornell box with 45 material rows (the tables K7 serves
+    on the TPU): against its plain version on fuzz lanes, and the
+    render equal to the 9-row render."""
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        CB, spp_override=4, resolution_override=(24, 16))
+    wide = sc.DeviceScene.build(fuzz.spread_materials(scene), card)
+    assert wide.mtab.shape[0] == 45
+    tabs = (wide.ltab, wide.mtab, wide.stab)
+    x = torch.tensor(fuzz.fuzz_bounce_inputs(
+        *(t.cpu().numpy() for t in tabs), seed=12, n=N).T.copy(),
+        device=card)
+    out = cb.bounce_shade_t(x, *tabs, wide.static, 4, 0.05)
+    ref = cb.cbody_reference(x, *tabs, wide.static, 4, 0.05)
+    close = torch.isclose(out, ref, rtol=RTOL, atol=ATOL) \
+        | (torch.isnan(out) & torch.isnan(ref))
+    assert close.float().mean().item() >= ELEM_GATE
+    config = dataclasses.replace(config, max_depth=4)
+    narrow = sc.DeviceScene.build(scene, card)
+    torch.testing.assert_close(integ.render(wide, camera, film, config),
+                               integ.render(narrow, camera, film, config),
+                               rtol=0.0, atol=0.0)

@@ -132,16 +132,30 @@ def test_numpy_bvh_matches_reference():
 
 
 def test_unported_descs_raise(tmp_path):
-    """Emission textures are not ported: an Image desc on a sphere
-    light raises (an Image on a material loads, see
-    tests/test_torch_texture.py)."""
+    """Mesh instancing is not ported: a Transformed of a mesh raises.
+    An Image desc on a sphere light (an emission texture) loads since
+    the composed path is ported, as the JAX package's loader reads it."""
     import json
     with open(CB) as f:
         desc = json.load(f)
     desc["components"][1]["value"]["Shaped"]["light"]["value"] = {
         "Image": {"path": os.path.join(REPO,
                                        "examples/texturedquad/checker.png")}}
+    text = json.dumps(desc).replace(
+        "./examples/cornellbox/", os.path.join(REPO, "examples/cornellbox/")
+        + "/")
     p = tmp_path / "scene.json"
+    p.write_text(text)
+    ts = tsd.parse_scene(str(p))[0]
+    js = jsd.parse_scene(str(p))[0]
+    assert ts.lights.emission_tex.tolist() == [0, -1]
+    np.testing.assert_array_equal(ts.lights.emission_tex,
+                                  np.asarray(js.lights.emission_tex))
+    np.testing.assert_allclose(ts.light_distribution.func,
+                               np.asarray(js.light_distribution.func),
+                               rtol=1e-6)
+    desc["components"].append({"name": "box_copy", "value": {"Transformed": {
+        "original": "cornellbox", "transform": np.eye(4).tolist()}}})
     p.write_text(json.dumps(desc).replace(
         "./examples/cornellbox/", os.path.join(REPO, "examples/cornellbox/")
         + "/"))
@@ -179,7 +193,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys; import arendur_tpu_torch, arendur_tpu_torch.cli, "
             "arendur_tpu_torch.render.integrator, "
             "arendur_tpu_torch.io.scenedesc, arendur_tpu_torch.convert, "
-            "arendur_tpu_torch.kernels.ops; "
+            "arendur_tpu_torch.kernels.ops, arendur_tpu_torch.bxdf.slots, "
+            "arendur_tpu_torch.bxdf.slot_shade, "
+            "arendur_tpu_torch.lighting.nee; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'arendur_tpu')]; "
             "print(bad); assert not bad")

@@ -1,18 +1,23 @@
 """Count the PyTorch operations one wave of the port issues, by stage.
 
-    python tools/torch_wave_ops.py [--textured] [--res 16x16] [--spp 4]
+    python tools/torch_wave_ops.py [--textured | --composed] [--res 16x16]
+                                   [--spp 4]
 
 Runs one trace_wave of the Cornell box (examples/cornellbox/cb.json;
 with --textured, bench.py's checkerboard kd texture on every matte
-material) on the CPU, at depth 8, and counts every aten operation it
-dispatches.  On the card each of these is at least one kernel launch
-issued by the host, so the count is the host's launch work per wave;
-it does not depend on the wave's width.  The hand-written kernels (K1,
-K2, K3, K5, K6) count as one launch per call: their plain versions run
-here, and their own operations are not counted.  Each other operation
-is put in the stage of the innermost function on the Python stack that
-names one.  Prints one JSON object: the stages, their counts, and the
-total.
+material; with --composed, the emission-textured box
+examples/cornellbox/cb_etex.json, which takes the composed bounce) on
+the CPU, at depth 8, and counts every aten operation it dispatches.  On
+the card each of these is at least one kernel launch issued by the
+host, so the count is the host's launch work per wave; it does not
+depend on the wave's width.  The hand-written kernels (K1, K2, K3, K5,
+K6, K8, K9) count as one launch per call: their plain versions run
+here, and their own operations are not counted; the host operations of
+the K8 / K9 entries around their launch (the lane-major pack of the
+BSDF, the output split) are replayed and counted as packing.  Each
+other operation is put in the stage of the innermost function on the
+Python stack that names one.  Prints one JSON object: the stages,
+their counts, and the total.
 """
 
 import argparse
@@ -30,6 +35,21 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 # (file, function or None for any function of the file) -> stage
 STAGES = (
+    ("torch_wave_ops.py", "_slot_entry_host_ops", "packing"),
+    ("scene.py", "intersect", "hit glue"),
+    ("scene.py", "sphere_hit_info", "hit glue"),
+    ("scene.py", "occluded", "shadow glue"),
+    ("scene.py", "light_emission", "emission"),
+    ("scene.py", "emission_tex_factor", "emission"),
+    ("nee.py", "_occlusion_query", "shadow glue"),
+    ("nee.py", "light_sample", "light sample"),
+    ("nee.py", "path_mis_weight", "MIS weight"),
+    ("nee.py", "direct_light_contrib", "NEE glue"),
+    ("nee.py", "light_branch", "NEE glue"),
+    ("nee.py", "uniform_sample_one_light", "NEE glue"),
+    ("materials.py", "build_slots", "material recipe"),
+    ("materials.py", "compute_scattering", "material recipe"),
+    ("integrator.py", "composed_bounce", "composed glue"),
     ("sampler.py", None, "sampler"),
     ("camera.py", None, "camera"),
     ("sphere.py", None, "sphere tests"),
@@ -75,9 +95,26 @@ class _Counter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def _slot_entry_host_ops(b, w, x, rows):
+    """The host operations of a K8 / K9 entry around its launch
+    (bxdf/slot_shade.py): the pack, the output allocation and split."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    ssh.pack_slots(b, w, x)
+    out = torch.empty(rows, w.shape[0])
+    out[0:3].T.contiguous()
+    if rows == ssh.SAMPLE_OUT_COLS:
+        out[3:6].T.contiguous()
+        out[6].clone()
+        out[7].to(torch.int32)
+    else:
+        out[3].clone()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--textured", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--textured", action="store_true")
+    mode.add_argument("--composed", action="store_true")
     ap.add_argument("--res", default="16x16")
     ap.add_argument("--spp", type=int, default=4)
     args = ap.parse_args(argv)
@@ -88,7 +125,8 @@ def main(argv=None):
 
     w, h = (int(v) for v in args.res.lower().split("x"))
     scene, camera, _, config, _ = scenedesc.parse_scene(
-        os.path.join(REPO, "examples/cornellbox/cb.json"),
+        os.path.join(REPO, "examples/cornellbox", "cb_etex.json"
+                     if args.composed else "cb.json"),
         spp_override=args.spp, resolution_override=(w, h))
     config = dataclasses.replace(config, max_depth=8)
     if args.textured:
@@ -108,10 +146,25 @@ def main(argv=None):
                 counter.muted -= 1
         return call
 
+    def slot_kernel(name, fn, rows):
+        launch = kernel(name, fn)
+
+        def call(b, w, x, types):
+            _slot_entry_host_ops(b, w, x, rows)
+            return launch(b, w, x, types)
+        return call
+
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
     plain = integ.PLAIN_OPS
     wave_ops = dataclasses.replace(
         plain, **{f.name: kernel(f.name, getattr(plain, f.name))
                   for f in dataclasses.fields(plain)})
+    wave_ops = dataclasses.replace(
+        wave_ops,
+        bsdf_sample=slot_kernel("bsdf_sample", plain.bsdf_sample,
+                                ssh.SAMPLE_OUT_COLS),
+        bsdf_eval_pdf=slot_kernel("bsdf_eval_pdf", plain.bsdf_eval_pdf,
+                                  ssh.EVAL_OUT_COLS))
     n = w * h * args.spp
     ray_idx = torch.arange(n)
     pid, sid = ray_idx // args.spp, ray_idx % args.spp
@@ -120,8 +173,8 @@ def main(argv=None):
         integ.trace_wave(ds, camera, config, pxy, pid, sid,
                          smp.make_base_key(0), ops=wave_ops)
     counts = dict(sorted(counter.counts.items()))
-    print(json.dumps(dict(textured=args.textured, stages=counts,
-                          total=sum(counts.values()))))
+    print(json.dumps(dict(textured=args.textured, composed=args.composed,
+                          stages=counts, total=sum(counts.values()))))
 
 
 if __name__ == "__main__":
