@@ -125,12 +125,14 @@ def load() -> _Kernels:
         if _lib is None:
             lib = _Kernels([ctypes.CDLL(p) for p, _ in build()])
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-            lib.arendur_closest_hit.argtypes = [P, P, P, P, P, P, I, I, I,
-                                                I, P, P, P]
+            lib.arendur_closest_hit.argtypes = [P, P, P, P, P, P, P, I, I,
+                                                I, I, I, I, P, P, P]
             lib.arendur_closest_hit.restype = I
-            lib.arendur_any_hit.argtypes = [P, P, P, P, P, P, I, I, I, I,
-                                            P, P]
+            lib.arendur_any_hit.argtypes = [P, P, P, P, P, P, P, I, I, I, I,
+                                            I, I, P, P]
             lib.arendur_any_hit.restype = I
+            lib.arendur_max_spheres.argtypes = []
+            lib.arendur_max_spheres.restype = I
             lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, L,
                                                  P, P, P]
             lib.arendur_bounce_shade.restype = I

@@ -205,9 +205,11 @@ HD V3 refine_p_local(V3 o, V3 d, F t, F radius) {
   return v3(degenerate ? 1e-5f * radius : p.x, p.y, p.z);
 }
 
+// (the intersect kernels K1 / K2 also read the root t through t_out)
 HDB bool intersect_local_sphere(V3 o, V3 d, F tmax, F radius,
                                F zmin, F zmax, F phimax,
-                               bool skip_phi_clip, V3* p_out) {
+                               bool skip_phi_clip, V3* p_out,
+                               F* t_out = nullptr) {
   F a = mx(vdot(d, d), 1e-20f);
   F b = 2.0f * vdot(d, o);
   F c = vdot(o, o) - radius * radius;
@@ -230,6 +232,7 @@ HDB bool intersect_local_sphere(V3 o, V3 d, F tmax, F radius,
     clipped = clipped || (phi > phimax);
   }
   *p_out = p;
+  if (t_out) *t_out = t;
   return ok && !clipped;
 }
 

@@ -30,13 +30,19 @@ class Kernel:
 
 CLOSEST_HIT = Kernel("closest_hit")
 ANY_HIT = Kernel("any_hit")
+# K1 / K2 launches that carry a sphere table (the port of the Pallas
+# kernels' _sphere_best branch); each is also one of CLOSEST_HIT's /
+# ANY_HIT's launches
+CLOSEST_HIT_SPHERES = Kernel("closest_hit_spheres")
+ANY_HIT_SPHERES = Kernel("any_hit_spheres")
 BOUNCE_SHADE = Kernel("bounce_shade")
 BOUNCE_SHADE_BWD = Kernel("bounce_shade_bwd")
 HIT_SHADE = Kernel("hit_shade")
 SHADE_SPLIT = Kernel("shade_split")
 SLOT_SAMPLE = Kernel("slot_sample")
 SLOT_EVAL_PDF = Kernel("slot_eval_pdf")
-KERNELS = (CLOSEST_HIT, ANY_HIT, BOUNCE_SHADE, BOUNCE_SHADE_BWD, HIT_SHADE,
+KERNELS = (CLOSEST_HIT, ANY_HIT, CLOSEST_HIT_SPHERES, ANY_HIT_SPHERES,
+           BOUNCE_SHADE, BOUNCE_SHADE_BWD, HIT_SHADE,
            SHADE_SPLIT, SLOT_SAMPLE, SLOT_EVAL_PDF)
 
 
@@ -76,7 +82,13 @@ def _n_alive_tensor(n_alive, n: int, device) -> torch.Tensor:
     return n_alive.to(device=device, dtype=torch.int32).reshape(())
 
 
-def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive):
+# the largest sphere table K1 / K2 take: S rows of 96 B beside the
+# 16 KB weight chunk in the 227 KB of shared memory a block can hold
+# (kernels/intersect.cu MAX_SPHERES)
+MAX_SPHERES = (232448 - 16 * 1024) // 96
+
+
+def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
     n = o.shape[0]
     c, f16, k4 = w_clusters.shape
     if f16 != 16 or k4 % 4:
@@ -87,36 +99,57 @@ def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive):
     _check(d, "d", shape=(n, 3))
     _check(tmax, "tmax", shape=(n,))
     na = _n_alive_tensor(n_alive, n, o.device)
-    return n, c, k4 // 4, na
+    ns = 0
+    if sph_tab is not None:
+        ns = sph_tab.shape[0]
+        _check(sph_tab, "sph_tab", shape=(ns, 24))
+        if ns > MAX_SPHERES:
+            raise ValueError(f"{ns} spheres: the intersect kernels hold at "
+                             f"most {MAX_SPHERES} in shared memory")
+        if ns and period:
+            raise ValueError("a sphere table with batched instancing "
+                             "(period > 0) is not supported")
+    sph = sph_tab.data_ptr() if ns else None
+    return n, c, k4 // 4, na, sph, ns
 
 
 def closest_hit(w_clusters, cbox, o, d, tmax, n_alive=None,
-                period: int = 0):
-    """K1: (t [N] f32, slot [N] int32); slot -1 = miss (t = tmax)."""
+                period: int = 0, sph_tab=None, full_phi: bool = False):
+    """K1: (t [N] f32, slot [N] int32); slot -1 = miss (t = tmax), -(2+s)
+    = a hit on sphere s of sph_tab [S,24] (sphere.kernel_table rows;
+    full_phi: skip the phi clip, every sphere being full)."""
     lib = build.load()
-    n, c, k, na = _cluster_args(w_clusters, cbox, o, d, tmax, n_alive)
+    n, c, k, na, sph, ns = _cluster_args(w_clusters, cbox, o, d, tmax,
+                                         n_alive, sph_tab, period)
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     slot = torch.empty(n, dtype=torch.int32, device=o.device)
     code = lib.arendur_closest_hit(
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), w_clusters.data_ptr(),
-        cbox.data_ptr(), na.data_ptr(), n, c, k, int(period),
-        t.data_ptr(), slot.data_ptr(), _stream(o))
+        cbox.data_ptr(), na.data_ptr(), sph, ns, int(bool(full_phi)), n, c,
+        k, int(period), t.data_ptr(), slot.data_ptr(), _stream(o))
     _raise_on(code, "closest_hit")
     CLOSEST_HIT.launched()
+    if ns:
+        CLOSEST_HIT_SPHERES.launched()
     return t, slot
 
 
-def any_hit(w_clusters, cbox, o, d, tmax, n_alive=None, period: int = 0):
-    """K2: blocked [N] bool (any hit in (teps, tmax))."""
+def any_hit(w_clusters, cbox, o, d, tmax, n_alive=None, period: int = 0,
+            sph_tab=None, full_phi: bool = False):
+    """K2: blocked [N] bool (any hit in (teps, tmax), the spheres of
+    sph_tab included)."""
     lib = build.load()
-    n, c, k, na = _cluster_args(w_clusters, cbox, o, d, tmax, n_alive)
+    n, c, k, na, sph, ns = _cluster_args(w_clusters, cbox, o, d, tmax,
+                                         n_alive, sph_tab, period)
     blocked = torch.empty(n, dtype=torch.int32, device=o.device)
     code = lib.arendur_any_hit(
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), w_clusters.data_ptr(),
-        cbox.data_ptr(), na.data_ptr(), n, c, k, int(period),
-        blocked.data_ptr(), _stream(o))
+        cbox.data_ptr(), na.data_ptr(), sph, ns, int(bool(full_phi)), n, c,
+        k, int(period), blocked.data_ptr(), _stream(o))
     _raise_on(code, "any_hit")
     ANY_HIT.launched()
+    if ns:
+        ANY_HIT_SPHERES.launched()
     return blocked != 0
 
 

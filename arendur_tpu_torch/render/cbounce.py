@@ -393,42 +393,6 @@ def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False):
     return out
 
 
-def _refine_p_local(o, d, t, radius):
-    """Twin: sphere.refine_p_local."""
-    p = vadd(o, vscale(d, t))
-    plen = torch.sqrt(cm._max(vlength2(p), 0.0))
-    p = vscale(p, radius / cm._max(plen, 1e-20))
-    degenerate = (p[0] == 0.0) & (p[1] == 0.0)
-    px = W(degenerate, 1e-5 * radius, p[0])
-    return (px, p[1], p[2])
-
-
-def _intersect_local_sphere(o, d, tmax, radius, zmin, zmax, phimax,
-                            skip_phi_clip: bool = False):
-    """Twin: sphere._intersect_local."""
-    a = cm._max(vdot(d, d), 1e-20)
-    b = 2.0 * vdot(d, o)
-    c = vdot(o, o) - radius * radius
-    delta = b * b - 4.0 * a * c
-    has_root = delta >= 0.0
-    sq = torch.sqrt(cm._max(delta, 1e-30))
-    inv2a = 1.0 / (2.0 * a)
-    d1 = sq * inv2a
-    d0 = -b * inv2a
-    t0 = d0 - d1
-    t1 = d0 + d1
-    t = W(t0 > 0.0, t0, t1)
-    ok = has_root & ~((t0 > tmax) | (t1 < 0.0)) \
-        & ~((t0 <= 0.0) & (t1 > tmax))
-    p = _refine_p_local(o, d, t, radius)
-    clipped = (p[2] < zmin) | (p[2] > zmax)
-    if not skip_phi_clip:
-        phi = cm.atan2_poly(p[1], p[0])
-        phi = W(phi < 0.0, phi + 2.0 * PI, phi)
-        clipped = clipped | (phi > phimax)
-    return ok & ~clipped, t, p
-
-
 def _masked_ratio(hit, num, den):
     """num / den where hit and the ratio is finite, else 0 (double
     where: the lanes that are not kept divide 0 by 1, so their zero
@@ -450,7 +414,7 @@ def light_pdf_wi_rows(lrow: CRow, present, pos, wi,
         pos_l = cm.tp16(w2o, pos)
         wi_l = cm.tv16(w2o, wi)
         radius = lrow.col1("s_radius")
-        hit_s, t_s, p_l = _intersect_local_sphere(
+        hit_s, t_s, p_l = sph.intersect_local(
             pos_l, wi_l, inf, radius, lrow.col1("s_zmin"),
             lrow.col1("s_zmax"), lrow.col1("s_phimax"),
             skip_phi_clip=full_phi_spheres)

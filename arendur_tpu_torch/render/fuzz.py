@@ -22,6 +22,11 @@ tests/test_pallas_shade.py (its five material recipes, optionally
 grazing wo for total internal reflection); ``fuzz_slots`` turns them
 into a port BsdfSlots on a device.
 
+``sphere_rays`` draws world rays that exercise the intersect kernels'
+sphere branch (camera-like and secondary rays, rays aimed at the
+spheres, rays started on a sphere's surface or inside it, grazing
+rays).
+
 ``spread_materials`` copies each material row of a scene several times
 and spreads the triangles and spheres over the copies: the tables grow
 past 32 rows (the JAX package's fused-kernel cap) and the image stays
@@ -267,3 +272,62 @@ def spread_materials(scene, copies: int = 5):
     return dataclasses.replace(
         scene, materials=table, tri_mat=tri_mat,
         spheres=dataclasses.replace(s, mat_id=sph_mat))
+
+
+def sphere_rays(spheres, lo, hi, n: int = 512, seed: int = 0):
+    """NumPy rays (o [n,3], d [n,3] unit, tmax [n]) against the spheres
+    of a SphereSoA inside the box [lo, hi]: 3/16 secondary rays (random
+    origin in the box, random direction), 3/16 camera-like rays (from
+    an eye beyond the box's far z toward points in it), 1/4 aimed at a
+    point within 1.1 radii of a sphere's center, 3/16 started on a
+    sphere's surface (alternately leaving it and entering it), 1/16
+    started inside a sphere, the rest grazing a sphere (closest approach
+    r (1 + e), |e| <= 2e-6).  Half the lanes have tmax = inf, the others
+    tmax uniform in [0.05, 6)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    o2w = np.asarray(spheres.o2w, np.float64)
+    rad = np.asarray(spheres.radius, np.float64)
+    real = np.nonzero(rad > 1e-3)[0]   # not the builder's padding sphere
+    ctr = o2w[:, 3, :3]
+    lin = lambda v, s: np.einsum("nj,njk->nk", v, o2w[s, :3, :3])
+
+    def unit(k):
+        v = rng.normal(size=(k, 3))
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    k_sec, k_cam, k_aim, k_on, k_in = (3 * n // 16, 3 * n // 16, n // 4,
+                                       3 * n // 16, n // 16)
+    k_gr = n - k_sec - k_cam - k_aim - k_on - k_in
+    o, d = [rng.uniform(lo, hi, (k_sec, 3))], [unit(k_sec)]
+    eye = np.array([(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[2] + 6.0])
+    o.append(np.repeat(eye[None], k_cam, 0))
+    d.append(rng.uniform(lo, hi, (k_cam, 3)) - eye)
+    s = rng.choice(real, k_aim)
+    oa = rng.uniform(lo, hi, (k_aim, 3))
+    o.append(oa)
+    d.append(ctr[s] + rad[s, None] * rng.uniform(0, 1.1, (k_aim, 1))
+             * unit(k_aim) - oa)
+    s = rng.choice(real, k_on)
+    pl = rad[s, None] * unit(k_on)
+    dir_ = unit(k_on)
+    leave = (np.sum(dir_ * lin(pl, s), -1) > 0) == (np.arange(k_on) % 2 == 0)
+    o.append(lin(pl, s) + ctr[s])
+    d.append(np.where(leave[:, None], dir_, -dir_))
+    s = rng.choice(real, k_in)
+    o.append(ctr[s] + 0.5 * rad[s, None] * rng.uniform(0, 1, (k_in, 1))
+             * unit(k_in))
+    d.append(unit(k_in))
+    s = rng.choice(real, k_gr)
+    u = unit(k_gr)
+    v = np.cross(u, unit(k_gr))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    e = rng.uniform(-2e-6, 2e-6, (k_gr, 1))
+    o.append(lin(rad[s, None] * ((1 + e) * u - 3 * v), s) + ctr[s])
+    d.append(lin(v, s))
+    d = np.concatenate(d)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tmax = np.where(rng.uniform(size=n) < 0.5, np.inf,
+                    rng.uniform(0.05, 6.0, n)).astype(np.float32)
+    return np.concatenate(o).astype(np.float32), d, tmax
+

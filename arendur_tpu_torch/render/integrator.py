@@ -7,10 +7,10 @@ bounce runs:
 
 1. dead-lane compaction (alive lanes first; the count stays a device
    scalar that the intersection kernels read);
-2. the closest hit against the triangle clusters (kernel K1) plus the
-   analytic spheres;
+2. the closest hit against the triangle clusters and the analytic
+   spheres (kernel K1);
 3. the whole bounce shade over the lane-transposed wave (kernel K3);
-4. the shadow any-hit (kernel K2) plus the spheres;
+4. the shadow any-hit against both (kernel K2);
 5. one masked add of the NEE contribution.
 
 With ``config.textures`` set (a texturing.texture.TextureAtlas), step 3
@@ -133,37 +133,36 @@ def _permute(carry: dict, perm: torch.Tensor) -> dict:
     return {k: v[perm] for k, v in carry.items()}
 
 
-def _tri_closest(scene: sc.DeviceScene, o, d, n_alive, ops: WaveOps):
-    """Closest triangle: (t_tri [N] with inf for misses, tri_idx [N]
-    int64 with -1 for misses)."""
+def _closest(scene: sc.DeviceScene, o, d, n_alive, ops: WaveOps):
+    """Closest hit over the triangles and the spheres (K1 with the
+    scene's sphere table): (t [N] with inf for misses, slot [N]: the
+    cluster slot, -(2+s) for sphere s, -1 for a miss, tri_idx [N] int64
+    with -1 where no triangle was hit)."""
     n = o.shape[0]
     tmax = torch.full((n,), float("inf"), device=o.device)
     t_k, slot = ops.closest_hit(scene.cw, scene.cbox, o, d, tmax,
-                                n_alive=n_alive)
+                                n_alive=n_alive, sph_tab=scene.ktab,
+                                full_phi=scene.full_phi)
     tri_hit = slot >= 0
-    t_tri = torch.where(tri_hit, t_k, float("inf"))
     tri_idx = torch.where(tri_hit,
                           scene.remap[torch.clamp(slot, min=0).long()], -1)
-    return t_tri, tri_idx
+    return torch.where(slot != -1, t_k, float("inf")), slot, tri_idx
 
 
 def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
                   ops: WaveOps = KERNEL_OPS) -> dict:
-    """Raw closest hit for the bounce shade (twin: scene.intersect_raw):
-    dict(t, hit, is_sphere, s_idx, p_local, trow [N,26]).  The ray
-    geometry is detached, as in the JAX package (detached-sampling
-    estimator): no gradient reaches t or p_local from o and d."""
+    """Raw closest hit for the bounce shade (twin: scene.intersect_raw
+    under ARENDUR_SPHERES=kernel): dict(t, hit, is_sphere, s_idx,
+    p_local, trow [N,26]); p_local is rebuilt from the kernel's t on the
+    winning sphere's frame.  The ray geometry is detached, as in the JAX
+    package (detached-sampling estimator): no gradient reaches t or
+    p_local from o and d."""
     o, d = o.detach(), d.detach()
-    t_tri, tri_idx = _tri_closest(scene, o, d, n_alive, ops)
-    trow = scene.tpack[torch.clamp(tri_idx, min=0)]
-    sp = sph.intersect_spheres(scene.spheres, o, d, t_tri)
-    use_sphere = sp["hit"]
-    hit = (tri_idx >= 0) | use_sphere
-    t_best = torch.where(use_sphere, sp["t"], t_tri)
-    return dict(t=torch.where(hit, t_best, float("inf")), hit=hit,
-                is_sphere=use_sphere,
-                s_idx=torch.clamp(sp["sphere_idx"], min=0),
-                p_local=sp["p_local"], trow=trow)
+    t, slot, tri_idx = _closest(scene, o, d, n_alive, ops)
+    p_local, s_idx = sph.hit_p_local(scene.ktab, slot, o, d, t)
+    return dict(t=t, hit=slot != -1, is_sphere=slot <= -2, s_idx=s_idx,
+                p_local=p_local,
+                trow=scene.tpack[torch.clamp(tri_idx, min=0)])
 
 
 def intersect_light(scene: sc.DeviceScene, o, d, n_alive=None,
@@ -172,15 +171,11 @@ def intersect_light(scene: sc.DeviceScene, o, d, n_alive=None,
     light_id) with light_id -1 where the hit is no light (ray geometry
     detached, as in intersect_raw)."""
     o, d = o.detach(), d.detach()
-    t_tri, tri_idx = _tri_closest(scene, o, d, n_alive, ops)
-    light_tri = scene.tpack[torch.clamp(tri_idx, min=0), 25].to(torch.int64)
-    sp = sph.intersect_spheres(scene.spheres, o, d, t_tri)
-    use_sphere = sp["hit"]
-    hit = (tri_idx >= 0) | use_sphere
-    light_s = scene.spheres.light_id[torch.clamp(sp["sphere_idx"],
-                                                 min=0).long()]
-    light_id = torch.where(use_sphere, light_s, light_tri)
-    return hit, torch.where(hit, light_id, -1)
+    _, slot, tri_idx = _closest(scene, o, d, n_alive, ops)
+    light_tri = scene.tpack[torch.clamp(tri_idx, min=0), 25]
+    s_idx = torch.clamp(-2 - slot.long(), min=0)
+    light_id = torch.where(slot <= -2, scene.stab[s_idx, 21], light_tri)
+    return slot != -1, torch.where(slot != -1, light_id, -1.0).long()
 
 
 def occluded(scene: sc.DeviceScene, o, d, tmax, n_alive=None,
@@ -276,7 +271,7 @@ def curv_spread(scene: sc.DeviceScene, config: RenderConfig, cone_g,
     (the object-space radius) and 0 on flat triangles."""
     if not config.cone_curvature:
         return cone_g
-    radius = scene.spheres.radius[s_idx.long()]
+    radius = scene.ktab[s_idx.long(), 16]
     kappa = torch.where(is_sph, 1.0 / torch.clamp(radius, min=1e-6), 0.0)
     return cone_g + torch.where(spec_bounce, 2.0 * kappa * w_at_hit, 0.0)
 

@@ -503,7 +503,8 @@ class DeviceScene:
     ltab: torch.Tensor      # [L,Cl] light_pack rows
     mtab: torch.Tensor      # [M,16] material rows
     stab: torch.Tensor      # [S,24] sphere shade rows
-    spheres: sph.DeviceSpheres
+    ktab: torch.Tensor      # [S,24] sphere rows of the intersect kernels
+    full_phi: bool          # every sphere is full-phi (no phi clip)
     light_cdf: torch.Tensor       # [L+1]
     light_func: torch.Tensor      # [L]
     light_func_int: float
@@ -529,7 +530,8 @@ class DeviceScene:
             tpack=t(tri_pack(scene)), ltab=t(ltab),
             mtab=t(mats.param_table(scene.materials)),
             stab=t(sph.shade_table(scene.spheres)),
-            spheres=sph.DeviceSpheres.from_soa(scene.spheres, device),
+            ktab=t(sph.kernel_table(scene.spheres)),
+            full_phi=bool(scene.spheres.phi_full),
             light_cdf=t(dist.cdf), light_func=t(dist.func),
             light_func_int=float(dist.func_int),
             static=shade_static(scene), materials=scene.materials,
@@ -598,10 +600,11 @@ def sphere_hit_info(stab: torch.Tensor, s_idx, p_local):
 def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
               closest_hit=None) -> Hit:
     """Closest hit of N rays against the scene with full shading info
-    (twin: scene.intersect): the cluster closest hit (K1 on CUDA
-    tensors, or the given `closest_hit` entry), the analytic spheres,
-    and the hit record, with benign defaults on miss lanes.  The ray
-    geometry is detached, as in the JAX package."""
+    (twin: scene.intersect under ARENDUR_SPHERES=kernel): the closest
+    hit over the triangle clusters and the analytic spheres in one call
+    (K1 on CUDA tensors, or the given `closest_hit` entry), then the hit
+    record, with benign defaults on miss lanes.  The ray geometry is
+    detached, as in the JAX package."""
     from arendur_tpu_torch.render import cbounce as cb
     from arendur_tpu_torch.render import cmath as cm
     from arendur_tpu_torch.shapes import cluster_intersect as ci
@@ -610,11 +613,11 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
     if tmax is None:
         tmax = torch.full((n,), float("inf"), device=o.device)
     t_k, slot = (closest_hit or ci.intersect_clusters)(
-        scene.cw, scene.cbox, o, d, tmax.detach(), n_alive=n_alive)
+        scene.cw, scene.cbox, o, d, tmax.detach(), n_alive=n_alive,
+        sph_tab=scene.ktab, full_phi=scene.full_phi)
     tri_hit = slot >= 0
     tri_idx = torch.where(tri_hit,
                           scene.remap[torch.clamp(slot, min=0).long()], -1)
-    t_tri = torch.where(tri_hit, t_k, float("inf"))
     trow = scene.tpack[torch.clamp(tri_idx, min=0)]
     tcol = lambda j: trow[:, j]
     oc = (o[:, 0], o[:, 1], o[:, 2])
@@ -633,12 +636,10 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
     ns_t = cm.vwhere(cm.vdot(ns_raw, ng_t) < 0.0, cm.vneg(ns_raw), ns_raw)
     st = lambda c: torch.stack(c, -1)
 
-    sp = sph.intersect_spheres(scene.spheres, o, d,
-                               torch.minimum(tmax, t_tri))
-    use_sphere = sp["hit"]
-    s_idx = torch.clamp(sp["sphere_idx"], min=0).long()
+    use_sphere = slot <= -2
+    p_local, s_idx = sph.hit_p_local(scene.ktab, slot, o, d, t_k)
     pos_s, ng_s, uv_s, dpdu_s, dpdv_s, perr_s = sphere_hit_info(
-        scene.stab, s_idx, sp["p_local"])
+        scene.stab, s_idx, p_local)
     srow = scene.stab[s_idx]
     hit = tri_hit | use_sphere
     pick = lambda a, b: torch.where(use_sphere[:, None], a, b)
@@ -647,8 +648,7 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
     axis = lambda j: z + torch.eye(3, device=o.device)[j]
     return Hit(
         hit=hit,
-        t=torch.where(hit, torch.where(use_sphere, sp["t"], t_tri),
-                      float("inf")),
+        t=torch.where(hit, t_k, float("inf")),
         prim=torch.where(hit, torch.where(use_sphere, scene.n_tris + s_idx,
                                           tri_idx), -1),
         pos=torch.where(hm, pick(pos_s, st(pos_t)), 0.0),
@@ -666,14 +666,13 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
 
 def occluded(scene: "DeviceScene", o, d, tmax, n_alive=None,
              any_hit=None) -> torch.Tensor:
-    """Shadow any-hit against triangles (K2 on CUDA tensors, or the
-    given `any_hit` entry) and spheres; the ray geometry is detached
-    (twin: scene.occluded)."""
+    """Shadow any-hit against the triangles and the spheres in one call
+    (K2 on CUDA tensors, or the given `any_hit` entry); the ray geometry
+    is detached (twin: scene.occluded under ARENDUR_SPHERES=kernel)."""
     from arendur_tpu_torch.shapes import cluster_intersect as ci
-    o, d, tmax = o.detach(), d.detach(), tmax.detach()
-    blocked = (any_hit or ci.occluded_clusters)(scene.cw, scene.cbox, o, d,
-                                                tmax, n_alive=n_alive)
-    return blocked | sph.intersect_spheres(scene.spheres, o, d, tmax)["hit"]
+    return (any_hit or ci.occluded_clusters)(
+        scene.cw, scene.cbox, o.detach(), d.detach(), tmax.detach(),
+        n_alive=n_alive, sph_tab=scene.ktab, full_phi=scene.full_phi)
 
 
 def _light_cols(scene: "DeviceScene", name: str) -> slice:

@@ -10,12 +10,22 @@ run the plain PyTorch versions ``intersect_clusters_reference`` /
 shapes/mxu_intersect.py over every cluster, without culling: the
 kernels' slab cull is conservative and changes no result).
 
+With a sphere table ``sph_tab`` [S,24] (``sphere.kernel_table`` rows)
+the analytic spheres are tested in the same call, as the Pallas kernels
+do under ARENDUR_SPHERES=kernel (their ``_sphere_best`` branch): a
+sphere hit seeds the closest hit's best t with the code -(2+s) and the
+triangles replace it only when strictly closer (the sphere wins ties);
+for the any hit a sphere hit blocks the ray.  ``full_phi`` skips the
+phi clip (every sphere full, ``SphereSoA.phi_full``).  A sphere table
+with batched instancing (``period > 0``) is refused.
+
 Results are detached: ray geometry carries no gradient (the JAX
 package's stop_gradient at scene.py:743-744, 1078-1080).  ``n_alive``
 is a device scalar (the integrator's compaction count): rays at
-positions >= n_alive are misses (closest hit) or unblocked (any hit).
-The in-kernel sphere test of the Pallas kernels (ARENDUR_SPHERES=kernel,
-off by default) is not ported; spheres are intersected outside.
+positions >= n_alive are misses (closest hit) or unblocked (any hit),
+and test no sphere either (the Pallas kernels run ``_sphere_best``
+before their ``n_alive`` test and can report a sphere code there;
+nothing downstream reads a dead lane).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from typing import Optional
 import torch
 
 from arendur_tpu_torch.shapes import mxu_intersect as mxi
+from arendur_tpu_torch.shapes import sphere as sph
 
 
 def _live(n: int, n_alive, period: int, device) -> Optional[torch.Tensor]:
@@ -36,14 +47,28 @@ def _live(n: int, n_alive, period: int, device) -> Optional[torch.Tensor]:
     return i < n_alive
 
 
+def _no_instanced_spheres(sph_tab, period: int):
+    if sph_tab is not None and sph_tab.shape[0] and period:
+        raise ValueError("a sphere table with batched instancing "
+                         "(period > 0) is not supported")
+
+
 def intersect_clusters_reference(w_clusters, cbox, o, d, tmax,
-                                 n_alive=None, period: int = 0):
+                                 n_alive=None, period: int = 0,
+                                 sph_tab=None, full_phi: bool = False):
     """Plain version of the closest-hit kernel: (t [N], slot [N]
-    int32), slot = cluster*K + lane, -1 = miss with t = tmax."""
+    int32), slot = cluster*K + lane, -(2+s) = sphere s, -1 = miss with
+    t = tmax."""
+    _no_instanced_spheres(sph_tab, period)
     k = w_clusters.shape[-1] // 4
     o, d, tmax = o.detach(), d.detach(), tmax.detach()
     t, slot, _, _ = mxi.intersect_mxu(w_clusters, o, d, tmax,
                                       w_clusters.shape[0] * k, chunk=k)
+    if sph_tab is not None:
+        t_s, code = sph.sphere_best(sph_tab, o, d, tmax, full_phi)
+        tri = (slot >= 0) & (t < t_s)
+        t = torch.where(tri, t, t_s)
+        slot = torch.where(tri, slot, code)
     live = _live(o.shape[0], n_alive, period, o.device)
     if live is not None:
         slot = torch.where(live, slot, -1)
@@ -52,12 +77,17 @@ def intersect_clusters_reference(w_clusters, cbox, o, d, tmax,
 
 
 def occluded_clusters_reference(w_clusters, cbox, o, d, tmax,
-                                n_alive=None, period: int = 0):
+                                n_alive=None, period: int = 0,
+                                sph_tab=None, full_phi: bool = False):
     """Plain version of the any-hit kernel: blocked [N] bool."""
+    _no_instanced_spheres(sph_tab, period)
     k = w_clusters.shape[-1] // 4
-    blocked = mxi.occluded_mxu(w_clusters, o.detach(), d.detach(),
-                               tmax.detach(), w_clusters.shape[0] * k,
-                               chunk=k)
+    o, d, tmax = o.detach(), d.detach(), tmax.detach()
+    blocked = mxi.occluded_mxu(w_clusters, o, d, tmax,
+                               w_clusters.shape[0] * k, chunk=k)
+    if sph_tab is not None:
+        blocked = blocked | (sph.sphere_best(sph_tab, o, d, tmax,
+                                             full_phi)[1] != -1)
     live = _live(o.shape[0], n_alive, period, o.device)
     if live is not None:
         blocked = blocked & live
@@ -65,26 +95,29 @@ def occluded_clusters_reference(w_clusters, cbox, o, d, tmax,
 
 
 def intersect_clusters(w_clusters, cbox, o, d, tmax, n_alive=None,
-                       period: int = 0):
-    """Closest hit of N rays against the cluster tables: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+                       period: int = 0, sph_tab=None, full_phi: bool = False):
+    """Closest hit of N rays against the cluster tables and the spheres
+    of sph_tab: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
     if o.is_cuda:
         from arendur_tpu_torch.kernels import ops
         return ops.closest_hit(w_clusters, cbox, o.detach().contiguous(),
                                d.detach().contiguous(),
-                               tmax.detach().contiguous(), n_alive, period)
+                               tmax.detach().contiguous(), n_alive, period,
+                               sph_tab, full_phi)
     return intersect_clusters_reference(w_clusters, cbox, o, d, tmax,
-                                        n_alive, period)
+                                        n_alive, period, sph_tab, full_phi)
 
 
 def occluded_clusters(w_clusters, cbox, o, d, tmax, n_alive=None,
-                      period: int = 0):
-    """Any hit within (teps, tmax): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+                      period: int = 0, sph_tab=None, full_phi: bool = False):
+    """Any hit within (teps, tmax), the spheres of sph_tab included: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if o.is_cuda:
         from arendur_tpu_torch.kernels import ops
         return ops.any_hit(w_clusters, cbox, o.detach().contiguous(),
                            d.detach().contiguous(),
-                           tmax.detach().contiguous(), n_alive, period)
+                           tmax.detach().contiguous(), n_alive, period,
+                           sph_tab, full_phi)
     return occluded_clusters_reference(w_clusters, cbox, o, d, tmax,
-                                       n_alive, period)
+                                       n_alive, period, sph_tab, full_phi)

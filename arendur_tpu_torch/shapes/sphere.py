@@ -2,7 +2,9 @@
 arendur_tpu/shapes/sphere.py; ref: src/shape/sphere.rs:193-317).
 
 Spheres live in their local frame with baked object<->world matrices.
-The tables are host-side NumPy; the intersection runs on tensors.
+The tables are host-side NumPy; the intersection runs on tensors, in
+the intersect kernels K1 / K2 (shapes/cluster_intersect.py) and in the
+plain version of their sphere branch, ``sphere_best``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import math
 import numpy as np
 import torch
 
-from arendur_tpu_torch.geometry import transform as tf
 from arendur_tpu_torch.render import cmath as cm
 
 PI = math.pi
@@ -72,98 +73,105 @@ def make_sphere_params(radius, zmin, zmax, phimax):
     return radius, zmin, zmax, thetamin, thetamax, phimax
 
 
+def kernel_table(spheres: SphereSoA) -> np.ndarray:
+    """[S,24] packed rows for the intersect kernels K1 / K2 (twin:
+    sphere.kernel_table): w2o(16) radius zmin zmax phimax pad(4)."""
+    w2o = np.asarray(spheres.w2o, np.float32).reshape(-1, 16)
+    return np.concatenate([
+        w2o,
+        np.asarray(spheres.radius, np.float32)[:, None],
+        np.asarray(spheres.zmin, np.float32)[:, None],
+        np.asarray(spheres.zmax, np.float32)[:, None],
+        np.asarray(spheres.phimax, np.float32)[:, None],
+        np.zeros((w2o.shape[0], 4), np.float32)], axis=1)
+
+
+# Local-frame sphere math over component tuples (x, y, z) of [N]
+# tensors, in the operation order of the kernels' intersect_local_sphere
+# (kernels/cbounce_body.cuh), which K1 / K2 and the bounce shade run.
+
+def _sqrt(x):
+    """Correctly rounded square root.  PyTorch's CPU kernel can miss it
+    by an ulp (a vectorised approximation), and on a ray started on a
+    sphere that ulp decides hit or miss; CUDA's sqrt and the kernels'
+    sqrtf round correctly.  On the CPU the root goes through float64
+    (exact for an f32 argument)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def refine_p_local(o, d, t, radius):
-    """Local hit point refined onto the surface (sphere.rs:233-238).
-    o, d [N,3]; t [N]; radius a float or [N]."""
-    p = o + t[..., None] * d
-    r_col = torch.broadcast_to(torch.as_tensor(radius, dtype=t.dtype,
-                                               device=t.device),
-                               t.shape)[..., None]
-    plen = torch.sqrt((p * p).sum(-1, keepdim=True))
-    p = p * (r_col / torch.clamp(plen, min=1e-20))
-    degenerate = (p[..., 0] == 0.0) & (p[..., 1] == 0.0)
-    px = torch.where(degenerate, 1e-5 * r_col[..., 0], p[..., 0])
-    return torch.stack([px, p[..., 1], p[..., 2]], dim=-1)
+    """Local hit point refined onto the surface (sphere.rs:233-238)."""
+    p = cm.vadd(o, cm.vscale(d, t))
+    plen = _sqrt(cm._max(cm.vlength2(p), 0.0))
+    p = cm.vscale(p, radius / cm._max(plen, 1e-20))
+    degenerate = (p[0] == 0.0) & (p[1] == 0.0)
+    px = cm.W(degenerate, 1e-5 * radius, p[0])
+    return (px, p[1], p[2])
 
 
-def _intersect_local(o, d, tmax, radius, zmin, zmax, phimax,
-                     skip_phi_clip: bool = False):
-    """Rays (local frame) vs one sphere: (hit [N], t [N], p [N,3]).
-    Reference quadratic (sphere.rs:193-221) then clip (rejecting, not
-    retrying the far root, as sphere.rs:231-245 does)."""
-    a = torch.clamp((d * d).sum(-1), min=1e-20)
-    b = 2.0 * (d * o).sum(-1)
-    c = (o * o).sum(-1) - radius * radius
+def intersect_local(o, d, tmax, radius, zmin, zmax, phimax,
+                    skip_phi_clip: bool = False):
+    """Rays (local frame) vs one sphere: (hit, t, p_local).  Reference
+    quadratic (sphere.rs:193-221) then clip (rejecting, not retrying the
+    far root, as sphere.rs:231-245 does); skip_phi_clip drops the phi
+    test, valid for full-phi spheres."""
+    a = cm._max(cm.vdot(d, d), 1e-20)
+    b = 2.0 * cm.vdot(d, o)
+    c = cm.vdot(o, o) - radius * radius
     delta = b * b - 4.0 * a * c
     has_root = delta >= 0.0
-    sq = torch.sqrt(torch.clamp(delta, min=1e-30))
+    sq = _sqrt(cm._max(delta, 1e-30))
     inv2a = 1.0 / (2.0 * a)
     d1 = sq * inv2a
     d0 = -b * inv2a
     t0 = d0 - d1
     t1 = d0 + d1
-    t = torch.where(t0 > 0.0, t0, t1)
+    t = cm.W(t0 > 0.0, t0, t1)
     ok = has_root & ~((t0 > tmax) | (t1 < 0.0)) \
         & ~((t0 <= 0.0) & (t1 > tmax))
     p = refine_p_local(o, d, t, radius)
-    clipped = (p[..., 2] < zmin) | (p[..., 2] > zmax)
+    clipped = (p[2] < zmin) | (p[2] > zmax)
     if not skip_phi_clip:
-        phi = cm.atan2_poly(p[..., 1], p[..., 0])
-        phi = torch.where(phi < 0.0, phi + 2.0 * PI, phi)
+        phi = cm.atan2_poly(p[1], p[0])
+        phi = cm.W(phi < 0.0, phi + 2.0 * PI, phi)
         clipped = clipped | (phi > phimax)
     return ok & ~clipped, t, p
 
 
-def intersect_spheres(spheres: "DeviceSpheres", o, d, tmax):
-    """N rays vs all S spheres -> closest hit: dict(hit, t,
-    sphere_idx, p_local)."""
-    hits, ts, pls = [], [], []
-    for s in range(spheres.count):
-        w2o = spheres.w2o[s]
-        ol = tf.transform_point(w2o, o)
-        dl = tf.transform_vector(w2o, d)
-        hit, t, pl = _intersect_local(
-            ol, dl, tmax, spheres.radius[s], spheres.zmin[s],
-            spheres.zmax[s], spheres.phimax[s])
-        hits.append(hit)
-        ts.append(t)
-        pls.append(pl)
-    hits = torch.stack(hits)
-    t_masked = torch.where(hits, torch.stack(ts), float("inf"))
-    s_idx = torch.argmin(t_masked, dim=0)
-    n = o.shape[0]
-    lanes = torch.arange(n, device=o.device)
-    best_t = t_masked[s_idx, lanes]
-    hit_any = torch.isfinite(best_t)
-    p_local = torch.stack(pls)[s_idx, lanes]
-    return {
-        "hit": hit_any,
-        "t": torch.where(hit_any, best_t, float("inf")),
-        "sphere_idx": torch.where(hit_any, s_idx.to(torch.int32), -1),
-        "p_local": p_local,
-    }
+def sphere_best(ktab, o, d, tmax, full_phi: bool = False):
+    """Closest sphere hit of N world rays against the kernel-table rows
+    ktab [S,24] (twin: pallas_intersect._sphere_best, the plain version
+    of K1 / K2's sphere branch): (best t [N], code [N] int32), code
+    -(2+s) for a hit on sphere s, -1 for none, best = tmax there.  The
+    ray goes to each sphere's frame with the point multiplied by 1 / w
+    (not divided, unlike geometry.transform.transform_point); spheres
+    are tested in ascending order with a strict t < best, so the lowest
+    index wins a tie."""
+    oc, dc = o.unbind(-1), d.unbind(-1)
+    best = tmax
+    code = torch.full(tmax.shape, -1, dtype=torch.int32, device=o.device)
+    for s in range(ktab.shape[0]):
+        m = ktab[s].unbind()
+        hit, t, _ = intersect_local(cm.tp16(m, oc), cm.tv16(m, dc), tmax,
+                                    m[16], m[17], m[18], m[19],
+                                    skip_phi_clip=full_phi)
+        better = hit & (t < best)
+        best = torch.where(better, t, best)
+        code = torch.where(better, -(2 + s), code)
+    return best, code
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class DeviceSpheres:
-    """The sphere fields the intersection reads, as tensors."""
-    w2o: torch.Tensor      # [S,4,4]
-    radius: torch.Tensor   # [S]
-    zmin: torch.Tensor
-    zmax: torch.Tensor
-    phimax: torch.Tensor
-    light_id: torch.Tensor  # [S] int64
-
-    @property
-    def count(self):
-        return self.radius.shape[0]
-
-    @staticmethod
-    def from_soa(spheres: SphereSoA, device) -> "DeviceSpheres":
-        t = lambda a, dt=torch.float32: torch.as_tensor(
-            np.asarray(a), dtype=dt, device=device)
-        return DeviceSpheres(
-            w2o=t(spheres.w2o), radius=t(spheres.radius),
-            zmin=t(spheres.zmin), zmax=t(spheres.zmax),
-            phimax=t(spheres.phimax),
-            light_id=t(spheres.light_id, torch.int64))
+def hit_p_local(ktab, code, o, d, t):
+    """The local hit point of rays o, d [N,3] at t [N] on the sphere each
+    code [N] names (-(2+s); other lanes read sphere 0 at t = 0), rebuilt
+    by the refinement the kernels' accept ran (twin: the p_local of
+    scene.intersect / intersect_raw under ARENDUR_SPHERES=kernel):
+    (p_local [N,3], s_idx [N] int64)."""
+    sph_hit = code <= -2
+    s_idx = torch.clamp(-2 - code.long(), min=0)
+    row = ktab[s_idx].unbind(-1)
+    ol, dl = cm.tp16(row, o.unbind(-1)), cm.tv16(row, d.unbind(-1))
+    p = refine_p_local(ol, dl, torch.where(sph_hit, t, 0.0), row[16])
+    return torch.stack(p, -1), s_idx

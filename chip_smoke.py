@@ -66,9 +66,24 @@ Phases, one line each:
      kernel; K7 serves such tables on the TPU): K3 against its plain
      version on the first bounce of a real wave and on fuzz lanes, its
      time on that first bounce, and its 64x48, 32 spp, depth-8 render
-     against the 9-row render.
+     against the 9-row render;
+ 14. the sphere branch of K1 / K2 (the port of the Pallas kernels'
+     _sphere_best): K1 / K2 with the scene's sphere table against their
+     plain versions at 65,536 rays with n_alive < N (render/fuzz.py
+     sphere_rays: camera-like, secondary, aimed, surface-started,
+     inside and grazing rays) on cb.json and on the all-branches scene
+     (a partial sphere), each with the phi clip and without; their
+     times on the main path's inputs (the camera wave, its shadow rays)
+     by CUDA events on inputs rotated past the L2 and on the card by
+     the profiler; the C entry refusing a table past the shared memory.
+In phases 6, 8, 10 and 12 one kernel-path run (the timed render, one
+train step) runs with the plain sphere test (shapes/sphere.py
+sphere_best) patched to raise, and where no light pdf is evaluated in
+PyTorch (phases 6, 8, 10) the local sphere test too: no sphere test
+runs outside K1 / K2 there.
 Then the kernels JSON line (each kernel's launches in the run of its
-main path: K1-K4 in the kernel-path train step of phase 8, K5 and K6
+main path: K1-K4 in the kernel-path train step of phase 8, K1 / K2
+with a sphere table counted apart as well, K5 and K6
 in phase 10's textured render, K8 and K9 in phase 12's composed
 render, K7 (K3 on the wide tables) in phase 13's render; its ms and
 plain_ms, all by CUDA
@@ -82,6 +97,7 @@ is printed.  ``--out DIR`` also writes the measurements
 """
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -108,11 +124,15 @@ PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_S = 67e12       # H100 SXM f32, outside the tensor cores
 L2_BYTES = 50 << 20      # H100 L2
 TRI_FLOPS = 128          # K1/K2: four 16-term dot products per triangle
-FORWARD_KERNELS = ("closest_hit", "any_hit", "bounce_shade")
+FORWARD_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
+                   "any_hit_spheres", "bounce_shade")
 TRAIN_KERNELS = FORWARD_KERNELS + ("bounce_shade_bwd",)
-TEXTURED_KERNELS = ("closest_hit", "any_hit", "hit_shade", "shade_split")
-COMPOSED_KERNELS = ("closest_hit", "any_hit", "slot_sample", "slot_eval_pdf")
+TEXTURED_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
+                    "any_hit_spheres", "hit_shade", "shade_split")
+COMPOSED_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
+                    "any_hit_spheres", "slot_sample", "slot_eval_pdf")
 FUSED_ATOL = 2e-3        # forced composed vs fused (tests/test_pallas_shade)
+SPHERE_KERNELS = ("closest_hit_spheres", "any_hit_spheres")
 
 
 _T0 = time.perf_counter()
@@ -196,6 +216,52 @@ def queued_ms(fn, iters=10):
         cycles *= 4
     raise AssertionError("the host could not queue the calls ahead of "
                          "the card")
+
+
+@contextlib.contextmanager
+def sphere_tests_refused(local=True):
+    """While the block runs, the plain version of K1 / K2's sphere branch
+    (shapes/sphere.py sphere_best) raises, and with `local` also the
+    local sphere test (intersect_local; the composed bounce's light pdf
+    runs it in PyTorch, as the JAX package's does in XLA).  The block
+    must have launched K1 and K2 with a sphere table."""
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.shapes import sphere as sph
+    names = ("sphere_best", "intersect_local") if local else ("sphere_best",)
+    saved = {k: getattr(sph, k) for k in names}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a sphere test ran outside K1 / K2")
+    before = [k.launches for k in (ops.CLOSEST_HIT_SPHERES,
+                                   ops.ANY_HIT_SPHERES)]
+    for k in names:
+        setattr(sph, k, refuse)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(sph, k, v)
+    after = [k.launches for k in (ops.CLOSEST_HIT_SPHERES,
+                                  ops.ANY_HIT_SPHERES)]
+    if min(a - b for a, b in zip(after, before)) < 1:
+        raise AssertionError("K1 / K2 ran without a sphere table")
+
+
+def sphere_agreement(t_k, s_k, t_p, s_p, live):
+    """K1 with a sphere table against its plain version: (share of live
+    lanes whose codes agree, live lanes where a sphere code on either
+    side disagrees, of them sphere / triangle ties within T_RTOL, the
+    largest |t - t_plain| where the codes agree, whether the t of
+    agreeing sphere lanes are equal)."""
+    import torch
+    agree = (s_k == s_p) & live
+    split = live & ((s_k <= -2) | (s_p <= -2)) & (s_k != s_p)
+    tie = split & ((t_k - t_p).abs() <= T_RTOL * t_p.abs())
+    both = agree & (s_k <= -2)
+    hit = agree & (s_k != -1)
+    err = (t_k - t_p).abs()[hit].max().item() if hit.any() else 0.0
+    return (agree.sum().item() / live.sum().item(), int(split.sum()),
+            int(tie.sum()), err, torch.equal(t_k[both], t_p[both]))
 
 
 def kernel_ms(fn, key, iters=10):
@@ -284,7 +350,8 @@ def ptxas_report(logs):
                                          "shade_split_kernel",
                                          "slot_sample_kernel",
                                          "slot_eval_pdf_kernel",
-                                         "closest", "any")
+                                         "cluster_kernelILb0E",
+                                         "cluster_kernelILb1E")
                              if k in line), line.split("'")[1][:40])
                 out[name] = ""
             elif name and ("Used" in line or ("stack frame" in line
@@ -583,18 +650,20 @@ def main(argv=None):
                      dataclasses.replace(config, spp=1, sample_dx=1,
                                          sample_dy=1), ops=wops)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = integ.render(ds, camera, film_cfg, config, ops=wops)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with (sphere_tests_refused() if name == "kernels"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            img = integ.render(ds, camera, film_cfg, config, ops=wops)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         if not torch.isfinite(img).all():
             raise AssertionError(f"{name} render not finite")
         rates[name] = 256 * 256 * 16 / dt
         if name == "kernels":
             img_full = img
     _say(f"[6] throughput 256x256 16spp depth 8: kernels "
-         f"{rates['kernels']:.0f} paths/s, plain {rates['plain']:.0f} "
-         f"paths/s ({card})")
+         f"{rates['kernels']:.0f} paths/s (no sphere test outside K1 / "
+         f"K2), plain {rates['plain']:.0f} paths/s ({card})")
 
     # phase 7: K4 against its plain version
     k4 = []
@@ -715,10 +784,11 @@ def main(argv=None):
             raise AssertionError(f"{name}: the loss did not fall {fb[name]}")
     step = mesh.train_step_fn(ds, camera, film_cfg, config)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(kd0, target, torch.arange(wave, device=dev))
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
+    with sphere_tests_refused():
+        t0 = time.perf_counter()
+        step(kd0, target, torch.arange(wave, device=dev))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
     busy, nk, own = _busy_s(wave_profile(
         lambda: step(kd0, target, torch.arange(wave, device=dev))))
     _say(f"[8] fwd+bwd 256x256 16spp depth 8, waves of {wave}: "
@@ -872,10 +942,12 @@ def main(argv=None):
                      dataclasses.replace(config_t, spp=1, sample_dx=1,
                                          sample_dy=1), ops=wops)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = integ.render(ds_t, camera, film_cfg, config_t, ops=wops)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with (sphere_tests_refused() if name == "kernels"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            img = integ.render(ds_t, camera, film_cfg, config_t, ops=wops)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         if not torch.isfinite(img).all():
             raise AssertionError(f"textured {name} render not finite")
         tex_rates[name] = 256 * 256 * 16 / dt
@@ -1025,10 +1097,12 @@ def main(argv=None):
                      dataclasses.replace(config_e, spp=1, sample_dx=1,
                                          sample_dy=1), ops=wops)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = integ.render(ds_e, camera, film_cfg, config_e, ops=wops)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with (sphere_tests_refused(local=False) if name == "kernels"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            img = integ.render(ds_e, camera, film_cfg, config_e, ops=wops)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         if not torch.isfinite(img).all():
             raise AssertionError(f"composed {name} render not finite")
         comp_rates[name] = 256 * 256 * 16 / dt
@@ -1107,12 +1181,137 @@ def main(argv=None):
         f"64x48 32spp depth 8 render: launches {wide_launches}, max |wide - "
         f"9-row| {dwide:.3e}")
 
+    # phase 14: the sphere branch of K1 / K2
+    from arendur_tpu_torch.shapes import sphere as sph
+    if build.load().arendur_max_spheres() != ops.MAX_SPHERES:
+        raise AssertionError("ops.MAX_SPHERES is not the kernels' cap")
+    na14 = torch.tensor(n - 9000, device=dev)
+    live14 = torch.arange(n, device=dev) < n - 9000
+    refused = build.load().arendur_closest_hit(
+        o_cam.data_ptr(), d_cam.data_ptr(), tinf.data_ptr(),
+        ds.cw.data_ptr(), ds.cbox.data_ptr(), na14.data_ptr(),
+        ds.ktab.data_ptr(), ops.MAX_SPHERES + 1, 0, n, ds.cw.shape[0],
+        ds.cw.shape[2] // 4, 0, tinf.data_ptr(), tinf.data_ptr(), None)
+    if refused == 0:
+        raise AssertionError("K1 took a sphere table past its cap")
+    k14 = []
+    k14_err = 0.0
+    for nm, scene_x, dsx in (("cb.json", scene, ds),
+                             ("all-branches", b2, ds2)):
+        v = np.concatenate([scene_x.tri_v0, scene_x.tri_v1, scene_x.tri_v2])
+        o14, d14, tm14 = (torch.tensor(a, device=dev) for a in
+                          fuzz.sphere_rays(scene_x.spheres, v.min(0),
+                                           v.max(0), n, 14))
+        for full_phi in (False, True):
+            kw = dict(sph_tab=dsx.ktab, full_phi=full_phi)
+            args = (dsx.cw, dsx.cbox, o14, d14, tm14, na14)
+            t_k, s_k = ci.intersect_clusters(*args, **kw)
+            t_p, s_p = ci.intersect_clusters_reference(*args, **kw)
+            b_k = ci.occluded_clusters(*args, **kw)
+            b_p = ci.occluded_clusters_reference(*args, **kw)
+            fr, split, tie, err, t_eq = sphere_agreement(t_k, s_k, t_p, s_p,
+                                                         live14)
+            bfr = ((b_k == b_p) & live14).sum().item() / (n - 9000)
+            dead = bool((s_k[~live14] == -1).all()
+                        and not b_k[~live14].any())
+            k14_err = max(k14_err, err)
+            k14.append(dict(scene=nm, full_phi=full_phi, codes_agree=fr,
+                            sphere_splits=split, sphere_ties=tie,
+                            sphere_t_equal=t_eq, blocked_agree=bfr,
+                            dead_lanes_miss=dead,
+                            sphere_lanes=int(((s_k <= -2) & live14).sum()),
+                            blocked=b_k[live14].float().mean().item()))
+            if split > tie or not t_eq or not dead or fr < K1_K2_GATE \
+                    or bfr < K1_K2_GATE:
+                raise AssertionError(f"K1 / K2 sphere branch: {k14[-1]}")
+    # times on the main path's inputs: the camera wave and its shadow
+    # rays against cb.json's spheres
+    skw = dict(sph_tab=ds.ktab, full_phi=ds.full_phi)
+    od_cam = torch.stack([o_cam, d_cam])
+    k1s_call = rotating(lambda x: ops.closest_hit(
+        ds.cw, ds.cbox, x[0], x[1], tinf, **skw), od_cam)
+    k1n_call = rotating(lambda x: ops.closest_hit(
+        ds.cw, ds.cbox, x[0], x[1], tinf), od_cam)
+    sh_od = torch.stack([sh[0], sh[1]])
+    k2s_call = rotating(lambda x: ops.any_hit(
+        ds.cw, ds.cbox, x[0], x[1], sh[2], **skw), sh_od)
+    k2n_call = rotating(lambda x: ops.any_hit(
+        ds.cw, ds.cbox, x[0], x[1], sh[2]), sh_od)
+    k1s_ms, k1n_ms = time_ms(k1s_call), time_ms(k1n_call)
+    k2s_ms, k2n_ms = time_ms(k2s_call), time_ms(k2n_call)
+    k1s_plain = time_ms(lambda: ci.intersect_clusters_reference(
+        ds.cw, ds.cbox, o_cam, d_cam, tinf, **skw), iters=3)
+    k2s_plain = time_ms(lambda: ci.occluded_clusters_reference(
+        ds.cw, ds.cbox, *sh, **skw), iters=3)
+    k1s_dev, k1s_q = kernel_ms(k1s_call, "cluster_kernel")
+    k1n_dev, k1n_q = kernel_ms(k1n_call, "cluster_kernel")
+    k2s_dev, k2s_q = kernel_ms(k2s_call, "cluster_kernel")
+    k2n_dev, k2n_q = kernel_ms(k2n_call, "cluster_kernel")
+    t_k, s_k = ops.closest_hit(ds.cw, ds.cbox, o_cam, d_cam, tinf, **skw)
+    t_p, s_p = ci.intersect_clusters_reference(ds.cw, ds.cbox, o_cam, d_cam,
+                                               tinf, **skw)
+    b_k = ops.any_hit(ds.cw, ds.cbox, *sh, **skw)
+    b_p = ci.occluded_clusters_reference(ds.cw, ds.cbox, *sh, **skw)
+    all_live = torch.ones(n, dtype=torch.bool, device=dev)
+    cam_agree = sphere_agreement(t_k, s_k, t_p, s_p, all_live)
+    sh_agree = (b_k == b_p).float().mean().item()
+    if cam_agree[1] > cam_agree[2] or not cam_agree[4] \
+            or cam_agree[0] < K1_K2_GATE or sh_agree < K1_K2_GATE:
+        raise AssertionError(f"K1 / K2 with spheres on the main path's "
+                             f"inputs: {cam_agree}, {sh_agree}")
+    # operations: the clusters the rays enter before their bound, and
+    # the plain sphere branch's operations on the same rays
+    kk = ds.cw.shape[2] // 4
+    sph_bytes = 4 * ds.ktab.numel()
+    k1s_ops = TRI_FLOPS * kk * slab_pairs(ds.cbox, o_cam, d_cam, t_k) \
+        + plain_ops(lambda: sph.sphere_best(ds.ktab, o_cam, d_cam, tinf,
+                                            ds.full_phi))
+    blk_s = sph.sphere_best(ds.ktab, *sh, ds.full_phi)[1] != -1
+    k2s_ops = TRI_FLOPS * kk * slab_pairs(
+        ds.cbox, sh[0][~blk_s], sh[1][~blk_s], sh[2][~blk_s]) \
+        + plain_ops(lambda: sph.sphere_best(ds.ktab, *sh, ds.full_phi))
+    kern_rows["closest_hit_spheres"] = dict(
+        max_abs_err=max(k14_err, cam_agree[3]), ms=k1s_ms,
+        plain_ms=k1s_plain, bound=bound_ms(k1_bytes + sph_bytes, k1s_ops))
+    kern_rows["any_hit_spheres"] = dict(
+        max_abs_err=float(sh_agree < 1.0), ms=k2s_ms, plain_ms=k2s_plain,
+        bound=bound_ms(k2_bytes + sph_bytes, k2s_ops))
+    k14_times = dict(k1_ms=[k1s_ms, k1n_ms], k2_ms=[k2s_ms, k2n_ms],
+                     k1_device_ms=[k1s_dev, k1n_dev],
+                     k1_queued_ms=[k1s_q, k1n_q],
+                     k2_device_ms=[k2s_dev, k2n_dev],
+                     k2_queued_ms=[k2s_q, k2n_q],
+                     plain_ms=[k1s_plain, k2s_plain],
+                     cam_agree=cam_agree, shadow_agree=sh_agree,
+                     ops=[k1s_ops, k2s_ops])
+    _say("[14] K1 / K2 sphere branch " + "; ".join(
+        f"{r['scene']} full_phi {r['full_phi']}: codes agree "
+        f"{r['codes_agree']:.6f} ({r['sphere_lanes']} sphere lanes, "
+        f"{r['sphere_splits']} sphere splits of which {r['sphere_ties']} "
+        f"ties), sphere t equal {r['sphere_t_equal']}, blocked agree "
+        f"{r['blocked_agree']:.6f} (blocked {r['blocked']:.3f}), dead "
+        f"lanes miss {r['dead_lanes_miss']}" for r in k14)
+        + f" | camera wave (cb.json, {ds.ktab.shape[0]} spheres, full_phi "
+        f"{ds.full_phi}): codes agree {cam_agree[0]:.6f}, shadow rays "
+        f"agree {sh_agree:.6f}; per launch by events K1 {k1s_ms:.4f} ms "
+        f"with the sphere table vs {k1n_ms:.4f} ms without, K2 "
+        f"{k2s_ms:.4f} vs {k2n_ms:.4f} ms; device (profiler / queued) K1 "
+        f"{k1s_dev:.4f} / {k1s_q:.4f} ms vs {k1n_dev:.4f} / {k1n_q:.4f} "
+        f"ms, K2 {k2s_dev:.4f} / {k2s_q:.4f} ms vs {k2n_dev:.4f} / "
+        f"{k2n_q:.4f} ms; plain K1 {k1s_plain:.3f} ms, K2 "
+        f"{k2s_plain:.3f} ms; table past the cap refused (cudaError "
+        f"{refused}), cap {ops.MAX_SPHERES} spheres")
+
     src = "arendur_tpu_torch/kernels/"
     meta = {
         "closest_hit": (src + "intersect.cu",
                         "arendur_tpu/shapes/pallas_intersect.py:138"),
         "any_hit": (src + "intersect.cu",
                     "arendur_tpu/shapes/pallas_intersect.py:195"),
+        "closest_hit_spheres": (src + "intersect.cu",
+                                "arendur_tpu/shapes/pallas_intersect.py:102"),
+        "any_hit_spheres": (src + "intersect.cu",
+                            "arendur_tpu/shapes/pallas_intersect.py:102"),
         "bounce_shade": (src + "cbounce.cu",
                          "arendur_tpu/render/cbounce.py:955"),
         "bounce_shade_bwd": (src + "cbounce_bwd.cu",
@@ -1176,7 +1375,8 @@ def main(argv=None):
                            composed_wave_launches=wave_launches,
                            composed_wave_kernel_s=cown,
                            k7=k7, k7_device_ms=k7_dev, k7_queued_ms=k7_q, k7_plain_ops=k7_ops,
-                           wide_launches=wide_launches, wide_dmax=dwide),
+                           wide_launches=wide_launches, wide_dmax=dwide,
+                           k14=k14, k14_times=k14_times),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -15,7 +15,7 @@ import torch
 
 from arendur_tpu_torch import scene as sc
 from arendur_tpu_torch.io import scenedesc
-from arendur_tpu_torch.kernels import ops
+from arendur_tpu_torch.kernels import build, ops
 from arendur_tpu_torch.render import cbounce as cb
 from arendur_tpu_torch.render import fuzz
 from arendur_tpu_torch.render import integrator as integ
@@ -92,6 +92,70 @@ def test_any_hit_kernel_matches_plain(card, cornell, n_alive):
     b_p = ci.occluded_clusters_reference(ds.cw, ds.cbox, o, d, tmax, na)
     assert (b == b_p).float().mean().item() >= SLOT_GATE
     assert 0.05 < b.float().mean().item() < 0.95
+
+
+def _sphere_rays(card, which, seed):
+    """A scene with spheres on the card and fuzz.sphere_rays against it
+    (camera-like, secondary, aimed, surface-started, inside, grazing)."""
+    scene = (scenedesc.parse_scene(CB)[0] if which == "cornell"
+             else fuzz.all_branches_scene(sc.SceneBuilder()))
+    v = np.concatenate([scene.tri_v0, scene.tri_v1, scene.tri_v2])
+    rays = fuzz.sphere_rays(scene.spheres, v.min(0), v.max(0), N, seed)
+    return (sc.DeviceScene.build(scene, card),) + tuple(
+        torch.tensor(a, device=card) for a in rays)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full_phi", [False, True])
+@pytest.mark.parametrize("which", ["cornell", "all-branches"])
+def test_sphere_branch_kernels_match_plain(card, which, full_phi):
+    """K1 / K2 with a sphere table: the sphere arithmetic is the plain
+    version's op for op (-fmad=false), so every live lane whose code is
+    a sphere on either side agrees, bar a sphere / triangle tie within
+    T_RTOL (the triangle t of the FMA dots and of the matmul differ by
+    ulps); sphere t equal; dead lanes miss."""
+    ds, o, d, tmax = _sphere_rays(card, which, 4)
+    na = torch.tensor(N - 1000, device=card)
+    live = torch.arange(N, device=card) < N - 1000
+    args = (ds.cw, ds.cbox, o, d, tmax, na)
+    kw = dict(sph_tab=ds.ktab, full_phi=full_phi)
+    before = ops.CLOSEST_HIT_SPHERES.launches, ops.ANY_HIT_SPHERES.launches
+    t, s = ci.intersect_clusters(*args, **kw)
+    b = ci.occluded_clusters(*args, **kw)
+    assert (ops.CLOSEST_HIT_SPHERES.launches, ops.ANY_HIT_SPHERES.launches) \
+        == (before[0] + 1, before[1] + 1)
+    t_p, s_p = ci.intersect_clusters_reference(*args, **kw)
+    b_p = ci.occluded_clusters_reference(*args, **kw)
+    sph = live & ((s <= -2) | (s_p <= -2))
+    tie = (t - t_p).abs() <= T_RTOL * t_p.abs()
+    assert (sph & (s != s_p) & ~tie).sum().item() == 0
+    both = live & (s == s_p) & (s <= -2)
+    assert both.sum().item() > N // 8
+    assert torch.equal(t[both], t_p[both])
+    assert (s == s_p)[live].float().mean().item() >= SLOT_GATE
+    assert (b == b_p)[live].float().mean().item() >= SLOT_GATE
+    assert (s[~live] == -1).all() and not b[~live].any()
+
+
+@pytest.mark.gpu
+def test_sphere_table_limits(card):
+    """A table past the shared memory or with batched instancing is
+    refused; one at the cap (past the 48 KB default) launches."""
+    ds, o, d, tmax = _sphere_rays(card, "cornell", 5)
+    assert build.load().arendur_max_spheres() == ops.MAX_SPHERES
+    big = ds.ktab[:1].repeat(ops.MAX_SPHERES + 1, 1)
+    with pytest.raises(ValueError, match="spheres"):
+        ops.closest_hit(ds.cw, ds.cbox, o, d, tmax, sph_tab=big)
+    with pytest.raises(ValueError, match="instancing"):
+        ops.any_hit(ds.cw, ds.cbox, o, d, tmax, period=256,
+                    sph_tab=ds.ktab)
+    # copies of one sphere, of which the first wins every tie
+    full = ds.ktab[:1].repeat(ops.MAX_SPHERES, 1)
+    t, s = ops.closest_hit(ds.cw, ds.cbox, o, d, tmax, sph_tab=full)
+    t_p, s_p = ci.intersect_clusters_reference(ds.cw, ds.cbox, o, d, tmax,
+                                               sph_tab=ds.ktab[:1])
+    assert (s == s_p).float().mean().item() >= SLOT_GATE
+    assert torch.equal(s == -2, s_p == -2) and (s == -2).any()
 
 
 @pytest.mark.gpu

@@ -12,7 +12,9 @@ the card each of these is at least one kernel launch issued by the
 host, so the count is the host's launch work per wave; it does not
 depend on the wave's width.  The hand-written kernels (K1, K2, K3, K5,
 K6, K8, K9) count as one launch per call: their plain versions run
-here, and their own operations are not counted; the host operations of
+here, and their own operations are not counted (K1 / K2 test the
+spheres too; the rebuild of a sphere hit's local point after K1 is the
+stage "p_local rebuild"); the host operations of
 the K8 / K9 entries around their launch (the lane-major pack of the
 BSDF, the output split) are replayed and counted as packing.  Each
 other operation is put in the stage of the innermost function on the
@@ -52,7 +54,7 @@ STAGES = (
     ("integrator.py", "composed_bounce", "composed glue"),
     ("sampler.py", None, "sampler"),
     ("camera.py", None, "camera"),
-    ("sphere.py", None, "sphere tests"),
+    ("sphere.py", "hit_p_local", "p_local rebuild"),
     ("texture.py", None, "texel lookups"),
     ("materials.py", "resolve_params", "texel lookups"),
     ("materials.py", "apply_bump", "texel lookups"),
@@ -68,7 +70,7 @@ STAGES = (
     ("cbounce.py", "unpack_hit_t", "unpack"),
     ("integrator.py", "intersect_raw", "hit glue"),
     ("integrator.py", "intersect_light", "hit glue"),
-    ("integrator.py", "_tri_closest", "hit glue"),
+    ("integrator.py", "_closest", "hit glue"),
     ("integrator.py", "occluded", "shadow glue"),
 )
 
