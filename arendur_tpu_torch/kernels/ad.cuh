@@ -20,12 +20,14 @@
 //   * a ?: select: the whole adjoint to the chosen operand.
 // Constants (no node) carry no gradient.
 //
-// Tape layout: node k of tape slot g sits at k * stride + g in each of
-// four arrays (coalesced when a warp records in step).  A node holds
-// its two operand nodes as 16-bit indices (-1: none) and two partials.
-// A leaf (an input column or a table element) has no operands; its
-// first index is -(2 + slot) and its second the column, so the sweep
-// knows where its adjoint goes.
+// Tape layout: one 16-byte record per node, written with one vector
+// store and read back with one vector load; node k of tape slot g sits
+// at record k * stride + g, so a warp that records in step writes 512
+// contiguous bytes per node and a warp out of step one sector per lane.
+// A node holds its two operand nodes as 16-bit indices (-1: none), its
+// two partials and its adjoint.  A leaf (an input column or a table
+// element) has no operands; its first index is -(2 + slot) and its
+// second the column, so the sweep knows where its adjoint goes.
 #pragma once
 
 #include <math.h>
@@ -34,13 +36,16 @@
 
 namespace ad {
 
+struct alignas(16) Node {
+  unsigned par;  // operand nodes: low 16 bits a, high 16 bits b
+  float da, db;  // partials with respect to a and b
+  float adj;     // adjoint, accumulated by the sweep
+};
+
 struct Tape {
-  unsigned* par;  // operand nodes: low 16 bits a, high 16 bits b
-  float* da;
-  float* db;
-  float* adj;
-  long stride;    // tape slots (threads)
-  int cap;        // nodes per slot
+  Node* node;
+  long stride;  // tape slots (threads)
+  int cap;      // nodes per slot
 };
 
 #ifdef __CUDACC__
@@ -74,6 +79,36 @@ HD long tape_slot() {
 }
 HD long at(int k) { return (long)k * tape().stride + tape_slot(); }
 
+// The node's record in one store (adjoint 0), and read back in one load.
+// On the card both go to the L2 and not the L1 (st / ld.global.cg): the
+// sweep's adjoint reductions are made in the L2, and a record is read
+// once per thread, so the L1 keeps the body's stack instead.
+HD void put(long k, unsigned par, float da, float db) {
+#ifdef __CUDA_ARCH__
+  __stcg(reinterpret_cast<float4*>(tape().node + k),
+         make_float4(__uint_as_float(par), da, db, 0.0f));
+#else
+  tape().node[k] = Node{par, da, db, 0.0f};
+#endif
+}
+HD Node get(const Node* p) {
+#ifdef __CUDA_ARCH__
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  return Node{__float_as_uint(v.x), v.y, v.z, v.w};
+#else
+  return *p;
+#endif
+}
+// *p += v; on the card a reduction that the thread does not wait for
+// (red.global.add.f32: rounds to nearest, flushes subnormals to zero)
+HD void add(float* p, float v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(p, v);
+#else
+  *p += v;
+#endif
+}
+
 struct R {
   float v;
   int i;  // tape node, -1: a constant
@@ -101,11 +136,7 @@ AD_CALL R node(float v, int a, float pa, int b, float pb) {
     n = t.cap + 1;
     return r;
   }
-  long k = at(n);
-  t.par[k] = ((unsigned)a & 0xffffu) | ((unsigned)b << 16);
-  t.da[k] = pa;
-  t.db[k] = pb;
-  t.adj[k] = 0.0f;
+  put(at(n), ((unsigned)a & 0xffffu) | ((unsigned)b << 16), pa, pb);
   r.i = n++;
   return r;
 }
@@ -117,9 +148,8 @@ AD_CALL R leaf(float v, int slot, int col) {
     n = t.cap + 1;
     return r;
   }
-  long k = at(n);
-  t.par[k] = ((unsigned)(-2 - slot) & 0xffffu) | ((unsigned)col << 16);
-  t.adj[k] = 0.0f;
+  put(at(n), ((unsigned)(-2 - slot) & 0xffffu) | ((unsigned)col << 16),
+      0.0f, 0.0f);
   r.i = n++;
   return r;
 }

@@ -137,8 +137,8 @@ def load() -> _Kernels:
                                                  P, P, P]
             lib.arendur_bounce_shade.restype = I
             lib.arendur_bounce_shade_bwd.argtypes = [
-                P, P, P, I, I, P, I, P, I, L, P, P, P, P, P, L, I, P, P, P,
-                P, P, P, P, P, P]
+                P, P, P, I, I, P, I, P, I, L, P, P, L, I, P, P, P, P, P, P,
+                P, P, P, P]
             lib.arendur_bounce_shade_bwd.restype = I
             lib.arendur_hit_shade.argtypes = [P, P, I, L, P, P]
             lib.arendur_hit_shade.restype = I

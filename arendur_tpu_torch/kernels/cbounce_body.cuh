@@ -819,6 +819,22 @@ HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
 // the bounce body
 // ---------------------------------------------------------------------------
 
+// The light a lane hit (-1: none): the sphere row's column 21 on a
+// sphere hit, else the triangle's light id (input column 38), truncated
+// by (int), the sphere row clamped into the table as hit_info reads it.
+// With emission_gate it is the one statement of when a lane adds
+// emission: the body asks it, and so does the backward's classifier
+// (cbounce_ad.cuh needs_body), on the float instantiation.
+HD int hit_light_id(bool hitmask, bool is_sph, int s_idx, float tri_light,
+                    const Tables& tb) {
+  int id = (int)(is_sph ? tb.stab[24 * row_idx(s_idx, tb.ns) + 21]
+                        : tri_light);
+  return hitmask ? id : -1;
+}
+HD bool emission_gate(bool alive, bool hitmask, int light_id) {
+  return alive && hitmask && light_id >= 0;
+}
+
 // The first half of the bounce: the hit's shading info from the lane's
 // input columns 0:39 (the layout the fused and the split hit input
 // share).  Sets rows[SLOT_S]; b0 / b1 are the triangle barycentrics.
@@ -868,8 +884,7 @@ HDB void hit_info(const F* xv, const Tables& tb, HitInfo* h,
     h->ns = vdot(ns_raw, h->ng) < 0.0f ? vneg(ns_raw) : ns_raw;
   }
   h->mat_id = (int)(h->is_sph ? rawf(srow, 20) : val(tr[24]));
-  int light_id = (int)(h->is_sph ? rawf(srow, 21) : val(tr[25]));
-  h->light_id = h->hitmask ? light_id : -1;
+  h->light_id = hit_light_id(h->hitmask, h->is_sph, s_idx, val(tr[25]), tb);
 }
 
 // What the shade proper reads besides the light table: the hit info and
@@ -913,7 +928,7 @@ HDB void shade_core(const ShadeIn& s, const Tables& tb, const ShadeCfg& cfg,
   rows[SLOT_LE] = row_idx(light_id > 0 ? light_id : 0, tb.nl);
   Row lerow = mkrow(tb.ltab + (long)tb.cl * rows[SLOT_LE], SLOT_LE);
   V3 le = ld3(lerow, cfg.emi);
-  bool emit_gate = lane_active && (light_id >= 0);
+  bool emit_gate = emission_gate(alive, s.hitmask, light_id);
   F w_emit = (((bounce == 0.0f) || specular) ? 1.0f : 0.0f) +
              ((nee_prev && (light_id == sel_prev)) ? wb_prev : F(0.0f));
   L = vadd(L, emit_gate ? vscale(vmul(beta, le), w_emit) : vzero());

@@ -338,11 +338,12 @@ def slot_eval_pdf(xt, types: int, present, dists):
 
 
 # K4's tape: nodes per lane (a fuzzed lane records up to ~2,300, a
-# camera-wave lane ~940) and the most lanes in flight at once (their
-# tapes take TAPE_CAP * 16 bytes each; the kernel walks larger waves in
-# turns).  BWD_BLOCK and RED_LANES are kernels/cbounce_bwd.cu's.
+# camera-wave lane ~940), 16 bytes a node, and the most lanes in flight
+# at once (the kernel walks longer lists in turns).  BWD_BLOCK and
+# RED_LANES are kernels/cbounce_bwd.cu's.
 TAPE_CAP = 4096
 TAPE_THREADS = 1 << 16
+NODE_BYTES = 16
 BWD_BLOCK = 128
 RED_LANES = 256
 
@@ -350,10 +351,13 @@ RED_LANES = 256
 def bounce_shade_bwd(xt, ltab, mtab, stab, ct, static, min_depth: int,
                      rr_threshold: float, stats: dict = None):
     """K4: the VJP of K3 for the output cotangent ct [OUT_COLS, N] on
-    the card: (dx [IN_COLS, N], dltab, dmtab, dstab).  A lane whose
-    forward needs more than TAPE_CAP tape nodes comes back NaN.  stats,
-    when given, receives "nodes": an int64 device tensor [2], the most
-    tape nodes a lane used and their sum over lanes (reading it syncs)."""
+    the card: (dx [IN_COLS, N], dltab, dmtab, dstab).  Only the lanes
+    whose VJP needs the body (render/cbounce.py bwd_needs_body) are
+    taped; the others take the pass-through.  A taped lane whose forward
+    needs more than TAPE_CAP tape nodes comes back NaN.  stats, when
+    given, receives "nodes": an int64 device tensor [3], the most tape
+    nodes a lane used, their sum over lanes and the number of lanes
+    that needed the body (reading it syncs)."""
     from arendur_tpu_torch.render import cbounce as cb
     lib = build.load()
     xt, ltab, mtab, stab, cfg = _shade_args(xt, ltab, mtab, stab, static,
@@ -366,26 +370,25 @@ def bounce_shade_bwd(xt, ltab, mtab, stab, ct, static, min_depth: int,
     dev = xt.device
     threads = min(TAPE_THREADS, -(-n // BWD_BLOCK) * BWD_BLOCK)
     f32 = dict(dtype=torch.float32, device=dev)
-    par = torch.empty(TAPE_CAP * threads, dtype=torch.int32, device=dev)
-    da, db, adj = (torch.empty(TAPE_CAP * threads, **f32) for _ in range(3))
-    p = 16 + 2 * cl + 24
-    lane_tab = torch.zeros(n, p, **f32)
+    tape = torch.empty(TAPE_CAP * threads * NODE_BYTES, dtype=torch.uint8,
+                       device=dev)
+    lists = torch.empty(2 * n + 1, dtype=torch.int32, device=dev)
+    lane_tab = torch.empty(n, 16 + 2 * cl + 24, **f32)
     lane_rows = torch.empty(4, n, dtype=torch.int32, device=dev)
-    nblk = -(-n // RED_LANES)
-    partials = torch.empty(nblk, 16 * nm + 2 * nl * cl + 24 * ns, **f32)
+    partials = torch.empty(-(-n // RED_LANES),
+                           16 * nm + 2 * nl * cl + 24 * ns, **f32)
     dx = torch.empty(cb.IN_COLS, n, **f32)
-    dlt = torch.zeros(nl, cl, **f32)
-    dmt = torch.zeros(nm, 16, **f32)
-    dst = torch.zeros(ns, 24, **f32)
-    nodes = torch.zeros(2, dtype=torch.int64, device=dev)
+    dlt = torch.empty(nl, cl, **f32)
+    dmt = torch.empty(nm, 16, **f32)
+    dst = torch.empty(ns, 24, **f32)
+    nodes = torch.empty(3, dtype=torch.int64, device=dev)
     code = lib.arendur_bounce_shade_bwd(
         xt.data_ptr(), ct.data_ptr(), ltab.data_ptr(), nl, cl,
         mtab.data_ptr(), nm, stab.data_ptr(), ns, n,
-        cfg.ctypes.data_as(ctypes.c_void_p), par.data_ptr(), da.data_ptr(),
-        db.data_ptr(), adj.data_ptr(), threads, TAPE_CAP, dx.data_ptr(),
-        lane_tab.data_ptr(), lane_rows.data_ptr(), partials.data_ptr(),
-        dlt.data_ptr(), dmt.data_ptr(), dst.data_ptr(), nodes.data_ptr(),
-        _stream(xt))
+        cfg.ctypes.data_as(ctypes.c_void_p), tape.data_ptr(), threads,
+        TAPE_CAP, lists.data_ptr(), dx.data_ptr(), lane_tab.data_ptr(),
+        lane_rows.data_ptr(), partials.data_ptr(), dlt.data_ptr(),
+        dmt.data_ptr(), dst.data_ptr(), nodes.data_ptr(), _stream(xt))
     _raise_on(code, "bounce_shade_bwd")
     BOUNCE_SHADE_BWD.launched()
     if stats is not None:

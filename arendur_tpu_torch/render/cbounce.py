@@ -78,6 +78,7 @@ C_U_RR = 56
 C_BOUNCE = 57
 IN_COLS = 58
 OUT_COLS = 32
+OUT_L = 6         # output L: 6:9
 
 
 # ---------------------------------------------------------------------------
@@ -940,6 +941,32 @@ def cbody_vjp_reference(xt, ltab, mtab, stab, ct, static: sc.ShadeStatic,
         grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, ins))
+
+
+def bwd_needs_body(xt, ct, stab) -> torch.Tensor:
+    """Plain twin of K4's classifier (kernels/cbounce_ad.cuh needs_body):
+    [N] bool, True where a lane's VJP needs the body.  It does not where
+    the lane adds no emission (its emission gate: alive, hit, and a
+    light id >= 0, as _hit_info / _shade_core read it) and the output
+    cotangent ct [OUT_COLS, N] is zero in columns 0..27 outside L and
+    finite on L.  There L_out = L_in + 0 and no other output has a
+    cotangent, so the VJP is the pass-through: ct_L in dx's L columns,
+    zero in every other dx column and table cotangent."""
+    hitmask = xt[C_HIT] > 0.5
+    srow = CRow(stab, xt[C_S_IDX].to(torch.int32))
+    light_id = W(xt[C_IS_SPH] > 0.5, srow.col_abs(21),
+                 xt[C_TROW + 25]).to(torch.int32)
+    emit = (xt[C_ALIVE] > 0.5) & hitmask & (light_id >= 0)
+    other = torch.cat([ct[:OUT_L], ct[OUT_L + 3:28]])
+    return emit | (other != 0).any(0) \
+        | ~torch.isfinite(ct[OUT_L:OUT_L + 3]).all(0)
+
+
+def bwd_pass_through(ct) -> torch.Tensor:
+    """dx [IN_COLS, N] of a lane whose VJP needs no body: ct_L on L_in."""
+    dx = ct.new_zeros(IN_COLS, ct.shape[1])
+    dx[C_L:C_L + 3] = ct[OUT_L:OUT_L + 3]
+    return dx
 
 
 class _BounceShadeKernel(torch.autograd.Function):

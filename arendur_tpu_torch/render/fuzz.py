@@ -27,6 +27,9 @@ sphere branch (camera-like and secondary rays, rays aimed at the
 spheres, rays started on a sphere's surface or inside it, grazing
 rays).
 
+``train_step_bounces`` records the bounce shade's inputs and output
+cotangents in one train step: the bounce-shade backward's real inputs.
+
 ``spread_materials`` copies each material row of a scene several times
 and spreads the triangles and spheres over the copies: the tables grow
 past 32 rows (the JAX package's fused-kernel cap) and the image stays
@@ -34,6 +37,8 @@ the same.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -134,6 +139,33 @@ def fuzz_bounce_inputs(ltab, mtab, stab, seed: int = 0, n: int = 2048):
     if x.shape[1] != IN_COLS:
         raise AssertionError(x.shape)
     return x
+
+
+def train_step_bounces(ds, camera, film_cfg, config, ops, target, ray_idx):
+    """The bounce-shade backward's inputs of every bounce of one train
+    step (parallel/mesh.py, kd only, kd at 1.25x the scene's) of the wave
+    ray_idx against target [H*W, 3] through ops (a WaveOps of
+    render/integrator.py), on ds's device: per bounce, in order, a dict
+    of the fused bounce shade's input "xt" and tables "ltab", "mtab",
+    "stab" (detached) and its output's cotangent "ct" [OUT_COLS, N]."""
+    import torch
+    from arendur_tpu_torch.parallel import mesh
+    bounces = []
+
+    def bounce_shade(xt, ltab, mtab, stab, static, min_depth, rr_threshold):
+        out = ops.bounce_shade(xt, ltab, mtab, stab, static, min_depth,
+                               rr_threshold)
+        rec = dict(xt=xt.detach(), ltab=ltab.detach(), mtab=mtab.detach(),
+                   stab=stab.detach())
+        bounces.append(rec)
+        out.register_hook(lambda g: rec.update(ct=g.detach()))
+        return out
+
+    wops = dataclasses.replace(ops, bounce_shade=bounce_shade)
+    kd = torch.tensor(ds.materials.kd, device=ds.device) * 1.25
+    mesh.train_step_fn(ds, camera, film_cfg, config, ops=wops)(
+        kd, target, ray_idx)
+    return bounces
 
 
 def fuzz_split_inputs(ltab, mtab, stab, seed: int = 0, n: int = 2048,

@@ -18,9 +18,16 @@ Phases, one line each:
   6. throughput at 256x256, 16 spp, depth 8 (waves of 65,536 paths) on
      the kernel path and on the plain path;
   7. the bounce-shade backward (K4) against its plain version (autograd
-     over the plain body) for a seeded random output cotangent, on the
-     three input sets of phase 4, twice for bit-identical table
-     cotangents;
+     over the plain body): for a seeded random output cotangent on the
+     three input sets of phase 4 (every lane taped), and on the inputs
+     and cotangents of the eight bounces of one kernel-path train step
+     at 256x256, 16 spp, waves of 65,536 (render/fuzz.py
+     train_step_bounces), where most lanes take the pass-through; per
+     set: dx agreement on the lanes taped and dx equal to the
+     pass-through on the others, table agreement, two launches
+     bit-identical, the
+     lanes taped against the plain twin's count (bwd_needs_body), the
+     tape nodes, and K4's ms per call by CUDA events and on the card;
   8. the material-fitting train step (parallel/mesh.py): at 64x48,
      32 spp, depth 8 with kd, ks and roughness, loss and gradients of
      the kernel path (K1-K4) against the plain path; every kernel must
@@ -29,7 +36,8 @@ Phases, one line each:
      of the kernel path and of the plain-backward path (the K1-K3
      forward, the backward by autograd over the plain body), the loss
      on one wave before and after the steps, and the device busy share
-     of one kernel-path step from a torch.profiler trace;
+     of one kernel-path step from a torch.profiler trace, with K4's
+     device time per call inside it;
   9. the textured split: the hit kernel (K5) and the split shade kernel
      (K6) against their plain versions on the first bounce of a real
      65,536-lane textured wave (bench.py's checkerboard kd texture on
@@ -86,11 +94,14 @@ main path: K1-K4 in the kernel-path train step of phase 8, K1 / K2
 with a sphere table counted apart as well, K5 and K6
 in phase 10's textured render, K8 and K9 in phase 12's composed
 render, K7 (K3 on the wide tables) in phase 13's render; its ms and
-plain_ms, all by CUDA
-events; and its bound: the larger of the bytes it must move over
-3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s of
-f32, the H100 SXM's data-sheet peaks; a row whose ms is below its
-bound fails the run), the card line, and the result line.
+plain_ms, all by CUDA events, K4's the mean per call over phase 7's
+eight train bounces; and its bound: the larger of the bytes it must
+move over 3.35 TB/s and the operations this run's inputs need over
+67 TFLOP/s of f32, the H100 SXM's data-sheet peaks (K4's: the bytes of
+its lanes, all columns of a listed lane's input but only the gate
+columns of the others', and of its tables, the mean over the same
+bounces); a row whose ms is below its bound fails the run), the
+card line, and the result line.
 Any failure raises; the exit code is then non-zero and no result line
 is printed.  ``--out DIR`` also writes the measurements
 (chip_smoke.json) and the kernel-path image (.npy) into DIR.
@@ -285,6 +296,25 @@ def kernel_ms(fn, key, iters=10):
                       for e in spans) / len(spans), queued
 
 
+def k4_device_ms(fn, iters=3):
+    """Device time per call of fn(), a call of K4's wrapper: every device
+    launch of `iters` calls in a torch.profiler trace, whatever its name;
+    the queued-events time where no trace held any."""
+    fn()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    spans, _ = profiled(run)
+    if not spans:
+        queued = queued_ms(fn, iters)
+        _say(f"the profiler's traces held no K4 launch: its device time is "
+             f"the queued-events time {queued:.4f} ms")
+        return queued
+    return 1e-3 * sum(e.time_range.end - e.time_range.start
+                      for e in spans) / iters
+
+
 def plain_ops(fn):
     """Operations of one call of a plain PyTorch version: one per output
     element of each pointwise aten op and per input element of each
@@ -343,8 +373,10 @@ def ptxas_report(logs):
                 if name:
                     out[name] = out[name].strip("; ")
                 name = next((k for k in ("bounce_shade_bwd_kernel",
-                                         "table_partials_kernel",
-                                         "table_reduce_kernel",
+                                         "bounce_shade_bwd_classify_kernel",
+                                         "bounce_shade_bwd_list_kernel",
+                                         "bounce_shade_bwd_partials_kernel",
+                                         "bounce_shade_bwd_reduce_kernel",
                                          "bounce_shade_kernel",
                                          "hit_shade_kernel",
                                          "shade_split_kernel",
@@ -401,7 +433,7 @@ def _busy_s(prof):
               if e.device_type.name == "CUDA" and e.time_range.end > 0]
     own = {}
     for e in events:
-        for k in ("bounce_shade_bwd", "table_", "bounce_shade_kernel",
+        for k in ("bounce_shade_bwd", "bounce_shade_kernel",
                   "hit_shade_kernel", "shade_split_kernel",
                   "slot_sample_kernel", "slot_eval_pdf_kernel",
                   "cluster_kernel"):
@@ -665,55 +697,97 @@ def main(argv=None):
          f"{rates['kernels']:.0f} paths/s (no sphere test outside K1 / "
          f"K2), plain {rates['plain']:.0f} paths/s ({card})")
 
-    # phase 7: K4 against its plain version
+    # phase 7: K4 against its plain version, on the three input sets of
+    # phase 4 with a random cotangent in every column (every lane taped)
+    # and on the eight bounces of one kernel-path train step (kd only,
+    # as phase 8's), whose cotangents let most lanes through untaped
     k4 = []
     k4_err = 0.0
     gen = torch.Generator().manual_seed(7)
-    for nm, xt, dsx in cases:
-        args = (dsx.ltab, dsx.mtab, dsx.stab, dsx.static, config.min_depth,
-                config.rr_threshold)
-        ct = torch.randn(cb.OUT_COLS, xt.shape[1], generator=gen).to(dev)
+    target = img_full.reshape(-1, 3)
+    step_bounces = fuzz.train_step_bounces(
+        ds, camera, film_cfg, config, integ.KERNEL_OPS, target,
+        torch.arange(n, device=dev))
+    k4_sets = [(nm, xt, (dsx.ltab, dsx.mtab, dsx.stab),
+                torch.randn(cb.OUT_COLS, xt.shape[1], generator=gen).to(dev),
+                dsx.static) for nm, xt, dsx in cases]
+    k4_sets += [(f"train bounce {b}", r["xt"], (r["ltab"], r["mtab"],
+                                                r["stab"]), r["ct"],
+                 ds.static) for b, r in enumerate(step_bounces)]
+    for nm, xt, tabs, ct, static in k4_sets:
+        shade_cfg = (static, config.min_depth, config.rr_threshold)
         stats = {}
-        g_k = ops.bounce_shade_bwd(xt, dsx.ltab, dsx.mtab, dsx.stab, ct,
-                                   *args[3:], stats=stats)
-        g_k2 = ops.bounce_shade_bwd(xt, dsx.ltab, dsx.mtab, dsx.stab, ct,
-                                    *args[3:])
-        g_p = cb.cbody_vjp_reference(xt, dsx.ltab, dsx.mtab, dsx.stab, ct,
-                                     *args[3:])
-        dx, dxp = g_k[0], g_p[0]
+        g_k = ops.bounce_shade_bwd(xt, *tabs, ct, *shade_cfg, stats=stats)
+        g_k2 = ops.bounce_shade_bwd(xt, *tabs, ct, *shade_cfg)
+        g_p = cb.cbody_vjp_reference(xt, *tabs, ct, *shade_cfg)
+        need = cb.bwd_needs_body(xt, ct, tabs[2])
+        dx, dxp = g_k[0][:, need], g_p[0][:, need]
         close = torch.isclose(dx, dxp, rtol=K4_RTOL, atol=K4_ATOL) \
             | (torch.isnan(dx) & torch.isnan(dxp))
-        frac = close.float().mean().item()
+        frac = close.float().mean().item() if need.any() else 1.0
+        # the lanes let through: dx exactly the pass-through
+        through = torch.equal(g_k[0][:, ~need],
+                              cb.bwd_pass_through(ct[:, ~need]))
         rels = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
                 for a, b in zip(g_k[1:], g_p[1:])]
-        same = all(torch.equal(a, b) for a, b in zip(g_k[1:], g_k2[1:]))
-        most, total = stats["nodes"].tolist()
-        k4_err = max(k4_err, (dx - dxp).abs()[close].max().item())
-        k4_ms = time_ms(lambda: ops.bounce_shade_bwd(
-            xt, dsx.ltab, dsx.mtab, dsx.stab, ct, *args[3:]), iters=5)
-        k4_plain = time_ms(lambda: cb.cbody_vjp_reference(
-            xt, dsx.ltab, dsx.mtab, dsx.stab, ct, *args[3:]), iters=2)
-        k4.append(dict(set=nm, dx_close=frac, table_rel=rels,
-                       tables_bit_identical=same, ms=k4_ms, plain_ms=k4_plain,
-                       nodes_max=most, nodes_total=total))
-        if frac < K4_GATE or max(rels) > TAB_GATE or not same \
-                or most > ops.TAPE_CAP:
+        same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+        most, total, listed = stats["nodes"].tolist()
+        # lanes let through whose plain VJP is not finite (ROADMAP Queue 3)
+        skip_nonfinite = int((~need & ~torch.isfinite(g_p[0]).all(0)).sum())
+        if need.any():
+            k4_err = max(k4_err, (dx - dxp).abs()[close].max().item())
+        k4_ms = time_ms(lambda: ops.bounce_shade_bwd(xt, *tabs, ct,
+                                                     *shade_cfg), iters=5)
+        k4_dev = k4_device_ms(lambda: ops.bounce_shade_bwd(
+            xt, *tabs, ct, *shade_cfg))
+        k4_plain = None
+        if not nm.startswith("fuzz"):
+            k4_plain = time_ms(lambda: cb.cbody_vjp_reference(
+                xt, *tabs, ct, *shade_cfg), iters=1)
+        # K4's work: the gate columns of every lane's input (alive, hit,
+        # is_sph, s_idx, the triangle's light id) and the rest of a
+        # listed lane's, the 28 cotangent columns the body reads, dx
+        # written, the tables read and their cotangents written
+        bound = bound_ms(4 * (listed * cb.IN_COLS + (n - listed) * 5)
+                         + 4 * n * (28 + cb.IN_COLS) + 2 * tab_bytes, 0)
+        k4.append(dict(set=nm, dx_close=frac, pass_through_exact=through,
+                       table_rel=rels, bit_identical=same, ms=k4_ms,
+                       device_ms=k4_dev, plain_ms=k4_plain, bound_ms=bound[0],
+                       nodes_max=most, nodes_total=total, listed=listed,
+                       listed_plain=int(need.sum()),
+                       skip_nonfinite=skip_nonfinite))
+        if frac < K4_GATE or not through or max(rels) > TAB_GATE \
+                or not same or most > ops.TAPE_CAP \
+                or listed != int(need.sum()):
             raise AssertionError(f"K4 {nm}: {k4[-1]}")
         if nm == "first bounce":
-            lane_bytes = 4 * n * (cb.IN_COLS + cb.OUT_COLS)
+            # every lane taped: the node total counts the forward's
+            # operations on every lane
             kern_rows["bounce_shade"]["bound"] = bound_ms(
-                lane_bytes + tab_bytes, total)
-            kern_rows["bounce_shade_bwd"] = dict(
-                max_abs_err=0.0, ms=k4_ms, plain_ms=k4_plain,
-                bound=bound_ms(lane_bytes + 4 * n * cb.IN_COLS
-                               + 2 * tab_bytes, 5 * total))
-    kern_rows["bounce_shade_bwd"]["max_abs_err"] = k4_err
+                4 * n * (cb.IN_COLS + cb.OUT_COLS) + tab_bytes, total)
+    train_k4 = [r for r in k4 if r["set"].startswith("train")]
+    # K4's row: the mean per call over the train step's bounces, its
+    # main-path input sets
+    mean = lambda key: sum(r[key] for r in train_k4) / len(train_k4)
+    kern_rows["bounce_shade_bwd"] = dict(
+        max_abs_err=k4_err, ms=mean("ms"), plain_ms=mean("plain_ms"),
+        bound=(mean("bound_ms"), "bytes"))
+    k4_step_events = sum(r["ms"] for r in train_k4)
+    k4_step_dev = sum(r["device_ms"] for r in train_k4)
     _say("[7] K4 " + "; ".join(
-        f"{r['set']}: dx close {r['dx_close']:.6f}, table rel "
+        f"{r['set']}: dx close {r['dx_close']:.6f} on the lanes taped, "
+        f"pass-through exact {r['pass_through_exact']}, table rel "
         + "/".join(f"{v:.2e}" for v in r["table_rel"])
-        + f", bit-identical {r['tables_bit_identical']}, {r['ms']:.3f} ms "
-        f"vs plain {r['plain_ms']:.3f} ms, tape nodes max {r['nodes_max']}"
-        f" mean {r['nodes_total'] / n:.0f}" for r in k4))
+        + f", bit-identical {r['bit_identical']}, {r['ms']:.3f} ms "
+        f"(device {r['device_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms)"
+        + (f" vs plain {r['plain_ms']:.3f} ms" if r["plain_ms"] else "")
+        + f", lanes taped {r['listed']} (plain twin {r['listed_plain']}) "
+        f"of {n}, tape nodes max {r['nodes_max']} mean "
+        f"{r['nodes_total'] / max(r['listed'], 1):.0f} per taped lane, "
+        f"let through with a non-finite plain VJP {r['skip_nonfinite']}"
+        for r in k4) + f" | train step: K4 {k4_step_events:.3f} ms by "
+        f"events, {k4_step_dev:.3f} ms on the card over its "
+        f"{len(train_k4)} bounces ({card})")
 
     # phase 8: the train step
     from arendur_tpu_torch.parallel import mesh
@@ -789,8 +863,14 @@ def main(argv=None):
         step(kd0, target, torch.arange(wave, device=dev))
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-    busy, nk, own = _busy_s(wave_profile(
-        lambda: step(kd0, target, torch.arange(wave, device=dev))))
+    step_prof = wave_profile(
+        lambda: step(kd0, target, torch.arange(wave, device=dev)))
+    busy, nk, own = _busy_s(step_prof)
+    # K4's calls in the step: one tape-kernel launch each
+    k4_calls = sum(1 for e in step_prof.events()
+                   if e.device_type.name == "CUDA"
+                   and "bounce_shade_bwd_kernel" in e.name)
+    k4_step_ms = 1e3 * own.get("bounce_shade_bwd", 0.0)
     _say(f"[8] fwd+bwd 256x256 16spp depth 8, waves of {wave}: "
          + "; ".join(f"{k} {v['paths_per_s']:.0f} paths/s ({v['steps']} "
                      f"steps), loss on wave 0 {v['loss_before']:.6e} -> "
@@ -799,7 +879,8 @@ def main(argv=None):
          f"{1e3 * busy:.1f} ms in {nk} launches (share "
          f"{busy / step_s:.2f}), of which "
          + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in own.items())
-         + f" ({card})")
+         + f"; K4 {k4_step_ms:.3f} ms on the card in {k4_calls} calls, "
+         f"{k4_step_ms / max(k4_calls, 1):.3f} ms per call ({card})")
 
     # phase 9: K5 and K6 against their plain versions
     scene_t, atlas_t = fuzz.checker_textured(scene, dev)
@@ -1352,6 +1433,7 @@ def main(argv=None):
                            k1=k1, k2=k2, k3=k3, k4=k4, ptxas=ptxas,
                            train_grad_rel=grel, train_losses=losses,
                            fwd_bwd=fb, step_s=step_s, step_busy_s=busy,
+                           step_k4_ms=k4_step_ms, step_k4_calls=k4_calls,
                            step_kernel_s=own, k5_k6=k56,
                            split_vs_fused=[sf_close, sf_flags, sf_exact],
                            textured_launches=tex_launches,

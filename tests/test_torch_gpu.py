@@ -213,6 +213,48 @@ def test_bounce_shade_backward_kernel_matches_plain(card, cornell, which,
 
 
 @pytest.mark.gpu
+def test_bounce_shade_backward_kernel_on_train_step_bounces(card, cornell):
+    """K4 on the inputs and cotangents of every bounce of one kernel-path
+    train step (depth 8), where most lanes of the later bounces take the
+    pass-through: against autograd over the plain body on the lanes it
+    tapes, dx equal to the pass-through on the others, and its count of
+    taped lanes against the plain twin's (bwd_needs_body)."""
+    ds, camera, film, config = cornell
+    config = dataclasses.replace(config, max_depth=8)
+    w, h = film.resolution
+    n = w * h * config.spp
+    target = torch.full((w * h, 3), 0.1, device=card)
+    bounces = fuzz.train_step_bounces(ds, camera, film, config,
+                                      integ.KERNEL_OPS, target,
+                                      torch.arange(n, device=card))
+    assert len(bounces) == 8
+    args = (ds.static, config.min_depth, config.rr_threshold)
+    skipped = 0
+    for r in bounces:
+        x, ct = r["xt"], r["ct"]
+        tabs = (r["ltab"], r["mtab"], r["stab"])
+        stats = {}
+        got = ops.bounce_shade_bwd(x, *tabs, ct, *args, stats=stats)
+        ref = cb.cbody_vjp_reference(x, *tabs, ct, *args)
+        need = cb.bwd_needs_body(x, ct, r["stab"])
+        assert int(stats["nodes"][2]) == int(need.sum())
+        assert int(stats["nodes"][0]) <= ops.TAPE_CAP
+        # the lanes let through: dx exactly the pass-through; the share
+        # gate on the entries of the lanes taped alone
+        assert torch.equal(got[0][:, ~need],
+                           cb.bwd_pass_through(ct[:, ~need]))
+        close = torch.isclose(got[0][:, need], ref[0][:, need],
+                              rtol=K4_RTOL, atol=K4_ATOL)
+        assert close.float().mean().item() >= ELEM_GATE
+        for g, q in zip(got[1:], ref[1:]):
+            assert torch.isfinite(g).all()
+            rel = ((g - q).norm() / q.norm().clamp(min=1e-30)).item()
+            assert rel <= K4_TAB_GATE
+        skipped += int((~need).sum())
+    assert skipped > 0
+
+
+@pytest.mark.gpu
 def test_render_kernel_path_matches_plain_path(card, cornell):
     ds, camera, film, config = cornell
     config = dataclasses.replace(config, max_depth=4)
