@@ -5,172 +5,571 @@
 // occluded_clusters), their analytic-sphere branch _sphere_best
 // included.
 //
-// One block of 256 threads takes one 256-ray tile, one thread per ray.
-// First the sphere branch: the block stages the S rows of the sphere
-// table (w2o(16) radius zmin zmax phimax pad(4), sphere.kernel_table)
-// in shared memory, and each live ray tests every sphere in ascending
-// order: the world ray goes to the sphere's frame as _sphere_best does
-// it (row-layout products, the point multiplied by 1 / w, not divided),
-// then the shared local test of the bounce shade
-// (cbounce_body.cuh intersect_local_sphere, on float; the phi clip
-// skipped where full_phi says every sphere is full), and a hit with
-// t < best (strict, so the lowest sphere index wins a tie) seeds the
-// running best t and the code -(2+s) (K1), or marks the ray blocked
-// (K2).  Then the C clusters of K triangles.  Per cluster each ray
-// slab-tests the cluster box against its running best t (any-hit: its
-// tmax); a cluster no ray of the block survives is skipped whole, and a
-// blocked ray tests no cluster.  The cluster's [16, 4K] determinant
-// weights are staged through shared memory 64 triangles at a time
-// (16 KB) and every surviving ray forms the four 16-term dot products
-// per triangle with explicit FMAs; all threads read the same triangle
-// at once, so the shared-memory reads are broadcasts.  Then the epsilon
-// accept and, for the closest hit, the lowest-slot tie-break (strict <
-// over ascending slots): a triangle replaces a sphere hit only when it
-// is strictly closer, so the sphere wins ties.
+// Work and bound.  A (ray, triangle) pair is four 16-term dot products
+// of the ray's features with the triangle's determinant weights: 64
+// FMAs, 128 flops, in f32 outside the tensor cores (the TPU ran this
+// product on its matrix unit), then the epsilon accept (~15 f32
+// operations; the reciprocal only for the few pairs that pass the sign
+// and barycentric tests).  A (ray, sphere) pair is ~60-90 operations.
+// Bytes are small: 36 B per ray and the cluster weights (64 KB per
+// cluster at K = 256, read from the L2 by every block that needs
+// them).  So the bound is f32 issue on the pairs the rays need: the
+// clusters whose box a ray enters before its bound.  What kept the
+// first version (one ray a thread, 256-ray blocks) far from it, and
+// what this design does about each:
+//  - one shared-memory load per FMA (a scalar broadcast per feature and
+//    triangle, a quarter of the FMA rate): a group of four triangles is
+//    swept at once, and one 16-byte broadcast load of feature f,
+//    quantity q carries the weights of four triangles into 4R FMAs for
+//    the R rays a thread holds (the next feature's loads issued before
+//    this one's FMAs);
+//  - staging that nothing overlapped (16 scalar loads and two
+//    __syncthreads per 64-triangle chunk): chunks reach shared memory
+//    through a ring of STAGES buffers filled by the Tensor Memory
+//    Accelerator, one request per chunk (cp.async.bulk.tensor over a 2-D
+//    descriptor of the weights seen as [C * 64, K]: the chunk is one
+//    64 x 64 box; 64 row copies of 256 B per chunk measured request-bound),
+//    issued by warp 0 with the chunk's tag, each stage completing on a
+//    "full" mbarrier and released through an "empty" mbarrier that every
+//    warp arrives on, so the next chunks load while the warps compute
+//    and no block-wide barrier runs per chunk; the next cluster staged
+//    is the next one some ray wants at the block's bounds then;
+//  - culling per 256-ray block: a block holds 32R rays, each
+//    slab-tested per cluster and voted on per warp; a cluster no ray
+//    wants is neither staged nor swept, and the any hit leaves a
+//    cluster at the next chunk once every ray that wanted it is blocked;
+//  - one warp's serial sweep: a block's W warps hold the same rays and
+//    split every chunk's 16 groups, so a launch with few live rays (the
+//    late bounces: 2.8k-30k rays) spreads its sweep over W times the
+//    warps and more SMs; the closest hit merges the warps' best per
+//    cluster (one barrier), the any hit shares its blocked flags in
+//    shared memory;
+//  - the division on every pair: taken only where the pair passes
+//    (isect::accept);
+//  - tiles past n_alive: a block none of whose rays is live writes its
+//    misses and exits before it loads or stages anything.
+// A ray that does not want a cluster accepts nothing in it, even where
+// its warp computes, so every ray's result is that of the one-ray loop:
+// per ray, the spheres in ascending order, then the clusters in
+// ascending order, each slab-tested against the ray's running best t
+// (any hit: its tmax) and swept in ascending slot order with a strict
+// t < best.  The lowest slot wins a tie, a sphere wins a tie with a
+// triangle, the lowest sphere index wins among spheres (the merges keep
+// the least (t, rank)); t and slot are the same to the bit as the
+// one-ray kernel's (each determinant is the same fmaf chain over
+// f = 0..15).
 //
-// Bound: 128 FMAs per (ray, triangle) in f32 outside the tensor cores
-// (the TPU ran this product on its matrix unit), ~60-90 f32 operations
-// per (ray, sphere); memory traffic is the weights (64 KB per cluster
-// per block, from L2) plus 36 B per ray.  The slab cull and the
-// block-wide skip are what keep the work near the rays that can hit;
-// a sphere hit found first bounds the cull.  Rays past n_alive (read
-// from device memory, the integrator's compaction count) are misses
-// and test nothing, spheres included.  The sphere table takes S * 96 B
-// of shared memory beside the 16 KB weight chunk: at most MAX_SPHERES
-// rows (the 227 KB a block can hold); a larger table is refused.
+// Launch shape: R = 1 ray a thread, W = 8 warps a block (32 rays: 2,048
+// blocks for a 65,536-ray wave), STAGES = 3 chunks of 64 triangles
+// (48 KB) in flight.  Measured on one H100 (PERF.md), R = 1 beats R = 2
+// and 4 on the main path's queries: a block of 32 rays culls at a finer
+// grain and holds fewer registers (80: three blocks, 24 warps an SM),
+// and W = 8 beats W = 4 on the small late launches; 2 or 4 stages
+// change nothing.  chip_smoke.py phase 2 reports the registers (ptxas),
+// the shared memory and the blocks per SM (arendur_isect_occupancy).
+// What bounds them now (one H100, PERF.md; per fused wave of cb.json by
+// queued events): K1 ~1.2 ms over 9 launches, K2 ~0.83 ms over 8 (the
+// first version 5.1 and 3.8).  Of K1's, ~0.32 ms is the ring and block
+// set-up (the kernel with its sweep taken out) and ~0.86 ms the sweep,
+// at ~35 % of the f32 FMA rate on the pairs its 32-ray blocks compute,
+// which are 1.9-3.2x the pairs its rays need after the camera bounce;
+// the accept ~0.03 ms.  K2's blocks compute 4.2-5.1x the pairs their
+// rays need (a block's shadow rays aim at two lights).  Neither is bound
+// by bytes: the culling grain and the FMA loop's issue rate bound both;
+// per-cluster ray lists (ROADMAP Queue 2b) would address the first.
+//
+// Tensor cores are not used: the product's reduction depth is 16, the
+// accept after it runs on the CUDA cores whatever computes the product,
+// and a 3xTF32 mma would round every determinant differently, so slots
+// would no longer match the plain version lane for lane.  The next step,
+// once this loop spends its time in FMAs, is 3xTF32 (ROADMAP Queue 2b).
+//
+// Shared memory: the sphere table (S rows of 96 B) is staged and tested
+// first (warp v the spheres v, v + W, ...); its space then holds the
+// ring, so the ring does not shrink with the table.  At most
+// MAX_SPHERES rows (2,250: what fits beside the first version's 16 KB
+// chunk in the 227 KB a block can hold); a larger table is refused.
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
 
-#include "cbounce.cuh"
+#include <mutex>
+
 #include "intersect.cuh"
 
 namespace {
 
-constexpr int TILE = 256;
-constexpr int CHUNK = 64;
-constexpr int SPH_COLS = 24;
-constexpr int WEIGHT_BYTES = 16 * 4 * CHUNK * (int)sizeof(float);
+using isect::CHUNK;
+using isect::GROUP;
+using isect::SPH_COLS;
+
+constexpr int R = 1;  // rays a thread
+constexpr int W = 8;  // warps a block
+constexpr int STAGES = 3;
+constexpr int STAGE_FLOATS = 16 * 4 * CHUNK;
+constexpr int STAGE_BYTES = STAGE_FLOATS * (int)sizeof(float);
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 constexpr int BLOCK_SMEM = 232448;  // the most shared memory of a block
-constexpr int DEFAULT_SMEM = 48 * 1024;  // without the opt-in attribute
 constexpr int MAX_SPHERES =
-    (BLOCK_SMEM - WEIGHT_BYTES) / (SPH_COLS * (int)sizeof(float));
+    (BLOCK_SMEM - 16 * 1024) / (SPH_COLS * (int)sizeof(float));
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   saddr(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(saddr(b))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* b, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(saddr(b)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for the completion of the barrier's phase of this parity; a
+// wait of more than WAIT_TRAP_CYCLES (seconds) traps, so that a fault
+// in the ring fails the launch instead of hanging the card
+constexpr long long WAIT_TRAP_CYCLES = 1ll << 35;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  if (mbar_try(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(b, parity))
+    if (clock64() - t0 > WAIT_TRAP_CYCLES) __trap();
+}
+
+// one TMA request: the 64 x 64 box at column x, row y of the tensor map
+// into dst, completing on bar
+__device__ __forceinline__ void tile_load(float* dst, const CUtensorMap* map,
+                                          int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(saddr(bar))
+      : "memory");
+}
+
+// The order of two results at equal t: the spheres by index, then the
+// triangles by slot, then no hit (the order in which the one-ray loop
+// meets them; it keeps the first at equal t)
+__device__ __forceinline__ int rank(int code) {
+  return code >= 0 ? (1 << 24) + code : (code == -1 ? INT_MAX : -2 - code);
+}
+
+// The block's W warps hold the same rays and split the work; each
+// keeps its own (best, bslot), and this merges them: every warp writes
+// its own to the partials buffer `part` ([W][32R] t, then [W][32R]
+// codes) and reads all W, keeping the least (t, rank).  One barrier:
+// the callers alternate between two buffers.
+__device__ __forceinline__ void merge_best(float (&best)[R], int (&bslot)[R],
+                                           float* part, int warp, int lane) {
+  int* code = reinterpret_cast<int*>(part + W * 32 * R);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    part[warp * 32 * R + 32 * r + lane] = best[r];
+    code[warp * 32 * R + 32 * r + lane] = bslot[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float t = part[32 * r + lane];
+    int c = code[32 * r + lane];
+    for (int v = 1; v < W; ++v) {
+      const float tv = part[v * 32 * R + 32 * r + lane];
+      const int cv = code[v * 32 * R + 32 * r + lane];
+      if (tv < t || (tv == t && rank(cv) < rank(c))) {
+        t = tv;
+        c = cv;
+      }
+    }
+    best[r] = t;
+    bslot[r] = c;
+  }
+}
+
+// The block's dynamic shared memory: the mbarriers, the stages' tags,
+// two partials buffers and the any hit's blocked flags first, then
+// (from a 128-byte boundary) the ring, whose space first holds the
+// sphere table.
+constexpr int PART_FLOATS = 2 * W * 32 * R;  // t and codes
+constexpr int FIXED_BYTES =
+    (2 * STAGES * 8 + STAGES * 4 + 2 * PART_FLOATS * 4 + 32 * R * 4 + 127) /
+    128 * 128;
+static_assert(FIXED_BYTES + MAX_SPHERES * SPH_COLS * (int)sizeof(float) <=
+                  BLOCK_SMEM,
+              "a table of MAX_SPHERES rows fits beside the fixed part");
 
 template <bool ANY>
-__global__ void __launch_bounds__(TILE)
-    cluster_kernel(const float* __restrict__ o, const float* __restrict__ d,
+__global__ void __launch_bounds__(32 * W)
+    cluster_kernel(const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ tmax,
-                   const float* __restrict__ w,
                    const float* __restrict__ cbox,
                    const int* __restrict__ n_alive_p,
                    const float* __restrict__ sph, int ns, int full_phi,
                    int n, int C, int K, int period,
                    float* __restrict__ t_out, int* __restrict__ i_out) {
-  __shared__ float sw[16 * 4 * CHUNK];
-  extern __shared__ float ssph[];
-  const int i = blockIdx.x * TILE + threadIdx.x;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  int* tags = reinterpret_cast<int*>(empty + STAGES);
+  float* parts = reinterpret_cast<float*>(tags + STAGES);
+  int* flags = reinterpret_cast<int*>(parts + 2 * PART_FLOATS);
+  float* ring = reinterpret_cast<float*>(smem + FIXED_BYTES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the block's 32R rays, thread `lane` of every warp holding the rays
+  // lane, lane + 32, ...
+  const long base = (long)blockIdx.x * (32 * R) + lane;
   const int n_alive = *n_alive_p;
-  const int li = period > 0 ? i % period : i;
-  const bool live = (i < n) && (li < n_alive);
-  isect::Ray r;
-  float tm = 0.0f;
-  if (i < n) {
-    isect::ray_setup(o + 3 * (long)i, d + 3 * (long)i, &r);
-    tm = tmax[i];
-  } else {
-    float z[3] = {0.0f, 0.0f, 0.0f};
-    isect::ray_setup(z, z, &r);
+  bool live[R];
+  bool any_live = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long i = base + 32 * r;
+    const long li = period > 0 ? i % period : i;
+    live[r] = (i < n) && (li < n_alive);
+    any_live |= live[r];
   }
-  float best = tm;
-  int bslot = -1;
-  bool blocked = false;
+  // every warp holds the same rays, so the vote is the block's
+  if (!__any_sync(FULL_MASK, any_live)) {
+    // a dead tile: misses, nothing loaded or staged
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long i = base + 32 * r;
+      if (warp != 0 || i >= n) continue;
+      if (ANY) {
+        i_out[i] = 0;
+      } else {
+        t_out[i] = tmax[i];
+        i_out[i] = -1;
+      }
+    }
+    return;
+  }
+  isect::Ray ray[R];
+  float tm[R], best[R];
+  int bslot[R];
+  bool blocked[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long i = base + 32 * r;
+    if (i < n) {
+      isect::ray_setup(o + 3 * i, d + 3 * i, &ray[r]);
+      tm[r] = tmax[i];
+    } else {
+      const float z[3] = {0.0f, 0.0f, 0.0f};
+      isect::ray_setup(z, z, &ray[r]);
+      tm[r] = 0.0f;
+    }
+    best[r] = tm[r];
+    bslot[r] = -1;
+    blocked[r] = false;
+  }
+  int part = 0;  // the partials buffer of the next merge
   if (ns > 0) {
-    for (int idx = threadIdx.x; idx < ns * SPH_COLS; idx += TILE)
-      ssph[idx] = sph[idx];
+    for (int k = threadIdx.x; k < ns * SPH_COLS; k += 32 * W)
+      ring[k] = sph[k];
     __syncthreads();
-    if (live) {
-      cmath::V3 ow = cmath::v3(r.F[0], r.F[1], r.F[2]);
-      cmath::V3 dw = cmath::v3(r.F[3], r.F[4], r.F[5]);
-      for (int s = 0; s < ns; ++s) {
-        const float* m = ssph + SPH_COLS * s;
-        cmath::V3 ol = cmath::tp16(m, ow);
-        cmath::V3 dl = cmath::tv16(m, dw);
-        cmath::V3 p;
-        float t;
-        bool hit = cbounce::intersect_local_sphere(
-            ol, dl, tm, m[16], m[17], m[18], m[19], full_phi != 0, &p, &t);
-        if (hit && t < best) {
-          best = t;
-          bslot = -(2 + s);
-        }
+    // warp v tests the spheres v, v + W, ...; the merge keeps the least
+    // t and the lowest index at equal t, as the one-ray loop does
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (live[r])
+        for (int s = warp; s < ns; s += W)
+          isect::sphere_pass(ray[r], tm[r], ring + s * SPH_COLS, 1,
+                             full_phi != 0, &best[r], &bslot[r], s);
+    merge_best(best, bslot, parts, warp, lane);
+    part = 1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) blocked[r] = bslot[r] != -1;
+  }
+  if (warp == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) flags[32 * r + lane] = blocked[r];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, W);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the sphere rows were written through the generic proxy; the ring is
+  // written by the async proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  // Whether ray r wants cluster c: it is live (the any hit: and not
+  // blocked, by this warp or another) and enters the box before its
+  // bound.  Bounds only shrink, so a cluster no ray wants now is not
+  // wanted later.
+  auto wants = [&](int r, int c) {
+    if (ANY) blocked[r] |= *(volatile int*)(flags + 32 * r + lane) != 0;
+    return live[r] && !(ANY && blocked[r]) &&
+           isect::slab_hit(ray[r], cbox + 8 * c, ANY ? tm[r] : best[r]);
+  };
+  // The ring's producer is warp 0: item i is chunk `ch` of cluster `pc`,
+  // loaded into stage i % STAGES once every warp has released that
+  // stage's previous item, its tag (pc * per + ch, or -1 after the last
+  // cluster) written beside it.  The next cluster staged is the next one
+  // some ray of the block wants at warp 0's bounds then (a closest hit's
+  // bounds merged up to the clusters swept so far, so a superset of what
+  // the warps will want when they reach it).
+  const int per = K / CHUNK;
+  auto next_wanted = [&](int c) {
+    for (++c; c < C; ++c) {
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) any |= wants(r, c);
+      if (__any_sync(FULL_MASK, any)) break;
+    }
+    return c;
+  };
+  int pc = 0, pch = 0, pi = 0;
+  bool pdone = false;
+  auto produce = [&]() {
+    const int s = pi % STAGES;
+    if (pi >= STAGES) mbar_wait(empty + s, ((pi / STAGES) - 1) & 1);
+    ++pi;
+    if (pc >= C) {
+      if (lane == 0) {
+        tags[s] = -1;
+        mbar_arrive(full + s);
       }
-      blocked = bslot != -1;
+      pdone = true;
+      return;
+    }
+    if (lane == 0) {
+      // the chunk is the box of rows (pc, f, q) = 64 pc .. 64 pc + 63 of
+      // the weights seen as [C * 64, K], columns pch * CHUNK ..
+      tags[s] = pc * per + pch;
+      mbar_expect(full + s, STAGE_BYTES);
+      tile_load(ring + s * STAGE_FLOATS, &wmap, pch * CHUNK, pc * 64,
+                full + s);
+    }
+    if (++pch == per) {
+      pch = 0;
+      pc = next_wanted(pc);
+    }
+  };
+  if (warp == 0) {
+    pc = next_wanted(-1);
+    while (pi < STAGES - 1 && !pdone) produce();
+  }
+
+  // warp v sweeps the groups [v G / W, (v + 1) G / W) of every chunk
+  constexpr int GROUPS = CHUNK / GROUP;
+  static_assert(GROUPS % W == 0, "the warps split a chunk's groups evenly");
+  const int g0 = warp * (GROUPS / W) * GROUP;
+  bool want[R];
+  bool warp_wants = false, swept = false;
+  for (int item = 0;; ++item) {
+    if (warp == 0 && !pdone) produce();
+    const int s = item % STAGES;
+    mbar_wait(full + s, (item / STAGES) & 1);
+    const int tag = tags[s];
+    if (tag < 0) break;
+    const int c = tag / per, ch = tag % per;
+    if (ch == 0) {
+      // a closest hit's bounds are the same in every warp (merged after
+      // each cluster swept), so is its vote
+      bool mine = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) mine |= want[r] = wants(r, c);
+      swept = warp_wants = __any_sync(FULL_MASK, mine);
+    } else if (ANY && warp_wants) {
+      // leave once every ray that wants the cluster is blocked, by this
+      // warp or another
+      bool open = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        blocked[r] |= *(volatile int*)(flags + 32 * r + lane) != 0;
+        open |= want[r] && !blocked[r];
+      }
+      warp_wants = __any_sync(FULL_MASK, open);
+    }
+    if (warp_wants) {
+      const float* stage = ring + s * STAGE_FLOATS;
+      const int slot0 = c * K + ch * CHUNK;
+#pragma unroll 1
+      for (int g = g0; g < g0 + (GROUPS / W) * GROUP; g += GROUP) {
+        float dq[4][GROUP][R];
+        isect::dets4<R>(ray, stage + g, 4 * CHUNK, CHUNK, dq);
+        isect::accept4<ANY, R>(dq, ray, want, tm, slot0 + g, best, bslot,
+                               blocked);
+      }
+      if (ANY)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (blocked[r]) flags[32 * r + lane] = 1;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    if (!ANY && swept && ch == per - 1) {
+      merge_best(best, bslot, parts + part * PART_FLOATS, warp,
+                       lane);
+      part ^= 1;
     }
   }
-  const int K4 = 4 * K;
-  for (int c = 0; c < C; ++c) {
-    const float bound = ANY ? tm : best;
-    bool box = live && isect::slab_hit(r, cbox + 8 * c, bound);
-    bool want = ANY ? (box && !blocked) : box;
-    if (!__syncthreads_or(want)) continue;
-    const float* wc = w + (long)c * 16 * K4;
-    for (int ch = 0; ch < K; ch += CHUNK) {
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < 16 * 4 * CHUNK; idx += TILE) {
-        int f = idx / (4 * CHUNK);
-        int rem = idx % (4 * CHUNK);
-        int q = rem / CHUNK;
-        int kk = rem % CHUNK;
-        sw[idx] = wc[(long)f * K4 + q * K + ch + kk];
-      }
-      __syncthreads();
-      if (!want) continue;
-      for (int kk = 0; kk < CHUNK; ++kk) {
-        const float* col = sw + kk;
-        float det = isect::dot16(r, col + 0 * CHUNK, 4 * CHUNK);
-        float tdet = isect::dot16(r, col + 1 * CHUNK, 4 * CHUNK);
-        float udet = isect::dot16(r, col + 2 * CHUNK, 4 * CHUNK);
-        float vdet = isect::dot16(r, col + 3 * CHUNK, 4 * CHUNK);
-        float t;
-        if (ANY) {
-          if (isect::accept(det, tdet, udet, vdet, r.teps, tm, &t))
-            blocked = true;
-        } else if (isect::accept(det, tdet, udet, vdet, r.teps, best, &t)) {
-          best = t;
-          bslot = c * K + ch + kk;
-        }
-      }
-    }
-  }
-  if (i >= n) return;
   if (ANY) {
-    i_out[i] = blocked ? 1 : 0;
-  } else {
-    t_out[i] = bslot == -1 ? tm : best;
-    i_out[i] = bslot;
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) blocked[r] = flags[32 * r + lane] != 0;
+  }
+  if (warp != 0) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long i = base + 32 * r;
+    if (i >= n) continue;
+    if (ANY) {
+      i_out[i] = blocked[r] ? 1 : 0;
+    } else {
+      t_out[i] = bslot[r] == -1 ? tm[r] : best[r];
+      i_out[i] = bslot[r];
+    }
   }
 }
 
+// the dynamic shared memory of a block: the fixed part, then the sphere
+// table or the ring in the same space
+int smem_bytes(int ns) {
+  const int table = ns * SPH_COLS * (int)sizeof(float);
+  return FIXED_BYTES + (RING_BYTES > table ? RING_BYTES : table);
+}
+
+// allow the kernel `smem` bytes of dynamic shared memory
 template <bool ANY>
-int launch(const float* o, const float* d, const float* tmax, const float* w,
-           const float* cbox, const int* n_alive, const float* sph, int ns,
-           int full_phi, int n, int C, int K, int period, float* t_out,
-           int* i_out, void* stream) {
-  if (n <= 0) return 0;
-  // a sphere table is refused past the shared memory and with batched
-  // instancing (the JAX package never passes one there)
-  if (K % CHUNK != 0 || ns < 0 || ns > MAX_SPHERES || (ns > 0 && period > 0))
-    return (int)cudaErrorInvalidValue;
-  const int smem = ns * SPH_COLS * (int)sizeof(float);
-  if (smem + WEIGHT_BYTES > DEFAULT_SMEM) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cluster_kernel<ANY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
+cudaError_t allow_smem(int smem) {
+  static int opted = 48 * 1024;  // allowed so far
+  if (smem <= opted) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      cluster_kernel<ANY>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) opted = smem;
+  return e;
+}
+
+struct Args {
+  CUtensorMap wmap;
+  const float *o, *d, *tmax, *w, *cbox;
+  const int* n_alive;
+  const float* sph;
+  int ns, full_phi, n, C, K, period;
+  float* t_out;
+  int* i_out;
+  void* stream;
+};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The TMA descriptor of the weights w [C, 16, 4K] seen as a 2-D tensor
+// of C * 64 rows (cluster, feature, quantity) of K floats, read in
+// boxes of 64 rows x CHUNK columns: one chunk of one cluster.  It
+// depends on (w, C, K) alone, so the last one encoded is kept: a wave's
+// 17 launches on one scene encode it once.
+cudaError_t weight_map(const float* w, int C, int K, CUtensorMap* map) {
+  static std::mutex lock;
+  static EncodeTiled encode = nullptr;
+  static const float* last_w = nullptr;
+  static int last_c = 0, last_k = 0;
+  static CUtensorMap last;
+  std::lock_guard<std::mutex> hold(lock);
+  if (w == last_w && C == last_c && K == last_k) {
+    *map = last;
+    return cudaSuccess;
   }
-  unsigned grid = (unsigned)((n + TILE - 1) / TILE);
-  cluster_kernel<ANY><<<grid, TILE, smem, (cudaStream_t)stream>>>(
-      o, d, tmax, w, cbox, n_alive, sph, ns, full_phi, n, C, K, period,
-      t_out, i_out);
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dim[2] = {(cuuint64_t)K, (cuuint64_t)C * 64};
+  const cuuint64_t stride[1] = {(cuuint64_t)K * sizeof(float)};
+  const cuuint32_t box[2] = {CHUNK, 64};
+  const cuuint32_t step[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                      const_cast<float*>(w), dim, stride, box, step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  last = *map;
+  last_w = w;
+  last_c = C;
+  last_k = K;
+  return cudaSuccess;
+}
+
+template <bool ANY>
+int launch(Args a) {
+  if (a.n <= 0) return 0;
+  // a sphere table is refused past the shared memory and with batched
+  // instancing (the JAX package never passes one there); the TMA
+  // descriptor needs 16-byte aligned weights
+  if (a.K <= 0 || a.K % CHUNK != 0 || a.C <= 0 || a.ns < 0 ||
+      a.ns > MAX_SPHERES || (a.ns > 0 && a.period > 0) ||
+      ((uintptr_t)a.w & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = weight_map(a.w, a.C, a.K, &a.wmap);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = smem_bytes(a.ns);
+  e = allow_smem<ANY>(smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((a.n + 32L * R - 1) / (32L * R));
+  cluster_kernel<ANY><<<grid, 32 * W, smem, (cudaStream_t)a.stream>>>(
+      a.wmap, a.o, a.d, a.tmax, a.cbox, a.n_alive, a.sph, a.ns, a.full_phi,
+      a.n, a.C, a.K, a.period, a.t_out, a.i_out);
   return (int)cudaGetLastError();
+}
+
+template <bool ANY>
+int occupancy(int ns) {
+  const int smem = smem_bytes(ns);
+  int blocks = 0;
+  cudaError_t e = allow_smem<ANY>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, cluster_kernel<ANY>, 32 * W, smem);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 }  // namespace
@@ -184,8 +583,9 @@ extern "C" int arendur_closest_hit(const float* o, const float* d,
                                    int n, int C, int K, int period,
                                    float* t_out, int* slot_out,
                                    void* stream) {
-  return launch<false>(o, d, tmax, w, cbox, n_alive, sph, ns, full_phi, n, C,
-                       K, period, t_out, slot_out, stream);
+  return launch<false>(Args{{}, o, d, tmax, w, cbox, n_alive, sph, ns,
+                            full_phi, n, C, K, period, t_out, slot_out,
+                            stream});
 }
 
 extern "C" int arendur_any_hit(const float* o, const float* d,
@@ -194,8 +594,18 @@ extern "C" int arendur_any_hit(const float* o, const float* d,
                                const float* sph, int ns, int full_phi, int n,
                                int C, int K, int period, int* blocked_out,
                                void* stream) {
-  return launch<true>(o, d, tmax, w, cbox, n_alive, sph, ns, full_phi, n, C,
-                      K, period, nullptr, blocked_out, stream);
+  return launch<true>(Args{{}, o, d, tmax, w, cbox, n_alive, sph, ns,
+                           full_phi, n, C, K, period, nullptr, blocked_out,
+                           stream});
 }
 
 extern "C" int arendur_max_spheres() { return MAX_SPHERES; }
+
+// What a launch holds, for the build report: the dynamic shared memory
+// of a block with a table of ns spheres (into *smem), and the blocks an
+// SM holds at once (negative: a cudaError) for the closest (any = 0) or
+// the any hit.
+extern "C" int arendur_isect_occupancy(int any, int ns, int* smem) {
+  *smem = smem_bytes(ns);
+  return any ? occupancy<true>(ns) : occupancy<false>(ns);
+}

@@ -82,9 +82,9 @@ def _n_alive_tensor(n_alive, n: int, device) -> torch.Tensor:
     return n_alive.to(device=device, dtype=torch.int32).reshape(())
 
 
-# the largest sphere table K1 / K2 take: S rows of 96 B beside the
-# 16 KB weight chunk in the 227 KB of shared memory a block can hold
-# (kernels/intersect.cu MAX_SPHERES)
+# the largest sphere table K1 / K2 take: S rows of 96 B in the 227 KB
+# of shared memory a block can hold, 16 KB to spare (kernels/intersect.cu
+# MAX_SPHERES)
 MAX_SPHERES = (232448 - 16 * 1024) // 96
 
 
@@ -94,6 +94,9 @@ def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
     if f16 != 16 or k4 % 4:
         raise ValueError("w_clusters must be [C, 16, 4K]")
     _check(w_clusters, "w_clusters")
+    if w_clusters.data_ptr() % 16:
+        raise ValueError("w_clusters must be 16-byte aligned (the kernels "
+                         "stage it by bulk copies)")
     _check(cbox, "cbox", shape=(c, 8))
     _check(o, "o", shape=(n, 3))
     _check(d, "d", shape=(n, 3))
@@ -111,6 +114,16 @@ def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
                              "(period > 0) is not supported")
     sph = sph_tab.data_ptr() if ns else None
     return n, c, k4 // 4, na, sph, ns
+
+
+def isect_occupancy(any_hit: bool, ns: int):
+    """What a K1 (any_hit False) or K2 launch holds: (dynamic shared
+    memory of a block with a table of ns spheres, blocks an SM holds at
+    once; negative: a cudaError)."""
+    smem = ctypes.c_int()
+    blocks = build.load().arendur_isect_occupancy(int(any_hit), ns,
+                                                  ctypes.byref(smem))
+    return smem.value, blocks
 
 
 def closest_hit(w_clusters, cbox, o, d, tmax, n_alive=None,

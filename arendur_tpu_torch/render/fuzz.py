@@ -30,6 +30,12 @@ rays).
 ``train_step_bounces`` records the bounce shade's inputs and output
 cotangents in one train step: the bounce-shade backward's real inputs.
 
+``tie_set`` builds the intersect kernels' tie cases (equal t across
+slots, clusters and spheres, rays past n_alive) with exact arithmetic.
+
+``wave_queries`` records the closest-hit and any-hit queries of one
+wave (K1 / K2's main-path inputs) and their results.
+
 ``spread_materials`` copies each material row of a scene several times
 and spreads the triangles and spheres over the copies: the tables grow
 past 32 rows (the JAX package's fused-kernel cap) and the image stays
@@ -205,6 +211,139 @@ def fuzz_split_inputs(ltab, mtab, stab, seed: int = 0, n: int = 2048,
                                 x[:, 52:54], x[:, 54:56], x[:, 56], 0)
     xs[cb.S_BOUNCE] = x[:, 57]
     return xh, xs, x.T.contiguous()
+
+
+def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
+    """The closest-hit and any-hit queries of wave `wave` of a render
+    (render/integrator.py trace_wave, as render() cuts the waves of
+    config.wave_size rays) through ops, a WaveOps whose closest_hit /
+    any_hit are wrapped to record them: per query, in call order (a
+    depth-8 fused wave: 8 closest, 8 any and the final closest), a dict
+    of "kind" ("closest" or "any"), the arguments "o", "d", "tmax",
+    "n_alive" (a device scalar or None), "period", "sph_tab" and
+    "full_phi", and the result: "t" and "slot", or "blocked"."""
+    import torch
+    from arendur_tpu_torch.render import integrator as integ
+    from arendur_tpu_torch.sampling import sampler as smp
+    queries = []
+
+    def record(kind, fn):
+        def call(w_clusters, cbox, o, d, tmax, n_alive=None, period=0,
+                 sph_tab=None, full_phi=False):
+            out = fn(w_clusters, cbox, o, d, tmax, n_alive, period, sph_tab,
+                     full_phi)
+            q = dict(kind=kind, o=o.detach().clone(), d=d.detach().clone(),
+                     tmax=tmax.detach().clone(),
+                     n_alive=None if n_alive is None else n_alive.clone(),
+                     period=period, sph_tab=sph_tab, full_phi=full_phi)
+            if kind == "closest":
+                q.update(t=out[0].clone(), slot=out[1].clone())
+            else:
+                q.update(blocked=out.clone())
+            queries.append(q)
+            return out
+        return call
+
+    wops = dataclasses.replace(ops, closest_hit=record("closest",
+                                                       ops.closest_hit),
+                               any_hit=record("any", ops.any_hit))
+    w = film_cfg.resolution[0]
+    ray_idx = wave * config.wave_size + torch.arange(
+        config.wave_size, dtype=torch.int64, device=ds.device)
+    pid = ray_idx // config.spp
+    pxy = torch.stack([(pid % w).to(torch.float32),
+                       (pid // w).to(torch.float32)], -1)
+    with torch.no_grad():
+        integ.trace_wave(ds, camera, config, pxy, pid, ray_idx % config.spp,
+                         smp.make_base_key(config.seed), ops=wops)
+    return queries
+
+
+TIE_K, TIE_C = 64, 3
+
+
+def _sphere_row(center, radius):
+    """A sphere.kernel_table row of a full sphere at center."""
+    m = np.eye(4, dtype=np.float32)
+    m[3, :3] = -np.asarray(center, np.float32)
+    return np.concatenate([m.reshape(16), [radius, -radius, radius,
+                                           2 * np.pi, 0, 0, 0, 0]])
+
+
+def tie_set():
+    """The intersect kernels' tie set, NumPy, with exact arithmetic on
+    its crafted rays (small integer and half-integer coordinates, axis
+    directions): 3 clusters of K = 64 slots (a backdrop triangle in each
+    holds every crafted ray's x, y strictly inside the cluster boxes, so
+    no slab test decides a tie) with a triangle duplicated within a
+    cluster and across two, a quad split along its diagonal within a
+    cluster and across two, a triangle at a sphere's pole; a table of
+    three spheres, the last two equal; each crafted ray with tmax inf,
+    at its first hit's t and past it, 64 random rays, and 16 rays past
+    n_alive.  Returns (w [3,16,256], cbox [3,8], ktab [3,24], o, d,
+    tmax, n_alive, the slot expected with the table, the slot expected
+    without; None for the random rays)."""
+    from arendur_tpu_torch.shapes import mxu_intersect as mxi
+    tris = np.zeros((TIE_C * TIE_K, 3, 3), np.float32)
+    quad = lambda x, y, z: ([(x, y, z), (x + 2, y, z), (x + 2, y + 2, z)],
+                            [(x, y, z), (x + 2, y + 2, z), (x, y + 2, z)])
+    a = [(-1, -1, 4), (3, -1, 4), (-1, 3, 4)]
+    tris[5] = tris[7] = tris[TIE_K + 3] = a          # duplicates of A
+    tris[10], tris[11] = quad(10, 0, 6)              # diagonal in cluster 0
+    tris[12] = [(19, -1, 9), (23, -1, 9), (19, 3, 9)]  # at sphere 0's pole
+    tris[13], tris[TIE_K + 6] = quad(40, 0, 8)       # split across clusters
+    tris[2 * TIE_K + 9] = [(28, -2, 12), (33, -2, 12), (28, 3, 12)]
+    for c in range(TIE_C):
+        tris[c * TIE_K + 60] = [(-100, -100, 50), (300, -100, 50),
+                                (-100, 300, 50)]
+    w = mxi.pack_chunks(tris[:, 0], tris[:, 1], tris[:, 2], chunk=TIE_K)
+    cbox = np.zeros((TIE_C, 8), np.float32)
+    for c in range(TIE_C):
+        pts = tris[c * TIE_K:(c + 1) * TIE_K]
+        pts = pts[np.abs(pts).sum((1, 2)) > 0].reshape(-1, 3)
+        cbox[c, :3], cbox[c, 3:6] = pts.min(0), pts.max(0)
+    ktab = np.stack([_sphere_row((20, 0, 10), 1), _sphere_row((30, 0, 10), 1),
+                     _sphere_row((30, 0, 10), 1)]).astype(np.float32)
+    up, down = (0, 0, 1), (0, 0, -1)
+    # (origin, direction, (t, slot) with the table, (t, slot) without;
+    # t None: a miss); each ray with tmax inf, at the first hit's t and
+    # past it
+    geo = [((0, 0, 0), up, (4.0, 5), (4.0, 5)),         # A thrice
+           ((11, 1, 0), up, (6.0, 10), (6.0, 10)),      # on the diagonal
+           ((12, 2, 0), up, (6.0, 10), (6.0, 10)),      # the shared vertex
+           ((10.5, 1.5, 0), up, (6.0, 11), (6.0, 11)),  # the upper half
+           ((20, 0, 0), up, (9.0, -2), (9.0, 12)),      # sphere 0 = slot 12
+           ((30, 0, 0), up, (9.0, -3), (12.0, 2 * TIE_K + 9)),  # 1 = 2
+           ((41, 1, 0), up, (8.0, 13), (8.0, 13)),      # across clusters
+           ((40.5, 1.5, 0), up, (8.0, TIE_K + 6), (8.0, TIE_K + 6)),
+           ((5, 5, 0), up, (50.0, 60), (50.0, 60)),     # the backdrops
+           ((0, 0, 0), down, (None, -1), (None, -1))]   # a miss
+    o, d, tmax, want, want_ns = [], [], [], [], []
+    for org, dr, (t, s_tab), (t_ns, s_ns) in geo:
+        for tm in ((np.inf,) if t is None else (np.inf, t, t + 0.5)):
+            o.append(org)
+            d.append(dr)
+            tmax.append(tm)
+            want.append(s_tab if t is not None and t < tm else -1)
+            want_ns.append(s_ns if t_ns is not None and t_ns < tm else -1)
+    rng = np.random.default_rng(3)
+    k = 64
+    o += list(rng.uniform([-5, -5, 0], [45, 5, 3], (k, 3)))
+    dr = rng.normal(size=(k, 3)) + [0, 0, 2]
+    d += list(dr / np.linalg.norm(dr, axis=-1, keepdims=True))
+    tmax += list(np.where(np.arange(k) % 2, np.inf, rng.uniform(2, 20, k)))
+    want += [None] * k
+    want_ns += [None] * k
+    n_alive = len(o)
+    # rays past n_alive: copies of the first rays
+    o += o[:16]
+    d += d[:16]
+    tmax += tmax[:16]
+    want += [-1] * 16
+    want_ns += [-1] * 16
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return (w, cbox, ktab, f32(o), f32(d), f32(tmax), n_alive, want,
+            want_ns)
 
 
 def checker_image(size: int = 256, cell: int = 16) -> np.ndarray:

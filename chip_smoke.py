@@ -4,10 +4,20 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit) and the CUDA version;
-  2. the build of the hand-written kernels, from the sources here;
+  2. the build of the hand-written kernels, from the sources here, with
+     ptxas's registers, stack, spills and shared memory per kernel, and
+     K1 / K2's dynamic shared memory and blocks per SM with cb.json's
+     sphere table;
   3. closest hit (K1) and shadow any hit (K2) against their plain
      PyTorch versions on a 65,536-ray Cornell camera wave, random
-     secondary rays with n_alive < N, and real shadow rays;
+     secondary rays with n_alive < N, and real shadow rays, and on the
+     9 closest-hit and 8 any-hit queries of one 256x256, 16 spp,
+     depth-8 fused wave (render/fuzz.py wave_queries, with the sphere
+     table): per set, the share of lanes whose slot / blocked equal the
+     plain version's (every lane is the aim, the gate K1_K2_GATE), t
+     where the slots agree, and a second launch equal to the bit; per
+     wave query, K1's / K2's ms by CUDA events and on the card (the
+     profiler), the live rays and the bound;
   4. the bounce shade (K3) against its plain version on the first
      bounce of a real wave and on fuzz input over the Cornell tables
      and a table set that reaches every light and material branch;
@@ -83,7 +93,11 @@ Phases, one line each:
      (a partial sphere), each with the phi clip and without; their
      times on the main path's inputs (the camera wave, its shadow rays)
      by CUDA events on inputs rotated past the L2 and on the card by
-     the profiler; the C entry refusing a table past the shared memory.
+     the profiler; the C entry refusing a table past the shared memory;
+     the tie set (render/fuzz.py tie_set: equal t across slots,
+     clusters and spheres, rays past n_alive, period > 0 without
+     spheres) against the plain versions on every lane, its winners
+     asserted.
 In phases 6, 8, 10 and 12 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
@@ -95,12 +109,15 @@ with a sphere table counted apart as well, K5 and K6
 in phase 10's textured render, K8 and K9 in phase 12's composed
 render, K7 (K3 on the wide tables) in phase 13's render; its ms and
 plain_ms, all by CUDA events, K4's the mean per call over phase 7's
-eight train bounces; and its bound: the larger of the bytes it must
+eight train bounces, K1's and K2's the mean per launch over phase 3's
+fused-wave queries; and its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations this run's inputs need over
 67 TFLOP/s of f32, the H100 SXM's data-sheet peaks (K4's: the bytes of
 its lanes, all columns of a listed lane's input but only the gate
 columns of the others', and of its tables, the mean over the same
-bounces); a row whose ms is below its bound fails the run), the
+bounces, K1's / K2's the mean over the same queries of the triangles
+of each cluster a live ray enters before its result's t (K2: up to the
+ray's first occluder) and the plain sphere branch's operations); a row whose ms is below its bound fails the run), the
 card line, and the result line.
 Any failure raises; the exit code is then non-zero and no result line
 is printed.  ``--out DIR`` also writes the measurements
@@ -348,9 +365,8 @@ def bound_ms(nbytes, nops):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def slab_pairs(cbox, o, d, bound):
-    """(ray, cluster) pairs whose box a ray enters before `bound`: the
-    clusters K1 / K2 must test, each of K triangles."""
+def slab_mask(cbox, o, d, bound):
+    """[N, C]: whether ray n enters cluster c's box before `bound`."""
     import torch
     inv = torch.where(d.abs() < 1e-30,
                       torch.where(d < 0, -1e30, 1e30), 1.0 / d)
@@ -358,8 +374,129 @@ def slab_pairs(cbox, o, d, bound):
     t1 = (cbox[None, :, 3:6] - o[:, None]) * inv[:, None]
     tn = torch.minimum(t0, t1).amax(-1)
     tf = torch.maximum(t0, t1).amin(-1)
-    ok = (tn <= tf) & (tf >= 0) & (tn <= bound[:, None])
-    return int(ok.sum())
+    return (tn <= tf) & (tf >= 0) & (tn <= bound[:, None])
+
+
+def slab_pairs(cbox, o, d, bound):
+    """(ray, cluster) pairs whose box a ray enters before `bound`: the
+    clusters K1 must test, each of K triangles."""
+    return int(slab_mask(cbox, o, d, bound).sum())
+
+
+def any_hit_pairs(cw, cbox, o, d, tmax):
+    """(ray, triangle) pairs an any hit needs, in the one-ray loop's
+    order (the clusters a ray enters before tmax ascending, each in
+    ascending slot order): every triangle up to and including the ray's
+    first occluder, all of every entered cluster where none occludes.
+    The occluders are the plain determinant products'
+    (shapes/mxu_intersect.py)."""
+    import torch
+    from arendur_tpu_torch.shapes import mxu_intersect as mxi
+    k = cw.shape[2] // 4
+    entered = slab_mask(cbox, o, d, tmax)
+    feats, teps = mxi.ray_features(o, d), mxi.ray_teps(o)
+    lanes = torch.arange(k, device=o.device)
+    # per cluster: the triangles swept up to the first occluder, or K
+    upto = torch.empty(entered.shape, dtype=torch.int64, device=o.device)
+    for c in range(cw.shape[0]):
+        quad = feats @ cw[c]
+        hit = mxi._accept(quad[:, :k], quad[:, k:2 * k], quad[:, 2 * k:3 * k],
+                          quad[:, 3 * k:], tmax, teps)[0]
+        upto[:, c] = torch.where(hit, lanes, k).amin(1) + 1
+    stop = entered & (upto <= k)
+    # the clusters before the first entered one that occludes, and that one
+    before = (stop.cumsum(1) - stop.long()) == 0
+    need = torch.where(stop, upto, k) * (entered & before)
+    return int(need.sum())
+
+
+def wave_query_work(ds, q, result):
+    """(bytes, operations) that one recorded K1 / K2 query
+    (render/fuzz.py wave_queries) needs: each live ray's o, d and tmax
+    read, the outputs written, the tables read; TRI_FLOPS per triangle
+    of each cluster a live ray enters before its result's t (closest
+    hit), or per triangle up to the ray's first occluder (any hit:
+    any_hit_pairs; none for rays a sphere blocks), and the plain sphere
+    branch's operations on the live rays."""
+    import torch
+    from arendur_tpu_torch.shapes import sphere as sph
+    n = q["o"].shape[0]
+    na = n if q["n_alive"] is None else int(q["n_alive"])
+    o, d, tm = q["o"][:na], q["d"][:na], q["tmax"][:na]
+    tab = q["sph_tab"]
+    nbytes = 4 * (na * 7 + n * (2 if q["kind"] == "closest" else 1)
+                  + ds.cw.numel() + ds.cbox.numel()
+                  + (0 if tab is None else tab.numel()))
+    sphere = lambda: sph.sphere_best(tab, o, d, tm, q["full_phi"])  # noqa
+    nops = 0 if tab is None else plain_ops(sphere)
+    if q["kind"] == "closest":
+        return nbytes, nops + TRI_FLOPS * (ds.cw.shape[2] // 4) * slab_pairs(
+            ds.cbox, o, d, result[0][:na])
+    free = torch.ones(na, dtype=torch.bool, device=o.device) \
+        if tab is None else sphere()[1] == -1
+    return nbytes, nops + TRI_FLOPS * any_hit_pairs(
+        ds.cw, ds.cbox, o[free], d[free], tm[free])
+
+
+def query_call(fn, ds, q):
+    """fn (a closest_hit / any_hit entry) on the recorded query q."""
+    args = (ds.cw, ds.cbox, q["o"], q["d"], q["tmax"], q["n_alive"],
+            q["period"], q["sph_tab"], q["full_phi"])
+    return lambda: fn(*args)
+
+
+def results(out):
+    """A K1 / K2 entry's result as a tuple of tensors."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def wave_query_rows(ds, queries):
+    """K1 / K2 on recorded wave queries (render/fuzz.py wave_queries):
+    per query the share of lanes whose slot / blocked equal the plain
+    version's, whether a second launch ("relaunch") and the result
+    recorded with the query ("recorded") are equal to the first to the
+    bit, the largest t error where the slots agree, the ms by CUDA
+    events and on the card, the plain version's ms, the live rays, and
+    the bytes, operations and bound of the query.  Raises where a
+    query's lanes fall below K1_K2_GATE, a relaunch differs or t leaves
+    T_RTOL.  Returns (rows, each query's kernel results)."""
+    import torch
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    rows, outs = [], []
+    for q in queries:
+        closest = q["kind"] == "closest"
+        call = query_call(ops.closest_hit if closest else ops.any_hit, ds, q)
+        plain = query_call(ci.intersect_clusters_reference if closest
+                           else ci.occluded_clusters_reference, ds, q)
+        got, ref = results(call()), results(plain())
+        rec = (q["t"], q["slot"]) if closest else (q["blocked"],)
+        relaunch = all(torch.equal(a, b)
+                       for a, b in zip(got, results(call())))
+        recorded = all(torch.equal(a, b) for a, b in zip(got, rec))
+        lanes = (got[-1] == ref[-1]).float().mean().item()
+        err = 0.0
+        if closest:
+            hit = (got[1] == ref[1]) & (got[1] >= 0)
+            if hit.any():
+                err = (got[0] - ref[0]).abs()[hit].max().item()
+                trel = ((got[0] - ref[0]).abs()[hit]
+                        / ref[0].abs()[hit]).max().item()
+                if trel > T_RTOL:
+                    raise AssertionError(f"K1 wave query: t rel {trel}")
+        n_q = q["o"].shape[0]
+        row = dict(kind=q["kind"], live=n_q if q["n_alive"] is None
+                   else int(q["n_alive"]), lanes_equal=lanes,
+                   relaunch=relaunch, recorded=recorded, max_abs_err=err,
+                   ms=time_ms(call), plain_ms=time_ms(plain, iters=1))
+        row["device_ms"], row["queued_ms"] = kernel_ms(call, "cluster_kernel")
+        row["bytes"], row["ops"] = wave_query_work(ds, q, got)
+        row["bound_ms"] = bound_ms(row["bytes"], row["ops"])[0]
+        rows.append(row)
+        outs.append(got)
+        if lanes < K1_K2_GATE or not relaunch:
+            raise AssertionError(f"K1 / K2 on a wave query: {row}")
+    return rows, outs
 
 
 def ptxas_report(logs):
@@ -497,16 +634,30 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build(report=True)
     build.load()
+    build_s = time.perf_counter() - t0
     ptxas = ptxas_report([log for _, log in built])
-    _say(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
-         f"({', '.join(os.path.relpath(p, REPO) for p, _ in built)}); "
-         + " | ".join(f"{k}: {v}" for k, v in ptxas.items()))
 
     cb_json = os.path.join(REPO, "examples/cornellbox/cb.json")
     scene, camera, film_cfg, config, _ = scenedesc.parse_scene(
         cb_json, spp_override=16, resolution_override=(256, 256))
     config = dataclasses.replace(config, max_depth=8, wave_size=1 << 16)
     ds = sc.DeviceScene.build(scene, dev)
+    # K1 / K2 (32 rays a block: one a thread, 8 warps): dynamic shared
+    # memory of a block and blocks per SM with cb.json's sphere table and
+    # with a table at the cap
+    occ = {}
+    for ns in (ds.ktab.shape[0], ops.MAX_SPHERES):
+        for kind in ("K1", "K2"):
+            occ[f"{kind} {ns} spheres"] = ops.isect_occupancy(kind == "K2",
+                                                              ns)
+    if min(blocks for _, blocks in occ.values()) < 1:
+        raise AssertionError(f"K1 / K2: no block fits an SM: {occ}")
+    _say(f"[2] kernels built in {build_s:.1f} s "
+         f"({', '.join(os.path.relpath(p, REPO) for p, _ in built)}); "
+         + " | ".join(f"{k}: {v}" for k, v in ptxas.items())
+         + " | K1 / K2 blocks of 8 warps, one ray a thread (dynamic shared "
+         "memory B, blocks per SM): " + ", ".join(
+             f"{k} {v}" for k, v in occ.items()))
     n = 1 << 16
     rng = np.random.default_rng(0)
 
@@ -555,9 +706,7 @@ def main(argv=None):
     k1_bytes = (4 * n * (7 + 2) + 4 * ds.cw.numel() + 4 * ds.cbox.numel())
     k1_ops = TRI_FLOPS * ds.cw.shape[2] // 4 * slab_pairs(ds.cbox, o_cam,
                                                           d_cam, t_cam)
-    kern_rows["closest_hit"] = dict(
-        max_abs_err=max(r[3] for r in k1), ms=k1_ms, plain_ms=k1_plain,
-        bound=bound_ms(k1_bytes, k1_ops))
+    k1_bound = bound_ms(k1_bytes, k1_ops)
 
     # real shadow rays: the first bounce of the wave, on the plain path
     carry = integ.initial_carry(o_cam, d_cam, ws.keys)
@@ -588,16 +737,51 @@ def main(argv=None):
     k2_plain = time_ms(lambda: ci.occluded_clusters_reference(
         ds.cw, ds.cbox, *sh))
     k2_bytes = 4 * n * (7 + 1) + 4 * ds.cw.numel() + 4 * ds.cbox.numel()
-    k2_ops = TRI_FLOPS * ds.cw.shape[2] // 4 * slab_pairs(ds.cbox, *sh)
-    kern_rows["any_hit"] = dict(
-        max_abs_err=max(float(r[1] < 1.0) for r in k2), ms=k2_ms,
-        plain_ms=k2_plain, bound=bound_ms(k2_bytes, k2_ops))
+    k2_ops = TRI_FLOPS * any_hit_pairs(ds.cw, ds.cbox, *sh)
+    k2_bound = bound_ms(k2_bytes, k2_ops)
+    # two launches equal to the bit
+    twice = [all(torch.equal(a, b) for a, b in zip(results(f()),
+                                                  results(f())))
+             for f in (lambda: ops.closest_hit(ds.cw, ds.cbox, o_cam, d_cam,
+                                               tinf),
+                       lambda: ops.any_hit(ds.cw, ds.cbox, *sh))]
+    if not all(twice):
+        raise AssertionError(f"K1 / K2: two launches differ {twice}")
+
+    # the queries of one fused wave (K1 / K2's main-path inputs, with the
+    # sphere table): every lane against the plain version, a second
+    # launch, and per query the time by events and on the card and the
+    # bound.  K1's and K2's rows of the kernels line are their means.
+    wave_q, _ = wave_query_rows(ds, fuzz.wave_queries(
+        ds, camera, film_cfg, config, integ.KERNEL_OPS))
+    if not all(r["recorded"] for r in wave_q):
+        raise AssertionError(f"K1 / K2: a wave query's relaunch differs from "
+                             f"the wave's own launch: {wave_q}")
+    for name, kind in (("closest_hit", "closest"), ("any_hit", "any")):
+        rows_k = [r for r in wave_q if r["kind"] == kind]
+        mean = lambda key: sum(r[key] for r in rows_k) / len(rows_k)  # noqa
+        kern_rows[name] = dict(
+            max_abs_err=max(r["max_abs_err"] if kind == "closest"
+                            else 1.0 - r["lanes_equal"] for r in rows_k),
+            ms=mean("ms"), plain_ms=mean("plain_ms"),
+            bound=bound_ms(mean("bytes"), mean("ops")))
     _say("[3] K1 " + "; ".join(
         f"{nm}: slots agree {fr:.6f}, max t rel {tr:.2e}, hit {h:.3f}"
         for nm, fr, tr, _, h in k1) + f"; {k1_ms:.3f} ms vs plain "
-        f"{k1_plain:.3f} ms | K2 " + "; ".join(
+        f"{k1_plain:.3f} ms (bound {k1_bound[0]:.4f} ms) | K2 " + "; ".join(
         f"{nm}: agree {fr:.6f}, blocked {b:.3f}" for nm, fr, b in k2)
-        + f"; {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms")
+        + f"; {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms (bound "
+        f"{k2_bound[0]:.4f} ms); two launches equal {twice} | one fused "
+        f"wave's queries (256x256 16spp depth 8, wave 0, sphere table): "
+        + "; ".join(
+            f"{'K1' if r['kind'] == 'closest' else 'K2'} live {r['live']}: "
+            f"lanes equal to plain {r['lanes_equal']:.6f}, relaunch and "
+            f"wave equal {r['relaunch'] and r['recorded']}, {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}, queued {r['queued_ms']:.4f}) vs bound "
+            f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms"
+            for r in wave_q)
+        + f"; K1 + K2 device ms over the wave's {len(wave_q)} queries "
+        f"{sum(r['device_ms'] for r in wave_q):.3f} ({card})")
 
     # phase 4: K3
     b2 = fuzz.all_branches_scene(sc.SceneBuilder())
@@ -1305,6 +1489,41 @@ def main(argv=None):
             if split > tie or not t_eq or not dead or fr < K1_K2_GATE \
                     or bfr < K1_K2_GATE:
                 raise AssertionError(f"K1 / K2 sphere branch: {k14[-1]}")
+    # the tie set: every lane against the plain version, the winners
+    w_ts, cbox_ts, ktab_ts, o_ts, d_ts, tm_ts, na_ts, want_ts, want_nts = \
+        fuzz.tie_set()
+    on = lambda x: torch.tensor(x, device=dev)  # noqa: E731
+    n_ts = o_ts.shape[0]
+    crafted = torch.tensor([x is not None for x in want_ts], device=dev)
+    tie = {}
+    for nm, args, kw, want in (
+            ("spheres", (on(w_ts), on(cbox_ts), on(o_ts), on(d_ts),
+                         on(tm_ts), torch.tensor(na_ts, device=dev)),
+             dict(sph_tab=on(ktab_ts)), want_ts),
+            ("no table", (on(w_ts), on(cbox_ts), on(o_ts), on(d_ts),
+                          on(tm_ts), torch.tensor(na_ts, device=dev)),
+             {}, want_nts),
+            ("period", (on(w_ts), on(cbox_ts),
+                        *(on(np.concatenate([x, x]))
+                          for x in (o_ts, d_ts, tm_ts)),
+                        torch.tensor(na_ts, device=dev)),
+             dict(period=n_ts), want_nts + want_nts)):
+        t_k, s_k = ci.intersect_clusters(*args, **kw)
+        t_p, s_p = ci.intersect_clusters_reference(*args, **kw)
+        b_k = ci.occluded_clusters(*args, **kw)
+        b_p = ci.occluded_clusters_reference(*args, **kw)
+        exact = crafted.repeat(s_k.shape[0] // n_ts)
+        winners = [int(s_k[i]) == x for i, x in enumerate(want)
+                   if x is not None]
+        tie[nm] = dict(
+            slots_equal=bool(torch.equal(s_k, s_p)),
+            blocked_equal=bool(torch.equal(b_k, b_p)),
+            t_equal_crafted=bool(torch.equal(t_k[exact], t_p[exact])),
+            t_close=bool(torch.allclose(t_k, t_p, rtol=T_RTOL)),
+            winners=sum(winners), cases=len(winners))
+        if not all(v for k, v in tie[nm].items() if k != "cases") \
+                or not all(winners):
+            raise AssertionError(f"K1 / K2 tie set, {nm}: {tie[nm]}")
     # times on the main path's inputs: the camera wave and its shadow
     # rays against cb.json's spheres
     skw = dict(sph_tab=ds.ktab, full_phi=ds.full_phi)
@@ -1340,16 +1559,17 @@ def main(argv=None):
             or cam_agree[0] < K1_K2_GATE or sh_agree < K1_K2_GATE:
         raise AssertionError(f"K1 / K2 with spheres on the main path's "
                              f"inputs: {cam_agree}, {sh_agree}")
-    # operations: the clusters the rays enter before their bound, and
-    # the plain sphere branch's operations on the same rays
+    # operations: the clusters the rays enter before their bound (K2:
+    # up to each ray's first occluder), and the plain sphere branch's
+    # operations on the same rays
     kk = ds.cw.shape[2] // 4
     sph_bytes = 4 * ds.ktab.numel()
     k1s_ops = TRI_FLOPS * kk * slab_pairs(ds.cbox, o_cam, d_cam, t_k) \
         + plain_ops(lambda: sph.sphere_best(ds.ktab, o_cam, d_cam, tinf,
                                             ds.full_phi))
     blk_s = sph.sphere_best(ds.ktab, *sh, ds.full_phi)[1] != -1
-    k2s_ops = TRI_FLOPS * kk * slab_pairs(
-        ds.cbox, sh[0][~blk_s], sh[1][~blk_s], sh[2][~blk_s]) \
+    k2s_ops = TRI_FLOPS * any_hit_pairs(
+        ds.cw, ds.cbox, sh[0][~blk_s], sh[1][~blk_s], sh[2][~blk_s]) \
         + plain_ops(lambda: sph.sphere_best(ds.ktab, *sh, ds.full_phi))
     kern_rows["closest_hit_spheres"] = dict(
         max_abs_err=max(k14_err, cam_agree[3]), ms=k1s_ms,
@@ -1381,7 +1601,12 @@ def main(argv=None):
         f"ms, K2 {k2s_dev:.4f} / {k2s_q:.4f} ms vs {k2n_dev:.4f} / "
         f"{k2n_q:.4f} ms; plain K1 {k1s_plain:.3f} ms, K2 "
         f"{k2s_plain:.3f} ms; table past the cap refused (cudaError "
-        f"{refused}), cap {ops.MAX_SPHERES} spheres")
+        f"{refused}), cap {ops.MAX_SPHERES} spheres | tie set ("
+        f"{n_ts} rays): " + "; ".join(
+            f"{k}: slots equal {v['slots_equal']}, blocked equal "
+            f"{v['blocked_equal']}, t equal on the crafted rays "
+            f"{v['t_equal_crafted']}, winners {v['winners']} of {v['cases']}"
+            for k, v in tie.items()))
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -1458,7 +1683,9 @@ def main(argv=None):
                            composed_wave_kernel_s=cown,
                            k7=k7, k7_device_ms=k7_dev, k7_queued_ms=k7_q, k7_plain_ops=k7_ops,
                            wide_launches=wide_launches, wide_dmax=dwide,
-                           k14=k14, k14_times=k14_times),
+                           k14=k14, k14_times=k14_times, tie_set=tie,
+                           wave_queries=wave_q, k1_k2_twice=twice,
+                           occupancy=occ),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

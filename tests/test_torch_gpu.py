@@ -138,6 +138,26 @@ def test_sphere_branch_kernels_match_plain(card, which, full_phi):
 
 
 @pytest.mark.gpu
+def test_intersect_tie_set_on_card(card):
+    """K1 / K2 on render/fuzz.py's tie set: slots and blocked flags equal
+    the plain versions' on every lane, the winners of the crafted ties
+    (lowest slot, sphere over triangle, lowest sphere), misses past
+    n_alive."""
+    w, cbox, ktab, o, d, tmax, na, want, _ = fuzz.tie_set()
+    on = lambda x: torch.tensor(x, device=card)  # noqa: E731
+    args = (on(w), on(cbox), on(o), on(d), on(tmax), on(na))
+    kw = dict(sph_tab=on(ktab))
+    t_p, s_p = ci.intersect_clusters_reference(*args, **kw)
+    b_p = ci.occluded_clusters_reference(*args, **kw)
+    t, s = ops.closest_hit(*args, **kw)
+    b = ops.any_hit(*args, **kw)
+    assert torch.equal(s, s_p) and torch.equal(b, b_p)
+    crafted = [i for i, x in enumerate(want) if x is not None]
+    assert [int(s[i]) for i in crafted] == [want[i] for i in crafted]
+    assert torch.equal(t[crafted], t_p[crafted])
+
+
+@pytest.mark.gpu
 def test_sphere_table_limits(card):
     """A table past the shared memory or with batched instancing is
     refused; one at the cap (past the 48 KB default) launches."""
