@@ -121,6 +121,8 @@ def load() -> _Kernels:
     """Build (if needed) and load the kernel libraries, once per
     process."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = _Kernels([ctypes.CDLL(p) for p, _ in build()])
@@ -136,16 +138,20 @@ def load() -> _Kernels:
             lib.arendur_isect_occupancy.argtypes = [I, I, P]
             lib.arendur_isect_occupancy.restype = I
             lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, L,
-                                                 P, P, P]
+                                                 P, P, P, P]
             lib.arendur_bounce_shade.restype = I
+            lib.arendur_bounce_shade_occupancy.argtypes = [I, I, I, I, P]
+            lib.arendur_bounce_shade_occupancy.restype = I
             lib.arendur_bounce_shade_bwd.argtypes = [
-                P, P, P, I, I, P, I, P, I, L, P, P, L, I, P, P, P, P, P, P,
-                P, P, P, P]
+                P, P, P, I, I, P, I, P, I, L, P, P, P, L, I, P, P, P, P, P,
+                P, P, P, P, P]
             lib.arendur_bounce_shade_bwd.restype = I
             lib.arendur_hit_shade.argtypes = [P, P, I, L, P, P]
             lib.arendur_hit_shade.restype = I
-            lib.arendur_shade_split.argtypes = [P, P, I, I, L, P, P, P]
+            lib.arendur_shade_split.argtypes = [P, P, I, I, L, P, P, P, P]
             lib.arendur_shade_split.restype = I
+            lib.arendur_shade_split_occupancy.argtypes = [I, I, P]
+            lib.arendur_shade_split_occupancy.restype = I
             for name in ("arendur_slot_sample", "arendur_slot_eval_pdf"):
                 getattr(lib, name).argtypes = [P, L, I, P, P, P]
                 getattr(lib, name).restype = I

@@ -12,13 +12,36 @@
 // once per block into shared memory and read by direct row index (no
 // row cap: the tables only have to fit the 227 KB a block may use).
 //
-// Bound: per ray the kernel moves 90 floats (360 B) and spends a few
-// thousand f32 operations plus transcendentals, so at N = 65,536 it is
-// bound by latency and issue rate of a long per-thread program, not by
-// memory; the design keeps every intermediate in registers and pays
-// for divergence between material and light branches.  The plain
-// PyTorch version (render/cbounce.py::cbody_reference) materialises
-// every intermediate as a [N] tensor instead.
+// Bound: per live lane the kernel moves 90 floats (360 B), per lane
+// past the live count 41 (the 9 carried inputs and the 32 outputs), so
+// a full first bounce of 65,536 lanes moves 23.6 MB, 7.0 us at the HBM
+// rate.  What sets its time instead is the issue and latency of one
+// long per-lane program (a few thousand instructions, transcendentals
+// and IEEE divisions among them, with material and light branches that
+// diverge within a warp).  The design:
+//   * only the live lanes run the body: the wave is compacted alive
+//     first, and the kernel reads the live count n_alive on the device,
+//     so a block wholly past it skips the table staging and writes the
+//     contract's columns (cbounce.cuh dead_lane), and the one block that
+//     straddles it branches per warp;
+//   * no arrays in local memory: the body indexes its slot arrays only
+//     by compile-time constants, reads each input column where it uses
+//     it and writes each output column as it is known (cbounce.cuh Cols,
+//     ColumnOut);
+//   * each table row sits at an odd pitch in shared memory, so lanes of
+//     a warp that read different rows of a table read different banks;
+//   * __launch_bounds__(BLOCK, MIN_BLOCKS) caps the registers at the
+//     128 that 4 blocks of 128 threads an SM leave.  The body wants
+//     ~142 and spills ~70 B a thread at 128, but the 16 warps an SM
+//     hide more latency than the spills cost: the shapes measured
+//     (tools/shade_shapes.py, PERF.md §6) are no faster with fewer
+//     registers and more warps, nor with more registers and fewer.
+// Divergence sets most of the time after the first bounce: a warp runs
+// every arm of the material, light and sample branches one of its
+// lanes takes (PERF.md §6: the same lanes sorted by branch class take
+// about half the time); the lanes are shaded in the wave's order.
+// The plain PyTorch version (render/cbounce.py::cbody_reference)
+// materialises every intermediate as a [N] tensor instead.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -27,33 +50,47 @@
 namespace {
 
 constexpr int BLOCK = 128;
+constexpr int MIN_BLOCKS = 4;
+constexpr int MP = cshade::MTAB_PITCH, SP = cshade::STAB_PITCH;
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     bounce_shade_kernel(const float* __restrict__ xt,
                         const float* __restrict__ ltab, int nl, int cl,
                         const float* __restrict__ mtab, int nm,
                         const float* __restrict__ stab, int ns, long n,
+                        const int* __restrict__ n_alive,
                         cbounce::ShadeCfg cfg, float* __restrict__ out) {
+  using namespace cshade;
+  const long na = live_count(n_alive, n);
+  const long lane = (long)blockIdx.x * BLOCK + threadIdx.x;
+  if ((long)blockIdx.x * BLOCK >= na) {  // the whole block is past it
+    if (lane < n)
+      cbounce::dead_lane(xt + lane, n, C_BETA, C_L, C_SPECULAR, C_SEL_PREV,
+                         C_WB_PREV, out + lane);
+    return;
+  }
   extern __shared__ float smem[];
-  const int nlt = nl * cl, nmt = nm * 16, nst = ns * 24;
+  const int lp = odd_pitch(cl);
   float* sl = smem;
-  float* sm = sl + nlt;
-  float* ss = sm + nmt;
-  for (int i = threadIdx.x; i < nlt; i += blockDim.x) sl[i] = ltab[i];
-  for (int i = threadIdx.x; i < nmt; i += blockDim.x) sm[i] = mtab[i];
-  for (int i = threadIdx.x; i < nst; i += blockDim.x) ss[i] = stab[i];
+  float* sm = sl + nl * lp;
+  float* ss = sm + nm * MP;
+  stage_rows(ltab, nl, cl, lp, sl);
+  stage_rows(mtab, nm, 16, MP, sm);
+  stage_rows(stab, ns, 24, SP, ss);
   __syncthreads();
-  long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  cbounce::Tables tb;
-  tb.ltab = sl;
-  tb.nl = nl;
-  tb.cl = cl;
-  tb.mtab = sm;
-  tb.nm = nm;
-  tb.stab = ss;
-  tb.ns = ns;
+  if (lane >= na) {
+    cbounce::dead_lane(xt + lane, n, C_BETA, C_L, C_SPECULAR, C_SEL_PREV,
+                       C_WB_PREV, out + lane);
+    return;
+  }
+  const Tables tb{sl, nl, cl, sm, nm, ss, ns, lp, MP, SP};
   cbounce::cbody_lane(xt + lane, n, tb, cfg, out + lane);
+}
+
+size_t smem_bytes(int nl, int cl, int nm, int ns) {
+  return sizeof(float) * ((size_t)nl * cshade::odd_pitch(cl) +
+                          (size_t)nm * MP + (size_t)ns * SP);
 }
 
 }  // namespace
@@ -61,25 +98,32 @@ __global__ void __launch_bounds__(BLOCK)
 static_assert(sizeof(cbounce::ShadeCfg) == 42 * 4, "ShadeCfg layout");
 
 // C interface.  cfg_words: the ShadeCfg as 42 little-endian 32-bit words
-// (host memory).  Returns a cudaError_t code (0 = launched).
+// (host memory); n_alive: the live count on the device (int32; null:
+// every lane is live).  Returns a cudaError_t code (0 = launched).
 extern "C" int arendur_bounce_shade(const float* xt, const float* ltab,
                                     int nl, int cl, const float* mtab,
                                     int nm, const float* stab, int ns,
-                                    long n, const void* cfg_words,
-                                    float* out, void* stream) {
+                                    long n, const int* n_alive,
+                                    const void* cfg_words, float* out,
+                                    void* stream) {
   if (n <= 0) return 0;
   cbounce::ShadeCfg cfg;
   memcpy(&cfg, cfg_words, sizeof(cfg));
-  size_t smem = sizeof(float) * ((size_t)nl * cl + (size_t)nm * 16 +
-                                 (size_t)ns * 24);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bounce_shade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const size_t smem = smem_bytes(nl, cl, nm, ns);
+  int e = cshade::allow_smem((const void*)bounce_shade_kernel, smem);
+  if (e) return e;
   unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
   bounce_shade_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-      xt, ltab, nl, cl, mtab, nm, stab, ns, n, cfg, out);
+      xt, ltab, nl, cl, mtab, nm, stab, ns, n, n_alive, cfg, out);
   return (int)cudaGetLastError();
+}
+
+// What a launch over these tables holds (cshade::occupancy): info[0..4)
+// = dynamic shared memory of a block (B), blocks an SM holds at once,
+// registers a thread, local memory a thread (B).  Returns a cudaError_t
+// code.
+extern "C" int arendur_bounce_shade_occupancy(int nl, int cl, int nm, int ns,
+                                              int* info) {
+  return cshade::occupancy((const void*)bounce_shade_kernel, BLOCK,
+                           smem_bytes(nl, cl, nm, ns), info);
 }

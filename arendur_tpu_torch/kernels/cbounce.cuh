@@ -19,6 +19,10 @@
 // render/cbounce.py's cbody_hit and cbody_shade.
 #pragma once
 
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
 #include "cmath.cuh"
 
 namespace cshade {
@@ -35,6 +39,15 @@ constexpr int M_MATTE = 0, M_PLASTIC = 1, M_GLASS = 2, M_TRANSLUCENT = 3;
 constexpr int L_AREA_SPHERE = 0, L_AREA_TRI = 1, L_POINT = 2, L_SPOT = 3,
               L_DISTANT = 4;
 constexpr float GAMMA7 = (float)(7.0 * 0x1p-24 / (1.0 - 7.0 * 0x1p-24));
+// input columns the kernels read outside the body (render/cbounce.py
+// C_* for the fused layout, S_* for the split shade's) and output
+// columns of the carried values
+constexpr int C_HIT = 7, C_IS_SPH = 8, C_S_IDX = 9, C_TRI_LIGHT = 38,
+              C_BETA = 39, C_L = 42, C_SPECULAR = 45, C_SEL_PREV = 46,
+              C_WB_PREV = 47, C_ALIVE = 49;
+constexpr int S_BETA = 31, S_L = 34, S_SPECULAR = 37, S_SEL_PREV = 38,
+              S_WB_PREV = 39;
+constexpr int OUT_L = 6, OUT_BETA = 9, OUT_WB_PREV = 15;
 
 // Host-static configuration, filled by kernels/ops.py (same order).
 struct ShadeCfg {
@@ -56,6 +69,11 @@ struct ShadeCfg {
   float rr_scale;  // 1 / (1 - q), rounded from double
 };
 
+// The scene tables a lane reads: row r of the light table starts at
+// ltab + lp * r, and so on.  A kernel that stages the tables in shared
+// memory may pad each row to an odd pitch (kernels/cbounce.cu), so that
+// lanes reading different rows of a table read different banks; the
+// others read the dense [rows, cols] layout (dense_tables).
 struct Tables {
   const float* ltab;
   int nl, cl;
@@ -63,7 +81,63 @@ struct Tables {
   int nm;
   const float* stab;  // [ns, 24]
   int ns;
+  int lp, mp, sp;  // row pitches in floats: >= cl, 16, 24
 };
+HD Tables dense_tables(const float* ltab, int nl, int cl, const float* mtab,
+                       int nm, const float* stab, int ns) {
+  return Tables{ltab, nl, cl, mtab, nm, stab, ns, cl, 16, 24};
+}
+// the least odd pitch that holds a row of `cols` floats: rows whose
+// indices differ by less than 32 then start in different banks
+HD int odd_pitch(int cols) { return cols | 1; }
+constexpr int MTAB_PITCH = 17, STAB_PITCH = 25;  // odd_pitch(16), (24)
+
+#ifdef __CUDACC__
+// The live count a kernel reads on the device: *n_alive clamped into
+// [0, n], or n where no count is given.
+__device__ __forceinline__ long live_count(const int* n_alive, long n) {
+  if (n_alive == nullptr) return n;
+  const long na = *n_alive;
+  return na < 0 ? 0 : (na > n ? n : na);
+}
+
+// Copy a dense [rows, cols] table into shared memory at row pitch
+// `pitch`, the block's threads striding over its elements.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           int rows, int cols, int pitch,
+                                           float* dst) {
+  const int total = rows * cols;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / cols;
+    dst[r * pitch + (i - r * cols)] = src[i];
+  }
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory (above 48 KB
+// only after the attribute is raised).  Returns a cudaError_t code.
+inline int allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// info[0..4) = smem, the blocks of `block` threads with smem bytes of
+// dynamic shared memory an SM holds at once, the kernel's registers a
+// thread and its local memory a thread (B).  Returns a cudaError_t code.
+inline int occupancy(const void* kernel, int block, size_t smem, int* info) {
+  int e = allow_smem(kernel, smem);
+  if (e) return e;
+  cudaFuncAttributes attr;
+  cudaError_t c = cudaFuncGetAttributes(&attr, kernel);
+  if (c != cudaSuccess) return (int)c;
+  c = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel, block,
+                                                    smem);
+  info[0] = (int)smem;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.localSizeBytes;
+  return (int)c;
+}
+#endif
 
 HD int row_idx(int idx, int n) { return (idx >= 0 && idx < n) ? idx : 0; }
 HD bool has_l(const ShadeCfg& cfg, int t) { return (cfg.lpresent >> t) & 1; }
@@ -88,18 +162,86 @@ HD V3 vval(V3 a) { return a; }
 HD V3 vconst(V3 a) { return a; }
 HD V3 ld3(Row r, int c) { return v3(r[c], r[c + 1], r[c + 2]); }
 
+// a[k] for a slot index k known only at run time, as selects among the
+// constant entries: the slot arrays are then only ever indexed by
+// constants and stay in registers (one run-time index would put the
+// whole Slots in local memory, a stack frame of 192 bytes a lane)
+static_assert(MAX_SLOTS == 3, "pick3 selects among three slots");
+template <class T>
+HD T pick3(const T (&a)[MAX_SLOTS], int k) {
+  return k == 2 ? a[2] : (k == 1 ? a[1] : a[0]);
+}
+// a loop that evaluates one slot per pass: one copy of the evaluation
+#define SLOT_LOOP _Pragma("unroll 1")
+
 #include "cbounce_body.cuh"
+#undef SLOT_LOOP
+
+// A lane's input columns, read where the body uses them: xv[c] is
+// x[c * stride] (on the card a read-only load).
+struct Cols {
+  const float* x;
+  long stride;
+  HD float operator[](int c) const {
+#ifdef __CUDA_ARCH__
+    return __ldg(x + (long)c * stride);
+#else
+    return x[(long)c * stride];
+#endif
+  }
+};
+
+// A lane's output columns: out(j, v) writes column j.
+struct ColumnOut {
+  float* out;
+  long stride;
+  HD void operator()(int j, float v) const { out[(long)j * stride] = v; }
+};
 
 // x(c) = lane's input column c; out(c) = lane's output column c
 HD void cbody_lane(const float* x, long stride, const Tables& tb,
                    const ShadeCfg& cfg, float* out) {
-  float xv[IN_COLS];
-  for (int c = 0; c < IN_COLS; ++c) xv[c] = x[(long)c * stride];
-  float res[28];
   int rows[N_ROW_SLOTS];
-  cbody_core(xv, tb, cfg, res, rows);
-  for (int j = 0; j < 28; ++j) out[(long)j * stride] = res[j];
-  for (int j = 28; j < OUT_COLS; ++j) out[(long)j * stride] = 0.0f;
+  const ColumnOut o{out, stride};
+  cbody_core(Cols{x, stride}, tb, cfg, o, rows);
+#pragma unroll
+  for (int j = 28; j < OUT_COLS; ++j) o(j, 0.0f);
+}
+
+// The output of a lane past the wave's live count (n_alive), whose body
+// does not run: the carried columns L, beta, specular, sel_prev and
+// wb_prev pass through (the flags and indices converted as the body
+// converts them), alive, nee_prev, need_shadow and contrib are 0, and
+// the rays take constants: o = sh_o = 0, d = sh_d = (0, 0, 1) (the
+// body's degenerate direction), sh_t = 0.  Nothing reads those lanes:
+// the intersect kernels treat them as misses and the deferred MIS gates
+// on alive.  c_beta, c_l, c_spec, c_sel, c_wb: the input columns of the
+// carried values (the fused and the split layout differ).  Plain twin:
+// render/cbounce.py dead_lane_out.
+HD void dead_lane(const float* x, long stride, int c_beta, int c_l,
+                  int c_spec, int c_sel, int c_wb, float* out) {
+  const Cols xv{x, stride};
+  const ColumnOut o{out, stride};
+  const float zero = 0.0f, one = 1.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    o(j, zero);
+    o(3 + j, j == 2 ? one : zero);
+    o(6 + j, xv[c_l + j]);
+    o(9 + j, xv[c_beta + j]);
+    o(17 + j, zero);
+    o(20 + j, j == 2 ? one : zero);
+    o(25 + j, zero);
+  }
+  o(12, zero);
+  o(13, xv[c_spec] > 0.5f ? one : zero);
+  o(14, (float)(int)xv[c_sel]);
+  o(15, xv[c_wb]);
+  o(16, zero);
+  o(23, zero);
+  o(24, zero);
+#pragma unroll
+  for (int j = 28; j < OUT_COLS; ++j) o(j, zero);
 }
 
 // ---------------------------------------------------------------------------
@@ -157,6 +299,7 @@ HD void cone_duv(float r, V3 d, V3 ng, V3 dpdu, V3 dpdv, float duv[4]) {
 // cone width, pad).  Only tb.stab / tb.ns are read.
 HD void hit_lane(const float* x, long stride, const Tables& tb, float* out) {
   float xv[HIT_IN_COLS];
+#pragma unroll
   for (int c = 0; c < HIT_IN_COLS; ++c) xv[c] = x[(long)c * stride];
   HitInfo h;
   int rows[N_ROW_SLOTS];
@@ -164,8 +307,8 @@ HD void hit_lane(const float* x, long stride, const Tables& tb, float* out) {
   const float* tr = xv + 13;
   float u, v;
   if (h.is_sph) {
-    sphere_uv(tb.stab + 24 * rows[SLOT_S], v3(xv[10], xv[11], xv[12]), &u,
-              &v);
+    sphere_uv(tb.stab + tb.sp * rows[SLOT_S], v3(xv[10], xv[11], xv[12]),
+              &u, &v);
   } else {
     float b2 = 1.0f - h.b0 - h.b1;
     u = h.b0 * tr[18] + h.b1 * tr[20] + b2 * tr[22];
@@ -190,8 +333,7 @@ HD void hit_lane(const float* x, long stride, const Tables& tb, float* out) {
 // table of tb is read.
 HD void shade_split_lane(const float* x, long stride, const Tables& tb,
                          const ShadeCfg& cfg, float* out) {
-  float xv[SHADE_IN_COLS];
-  for (int c = 0; c < SHADE_IN_COLS; ++c) xv[c] = x[(long)c * stride];
+  const Cols xv{x, stride};
   auto c3 = [&](int j) { return v3(xv[j], xv[j + 1], xv[j + 2]); };
   ShadeIn s;
   s.d = c3(0);
@@ -224,11 +366,11 @@ HD void shade_split_lane(const float* x, long stride, const Tables& tb,
   s.ub1 = xv[47];
   s.u_rr = xv[48];
   s.bounce = xv[49];
-  float res[28];
   int rows[N_ROW_SLOTS];
-  shade_core(s, tb, cfg, res, rows);
-  for (int j = 0; j < 28; ++j) out[(long)j * stride] = res[j];
-  for (int j = 28; j < OUT_COLS; ++j) out[(long)j * stride] = 0.0f;
+  const ColumnOut o{out, stride};
+  shade_core(s, tb, cfg, o, rows);
+#pragma unroll
+  for (int j = 28; j < OUT_COLS; ++j) o(j, 0.0f);
 }
 
 }  // namespace cbounce

@@ -22,18 +22,23 @@ HD Row mkrow(const float* p, int slot) {
   return r;
 }
 HD V3 ld3(Row r, int c) { return v3(r[c], r[c + 1], r[c + 2]); }
+// The body functions are calls here, so their Slots live in local memory
+// whatever the index: a run-time slot index reads the entry directly,
+// and the compiler shapes the slot loops.
+template <class T>
+HD T pick3(const T (&a)[MAX_SLOTS], int k) {
+  return a[k];
+}
+#define SLOT_LOOP
 
 #include "cbounce_body.cuh"
+#undef SLOT_LOOP
 
 // leaf slot of the lane's input columns (the table row slots are
 // SLOT_M..SLOT_S)
 constexpr int SLOT_X = N_ROW_SLOTS;
 // the sweep holds the records of the SWEEP_AHEAD nodes after the next
 constexpr int SWEEP_AHEAD = 4;
-// the input columns of the emission gate (render/cbounce.py C_*; the
-// triangle's light id is column 25 of the triangle row at 13)
-constexpr int C_HIT = 7, C_IS_SPH = 8, C_S_IDX = 9, C_TRI_LIGHT = 38,
-              C_ALIVE = 49;
 
 // The layout of a lane's table share: row slot s takes columns
 // base[s]..base[s + 1] of the lane's row of lane_tab, and its
@@ -55,19 +60,20 @@ struct TabLayout {
   }
 };
 
-// Output columns of L, whose cotangent passes to input columns
-// C_L..C_L + 2 where the lane adds no emission.
-constexpr int OUT_L = 6, C_L = 42;
-
-// Whether a lane's VJP needs its body.  It does not where the lane
-// adds no emission (cbounce_body.cuh emission_gate) and the output
-// cotangent is zero outside L and finite on L: there L_out = L_in + 0
-// and every other output has a zero cotangent, so dx is ct_L on L_in
-// and zero elsewhere (pass_through), and the lane adds nothing to the
-// table cotangents.  x / ct: the lane's input and output cotangent
-// columns, stride apart.  Plain twin: render/cbounce.py bwd_needs_body.
-HD bool needs_body(const float* x, const float* ct, long stride,
-                   const Tables& tb) {
+// Whether a lane's VJP needs its body.  A lane past the wave's live
+// count (lane >= n_alive) never does: the forward passes its L, beta
+// and wb_prev through (cbounce.cuh dead_lane), so its VJP is the
+// identity on them (pass_through).  Nor does a live lane that adds no
+// emission (cbounce_body.cuh emission_gate) and whose output cotangent
+// is zero outside L and finite on L: there L_out = L_in + 0 and every
+// other output has a zero cotangent, so dx is ct_L on L_in and zero
+// elsewhere (pass_through, whose beta and wb_prev columns are then
+// zero), and the lane adds nothing to the table cotangents.  x / ct:
+// the lane's input and output cotangent columns, stride apart.  Plain
+// twin: render/cbounce.py bwd_needs_body.
+HD bool needs_body(const float* x, const float* ct, long stride, long lane,
+                   long n_alive, const Tables& tb) {
+  if (lane >= n_alive) return false;
   const bool hit = x[(long)C_HIT * stride] > 0.5f;
   const int light_id = cbounce::hit_light_id(
       hit, x[(long)C_IS_SPH * stride] > 0.5f,
@@ -82,11 +88,15 @@ HD bool needs_body(const float* x, const float* ct, long stride,
   return false;
 }
 
-// dx of a lane that needs no body: ct_L on L_in, zero elsewhere.
+// dx of a lane that needs no body: the cotangents of L, beta and
+// wb_prev on their input columns, zero elsewhere.
 HD void pass_through(const float* ct, long stride, float* dx) {
   for (int c = 0; c < IN_COLS; ++c) dx[(long)c * stride] = 0.0f;
-  for (int j = 0; j < 3; ++j)
+  for (int j = 0; j < 3; ++j) {
     dx[(long)(C_L + j) * stride] = ct[(long)(OUT_L + j) * stride];
+    dx[(long)(C_BETA + j) * stride] = ct[(long)(OUT_BETA + j) * stride];
+  }
+  dx[(long)C_WB_PREV * stride] = ct[(long)OUT_WB_PREV * stride];
 }
 
 // One lane's backward.  x / ct / dx: the lane's input, output cotangent
@@ -106,7 +116,7 @@ HD bool cbody_lane_bwd(const float* x, const float* ct, long stride,
   for (int c = 0; c < IN_COLS; ++c)
     xv[c] = ad::leaf(x[(long)c * stride], SLOT_X, c);
   R res[28];
-  cbody_core(xv, tb, cfg, res, rows);
+  cbody_core(xv, tb, cfg, ArrayOut{res}, rows);
   for (int c = 0; c < IN_COLS; ++c) dx[(long)c * stride] = 0.0f;
   if (n > t.cap) {
     for (int c = 0; c < IN_COLS; ++c) dx[(long)c * stride] = NAN;

@@ -72,6 +72,7 @@ HDB V3 offset_ray_origin(V3 pos, V3 perr, V3 n, V3 d) {
   F pc[3] = {pos.x, pos.y, pos.z};
   F nc[3] = {n.x, n.y, n.z};
   F out[3];
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     F off = s * nc[c];
     F p = pc[c] + off;
@@ -320,12 +321,34 @@ HDB F path_mis_weight_rows(Row lr, const ShadeCfg& cfg,
 // slot-table BSDF
 // ---------------------------------------------------------------------------
 
+// A slot chosen at run time is read through slot_at, whose pick3 (the
+// including namespace's) keeps the forward's slot arrays in registers;
+// the loops over slots that evaluate one are SLOT_LOOPs.
 struct Slots {
   V3 ns, ts, bs, ng;
   int type[MAX_SLOTS], kind[MAX_SLOTS], dist[MAX_SLOTS];
   V3 c0[MAX_SLOTS], c1[MAX_SLOTS];
   F p0[MAX_SLOTS], p1[MAX_SLOTS], p2[MAX_SLOTS];
 };
+
+// One slot's fields.
+struct Slot {
+  int type, kind, dist;
+  V3 c0, c1;
+  F p0, p1, p2;
+};
+HD Slot slot_at(const Slots& b, int k) {
+  Slot s;
+  s.type = pick3(b.type, k);
+  s.kind = pick3(b.kind, k);
+  s.dist = pick3(b.dist, k);
+  s.c0 = pick3(b.c0, k);
+  s.c1 = pick3(b.c1, k);
+  s.p0 = pick3(b.p0, k);
+  s.p1 = pick3(b.p1, k);
+  s.p2 = pick3(b.p2, k);
+  return s;
+}
 
 HDB void make_bsdf_frame(V3 ns, V3 dpdu, V3* t_, V3* b_) {
   V3 t = vsub(dpdu, vscale(ns, vdot(ns, dpdu)));
@@ -356,6 +379,7 @@ HD void put(Slots& b, int k, int stype, V3 c0, V3 c1, F p0, F p1,
 HDB Slots build_slots(int mtype, V3 kd, V3 ks, F sigma, F rough,
                      F eta, F dissolve, V3 ns, V3 ng, V3 dpdu) {
   Slots b;
+#pragma unroll
   for (int k = 0; k < MAX_SLOTS; ++k)
     put(b, k, T_NONE, vzero(), vzero(), 0.0f, 0.0f, 0.0f, 0);
   F alpha = roughness_to_alpha(rough);
@@ -392,10 +416,15 @@ HDB Slots build_slots(int mtype, V3 kd, V3 ks, F sigma, F rough,
     if (t_as)
       put(b, 0, T_ASHIKHMIN, clip3(vscale(kd, dissolve)),
           clip3(vscale(ks, dissolve)), alpha, 0.0f, 0.0f, D_TROWBRIDGE);
-    if (t_lt)
-      put(b, t_as ? 1 : 0, T_LAMBERT_T, vscale(kd, 1.0f - dissolve), z,
-          0.0f, 0.0f, 0.0f, 0);
+    if (t_lt) {
+      V3 c0 = vscale(kd, 1.0f - dissolve);
+      if (t_as)
+        put(b, 1, T_LAMBERT_T, c0, z, 0.0f, 0.0f, 0.0f, 0);
+      else
+        put(b, 0, T_LAMBERT_T, c0, z, 0.0f, 0.0f, 0.0f, 0);
+    }
   }
+#pragma unroll
   for (int k = 0; k < MAX_SLOTS; ++k) b.kind[k] = kind_of_type(b.type[k]);
   b.ns = ns;
   b.ng = ng;
@@ -405,6 +434,7 @@ HDB Slots build_slots(int mtype, V3 kd, V3 ks, F sigma, F rough,
 
 HD int match_count(const Slots& b, int types) {
   int cnt = 0;
+#pragma unroll
   for (int k = 0; k < MAX_SLOTS; ++k) cnt += (b.kind[k] & types) != 0;
   return cnt;
 }
@@ -737,16 +767,19 @@ HDB void bsdf_eval_pdf(const Slots& b, V3 wow, V3 wiw, const ShadeCfg& cfg,
   V3 f = vzero();
   F total = 0.0f;
   int count = 0;
+  SLOT_LOOP
   for (int k = 0; k < MAX_SLOTS; ++k) {
-    if (cfg.pres[k] == 0) continue;
-    int kindk = b.kind[k];
+    const int pres = pick3(cfg.pres, k);
+    if (pres == 0) continue;
+    const Slot sl = slot_at(b, k);
+    int kindk = sl.kind;
     bool m = (kindk & types) != 0;
     bool s = m && ((is_refl && (kindk & REFLECTION)) ||
                    (!is_refl && (kindk & TRANSMISSION)));
     V3 fk;
     F pk;
-    slot_eval_pdf_fused(b.type[k], b.c0[k], b.c1[k], b.p0[k], b.p1[k],
-                        b.p2[k], b.dist[k], wo, wi, cfg.pres[k], cfg, &fk, &pk);
+    slot_eval_pdf_fused(sl.type, sl.c0, sl.c1, sl.p0, sl.p1, sl.p2, sl.dist,
+                        wo, wi, pres, cfg, &fk, &pk);
     f = vadd(f, s ? fk : vzero());
     total = total + (m ? mx(pk, 0.0f) : 0.0f);
     count += m;
@@ -765,18 +798,20 @@ HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
   int cap = nmatch - 1 > 0 ? nmatch - 1 : 0;
   idx = idx < cap ? idx : cap;
   int running = 0, sk = 0;
+#pragma unroll
   for (int k = 0; k < MAX_SLOTS; ++k) {
     bool m = (b.kind[k] & types) != 0;
     if (m && running == idx) sk = k;
     running += m;
   }
+  const Slot ss = slot_at(b, sk);
   V3 f, wi;
   F pdf;
   int skind;
-  slot_sample(b.type[sk], b.c0[sk], b.c1[sk], b.p0[sk], b.p1[sk], b.p2[sk],
-              b.dist[sk], wo, ux, uy, cfg.any_pres, cfg, &f, &wi, &pdf, &skind);
+  slot_sample(ss.type, ss.c0, ss.c1, ss.p0, ss.p1, ss.p2, ss.dist, wo, ux, uy,
+              cfg.any_pres, cfg, &f, &wi, &pdf, &skind);
   skind = skind & types;
-  bool is_spec = (b.kind[sk] & SPECULAR) != 0;
+  bool is_spec = (ss.kind & SPECULAR) != 0;
   V3 wiw = to_world(b.ts, b.bs, b.ns, wi);
   *wiw_ = wiw;
   bool dead = (nmatch == 0) || (pdf == 0.0f);
@@ -793,17 +828,19 @@ HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
     bool is_refl = vdot(wow, b.ng) * vdot(wiw, b.ng) > 0.0f;
     V3 f_acc = vzero();
     F pdf_acc = 0.0f;
+    SLOT_LOOP
     for (int k = 0; k < MAX_SLOTS; ++k) {
-      if (cfg.pres[k] == 0) continue;
-      int kindk = b.kind[k];
+      const int pres = pick3(cfg.pres, k);
+      if (pres == 0) continue;
+      const Slot sl = slot_at(b, k);
+      int kindk = sl.kind;
       bool s = ((kindk & skind) != 0) &&
                ((is_refl && (kindk & REFLECTION)) ||
                 (!is_refl && (kindk & TRANSMISSION)));
       V3 fk;
       F pk;
-      slot_eval_pdf_fused(b.type[k], b.c0[k], b.c1[k], b.p0[k], b.p1[k],
-                          b.p2[k], b.dist[k], wo, wi, cfg.pres[k], cfg, &fk,
-                          &pk);
+      slot_eval_pdf_fused(sl.type, sl.c0, sl.c1, sl.p0, sl.p1, sl.p2,
+                          sl.dist, wo, wi, pres, cfg, &fk, &pk);
       f_acc = vadd(f_acc, s ? fk : vzero());
       pdf_acc = pdf_acc + (s ? mx(pk, 0.0f) : 0.0f);
     }
@@ -827,7 +864,7 @@ HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
 // (cbounce_ad.cuh needs_body), on the float instantiation.
 HD int hit_light_id(bool hitmask, bool is_sph, int s_idx, float tri_light,
                     const Tables& tb) {
-  int id = (int)(is_sph ? tb.stab[24 * row_idx(s_idx, tb.ns) + 21]
+  int id = (int)(is_sph ? tb.stab[tb.sp * row_idx(s_idx, tb.ns) + 21]
                         : tri_light);
   return hitmask ? id : -1;
 }
@@ -835,9 +872,19 @@ HD bool emission_gate(bool alive, bool hitmask, int light_id) {
   return alive && hitmask && light_id >= 0;
 }
 
+// The output sink of the shade over an array: out(j, v) sets res[j].
+// (The forward kernels' sink writes the lane's output column instead,
+// cbounce.cuh ColumnOut.)
+struct ArrayOut {
+  F* res;
+  HD void operator()(int j, F v) const { res[j] = v; }
+};
+
 // The first half of the bounce: the hit's shading info from the lane's
 // input columns 0:39 (the layout the fused and the split hit input
-// share).  Sets rows[SLOT_S]; b0 / b1 are the triangle barycentrics.
+// share).  xv[c]: the lane's input column c (an array, or a reader that
+// loads each column where it is used).  Sets rows[SLOT_S]; b0 / b1 are
+// the triangle barycentrics.
 struct HitInfo {
   V3 pos, pos_err, ng, ns, dpdu, dpdv;
   F b0, b1;
@@ -845,28 +892,27 @@ struct HitInfo {
   bool hitmask, is_sph;
 };
 
-HDB void hit_info(const F* xv, const Tables& tb, HitInfo* h,
+template <class X>
+HDB void hit_info(const X& xv, const Tables& tb, HitInfo* h,
                   int rows[N_ROW_SLOTS]) {
-#define X(c) xv[c]
-  V3 o_ray = v3(X(0), X(1), X(2));
-  V3 d = v3(X(3), X(4), X(5));
-  h->hitmask = X(7) > 0.5f;
-  h->is_sph = X(8) > 0.5f;
-  int s_idx = (int)X(9);
-  V3 p_local = v3(X(10), X(11), X(12));
-  const F* tr = xv + 13;
+  V3 o_ray = v3(xv[0], xv[1], xv[2]);
+  V3 d = v3(xv[3], xv[4], xv[5]);
+  h->hitmask = xv[7] > 0.5f;
+  h->is_sph = xv[8] > 0.5f;
+  int s_idx = (int)xv[9];
   rows[SLOT_S] = row_idx(s_idx, tb.ns);
-  Row srow = mkrow(tb.stab + 24 * rows[SLOT_S], SLOT_S);
-#undef X
+  Row srow = mkrow(tb.stab + tb.sp * rows[SLOT_S], SLOT_S);
+  // the triangle row: input columns 13:39
+  auto tr = [&](int j) { return xv[13 + j]; };
 
-  V3 tv0 = v3(tr[0], tr[1], tr[2]), tv1 = v3(tr[3], tr[4], tr[5]),
-     tv2 = v3(tr[6], tr[7], tr[8]);
+  V3 tv0 = v3(tr(0), tr(1), tr(2)), tv1 = v3(tr(3), tr(4), tr(5)),
+     tv2 = v3(tr(6), tr(7), tr(8));
   bary_from_vertices(o_ray, d, tv0, tv1, tv2, &h->b0, &h->b1);
   F b0 = h->b0, b1 = h->b1;
   F b2 = 1.0f - b0 - b1;
   if (h->is_sph) {
-    sphere_shading_from_row(srow, p_local, &h->pos, &h->ng, &h->dpdu,
-                            &h->dpdv, &h->pos_err);
+    sphere_shading_from_row(srow, v3(xv[10], xv[11], xv[12]), &h->pos,
+                            &h->ng, &h->dpdu, &h->dpdv, &h->pos_err);
     h->ns = h->ng;
   } else {
     h->pos = vadd(vadd(vscale(tv0, b0), vscale(tv1, b1)), vscale(tv2, b2));
@@ -874,17 +920,17 @@ HDB void hit_info(const F* xv, const Tables& tb, HitInfo* h,
         vscale(vadd(vadd(vabs(vscale(tv0, b0)), vabs(vscale(tv1, b1))),
                     vabs(vscale(tv2, b2))),
                GAMMA7);
-    tri_dpduv(tv0, tv1, tv2, tr[18], tr[19], tr[20], tr[21], tr[22], tr[23],
+    tri_dpduv(tv0, tv1, tv2, tr(18), tr(19), tr(20), tr(21), tr(22), tr(23),
               &h->dpdu, &h->dpdv);
-    V3 n0 = v3(tr[9], tr[10], tr[11]), n1 = v3(tr[12], tr[13], tr[14]),
-       n2 = v3(tr[15], tr[16], tr[17]);
+    V3 n0 = v3(tr(9), tr(10), tr(11)), n1 = v3(tr(12), tr(13), tr(14)),
+       n2 = v3(tr(15), tr(16), tr(17));
     V3 ns_raw = vnormalize(vadd(vadd(vscale(n0, b0), vscale(n1, b1)),
                                 vscale(n2, b2)));
     h->ng = vnormalize(vcross(h->dpdu, h->dpdv));
     h->ns = vdot(ns_raw, h->ng) < 0.0f ? vneg(ns_raw) : ns_raw;
   }
-  h->mat_id = (int)(h->is_sph ? rawf(srow, 20) : val(tr[24]));
-  h->light_id = hit_light_id(h->hitmask, h->is_sph, s_idx, val(tr[25]), tb);
+  h->mat_id = (int)(h->is_sph ? rawf(srow, 20) : val(tr(24)));
+  h->light_id = hit_light_id(h->hitmask, h->is_sph, s_idx, val(tr(25)), tb);
 }
 
 // What the shade proper reads besides the light table: the hit info and
@@ -908,10 +954,12 @@ struct ShadeIn {
 };
 
 // The second half of the bounce: emission, the material recipe, NEE,
-// the BSDF sample, beta and Russian roulette.  res = the first 28
-// output columns (the rest are zero); sets rows[SLOT_LE] / [SLOT_LS].
+// the BSDF sample, beta and Russian roulette.  out(j, v) receives the
+// first 28 output columns in order (the rest are zero); sets
+// rows[SLOT_LE] / [SLOT_LS].
+template <class Out>
 HDB void shade_core(const ShadeIn& s, const Tables& tb, const ShadeCfg& cfg,
-                    F res[28], int rows[N_ROW_SLOTS]) {
+                    const Out& out, int rows[N_ROW_SLOTS]) {
   const V3 d = s.d, pos = s.pos, pos_err = s.pos_err, ng = s.ng;
   V3 beta = s.beta, L = s.L;
   bool specular = s.specular;
@@ -926,7 +974,7 @@ HDB void shade_core(const ShadeIn& s, const Tables& tb, const ShadeCfg& cfg,
 
   // (2) emitted radiance
   rows[SLOT_LE] = row_idx(light_id > 0 ? light_id : 0, tb.nl);
-  Row lerow = mkrow(tb.ltab + (long)tb.cl * rows[SLOT_LE], SLOT_LE);
+  Row lerow = mkrow(tb.ltab + (long)tb.lp * rows[SLOT_LE], SLOT_LE);
   V3 le = ld3(lerow, cfg.emi);
   bool emit_gate = emission_gate(alive, s.hitmask, light_id);
   F w_emit = (((bounce == 0.0f) || specular) ? 1.0f : 0.0f) +
@@ -939,7 +987,7 @@ HDB void shade_core(const ShadeIn& s, const Tables& tb, const ShadeCfg& cfg,
                            s.dissolve, s.ns, ng, s.dpdu);
   bool do_nee = lane_active && (match_count(bsdf, ALL_NON_SPECULAR) > 0);
   rows[SLOT_LS] = row_idx(lidx > 0 ? lidx : 0, tb.nl);
-  Row lrow = mkrow(tb.ltab + (long)tb.cl * rows[SLOT_LS], SLOT_LS);
+  Row lrow = mkrow(tb.ltab + (long)tb.lp * rows[SLOT_LS], SLOT_LS);
   LightSample ls = light_sample_rows(lrow, cfg, pos, s.ul0, s.ul1);
   V3 f_raw;
   F spdf;
@@ -992,28 +1040,49 @@ HDB void shade_core(const ShadeIn& s, const Tables& tb, const ShadeCfg& cfg,
   beta = (roulette && !killed) ? vscale(beta, cfg.rr_scale) : beta;
   alive = alive && !killed;
 
-  F r[28] = {o.x, o.y, o.z, d_out.x, d_out.y, d_out.z,
-             L.x, L.y, L.z, beta.x, beta.y, beta.z,
-             alive ? 1.0f : 0.0f, specular ? 1.0f : 0.0f,
-             (float)sel_prev, wb_prev, nee_prev ? 1.0f : 0.0f,
-             o_sh.x, o_sh.y, o_sh.z, dirn.x, dirn.y, dirn.z,
-             sh_t, need_sh_out ? 1.0f : 0.0f,
-             contrib_out.x, contrib_out.y, contrib_out.z};
-  for (int j = 0; j < 28; ++j) res[j] = r[j];
+  out(0, o.x);
+  out(1, o.y);
+  out(2, o.z);
+  out(3, d_out.x);
+  out(4, d_out.y);
+  out(5, d_out.z);
+  out(6, L.x);
+  out(7, L.y);
+  out(8, L.z);
+  out(9, beta.x);
+  out(10, beta.y);
+  out(11, beta.z);
+  out(12, alive ? 1.0f : 0.0f);
+  out(13, specular ? 1.0f : 0.0f);
+  out(14, (float)sel_prev);
+  out(15, wb_prev);
+  out(16, nee_prev ? 1.0f : 0.0f);
+  out(17, o_sh.x);
+  out(18, o_sh.y);
+  out(19, o_sh.z);
+  out(20, dirn.x);
+  out(21, dirn.y);
+  out(22, dirn.z);
+  out(23, sh_t);
+  out(24, need_sh_out ? 1.0f : 0.0f);
+  out(25, contrib_out.x);
+  out(26, contrib_out.y);
+  out(27, contrib_out.z);
 }
 
 // The fused bounce (K3, and K4 on the taped scalar): xv[c] = the lane's
-// input column c; res = its first 28 output columns (the rest are zero);
-// rows = the table row each row slot read.
-HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
-                    F res[28], int rows[N_ROW_SLOTS]) {
+// input column c (as hit_info's); out(j, v) receives its first 28
+// output columns (the rest are zero); rows = the table row each row
+// slot read.
+template <class X, class Out>
+HDB void cbody_core(const X& xv, const Tables& tb, const ShadeCfg& cfg,
+                    const Out& out, int rows[N_ROW_SLOTS]) {
   HitInfo h;
   hit_info(xv, tb, &h, rows);
   rows[SLOT_M] = row_idx(h.mat_id > 0 ? h.mat_id : 0, tb.nm);
-  Row mrow = mkrow(tb.mtab + 16 * rows[SLOT_M], SLOT_M);
-#define X(c) xv[c]
+  Row mrow = mkrow(tb.mtab + tb.mp * rows[SLOT_M], SLOT_M);
   ShadeIn s;
-  s.d = v3(X(3), X(4), X(5));
+  s.d = v3(xv[3], xv[4], xv[5]);
   s.pos = h.pos;
   s.pos_err = h.pos_err;
   s.ng = h.ng;
@@ -1028,21 +1097,20 @@ HDB void cbody_core(const F* xv, const Tables& tb, const ShadeCfg& cfg,
   s.dissolve = mrow[10];
   s.light_id = h.light_id;
   s.hitmask = h.hitmask;
-  s.beta = v3(X(39), X(40), X(41));
-  s.L = v3(X(42), X(43), X(44));
-  s.specular = X(45) > 0.5f;
-  s.sel_prev = (int)X(46);
-  s.wb_prev = X(47);
-  s.nee_prev = X(48) > 0.5f;
-  s.alive = X(49) > 0.5f;
-  s.lidx = (int)X(50);
-  s.selpdf = X(51);
-  s.ul0 = val(X(52));
-  s.ul1 = val(X(53));
-  s.ub0 = val(X(54));
-  s.ub1 = val(X(55));
-  s.u_rr = val(X(56));
-  s.bounce = val(X(57));
-#undef X
-  shade_core(s, tb, cfg, res, rows);
+  s.beta = v3(xv[39], xv[40], xv[41]);
+  s.L = v3(xv[42], xv[43], xv[44]);
+  s.specular = xv[45] > 0.5f;
+  s.sel_prev = (int)xv[46];
+  s.wb_prev = xv[47];
+  s.nee_prev = xv[48] > 0.5f;
+  s.alive = xv[49] > 0.5f;
+  s.lidx = (int)xv[50];
+  s.selpdf = xv[51];
+  s.ul0 = val(xv[52]);
+  s.ul1 = val(xv[53]);
+  s.ub0 = val(xv[54]);
+  s.ub1 = val(xv[55]);
+  s.u_rr = val(xv[56]);
+  s.bounce = val(xv[57]);
+  shade_core(s, tb, cfg, out, rows);
 }

@@ -11,10 +11,12 @@
 // The TPU kernel recomputes the forward in-kernel and applies jax.vjp
 // there, on every lane.  Here the backward is five launches:
 //   1. classify: one thread per lane decides whether the lane's VJP
-//      needs the body (cbounce_ad.cuh needs_body).  Where the lane adds
-//      no emission and its cotangent is zero outside L, dx is ct_L on
-//      L_in (pass_through), written here.  In a train step that is a
-//      third of the first bounce's lanes and most of the later ones';
+//      needs the body (cbounce_ad.cuh needs_body).  Where the lane is
+//      past the wave's live count (the forward passed it through), or
+//      adds no emission and its cotangent is zero outside L, dx is the
+//      cotangent of L, beta and wb_prev on their input columns
+//      (pass_through), written here.  In a train step that is a third
+//      of the first bounce's lanes and most of the later ones';
 //   2. list: one block turns the flags into the list of lanes that need
 //      the body, in lane order, and its count, by a prefix sum over the
 //      flags (deterministic; no host sync: the later launches read the
@@ -67,15 +69,18 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
     bounce_shade_bwd_classify_kernel(const float* __restrict__ xt,
                                      const float* __restrict__ ct,
                                      const float* __restrict__ stab, int ns,
-                                     long n, int* __restrict__ need,
+                                     long n,
+                                     const int* __restrict__ n_alive,
+                                     int* __restrict__ need,
                                      float* __restrict__ dx) {
-  cshade::Tables tb = {};
-  tb.stab = stab;
-  tb.ns = ns;
+  const cshade::Tables tb =
+      cshade::dense_tables(nullptr, 0, 0, nullptr, 0, stab, ns);
+  const long na = n_alive ? *n_alive : n;
   const long step = (long)gridDim.x * blockDim.x;
   for (long lane = (long)blockIdx.x * blockDim.x + threadIdx.x; lane < n;
        lane += step) {
-    const bool body = cbounce_ad::needs_body(xt + lane, ct + lane, n, tb);
+    const bool body =
+        cbounce_ad::needs_body(xt + lane, ct + lane, n, lane, na, tb);
     need[lane] = body;
     if (!body) cbounce_ad::pass_through(ct + lane, n, dx + lane);
   }
@@ -157,14 +162,7 @@ __global__ void __launch_bounds__(BLOCK)
   for (int i = threadIdx.x; i < nst; i += blockDim.x) ss[i] = stab[i];
   if (threadIdx.x == 0) ad::s_tape = tape;
   __syncthreads();
-  cshade::Tables tb;
-  tb.ltab = sl;
-  tb.nl = nl;
-  tb.cl = cl;
-  tb.mtab = sm;
-  tb.nm = nm;
-  tb.stab = ss;
-  tb.ns = ns;
+  const cshade::Tables tb = cshade::dense_tables(sl, nl, cl, sm, nm, ss, ns);
   TabLayout lay(nl, cl, nm, ns);
   const int p = lay.base[4];
   const long step = (long)gridDim.x * blockDim.x;
@@ -252,7 +250,8 @@ __global__ void bounce_shade_bwd_reduce_kernel(
 }  // namespace
 
 // C interface.  cfg_words: the ShadeCfg as 42 32-bit words (host
-// memory).  Scratch, all device memory from the caller, none of it
+// memory).  n_alive: the wave's live count on the device (int32; null:
+// every lane is live).  Scratch, all device memory from the caller, none of it
 // zeroed: the tape (cap * tape_threads nodes of 16 bytes), lists
 // [2 n + 1] int (flags, list, count), lane_tab [n, p], lane_rows
 // [4, n], partials [ceil(n / 256), E] and node_stats [3] (it receives
@@ -263,7 +262,8 @@ __global__ void bounce_shade_bwd_reduce_kernel(
 extern "C" int arendur_bounce_shade_bwd(
     const float* xt, const float* ct, const float* ltab, int nl, int cl,
     const float* mtab, int nm, const float* stab, int ns, long n,
-    const void* cfg_words, void* tape_nodes, long tape_threads, int cap,
+    const int* n_alive, const void* cfg_words, void* tape_nodes,
+    long tape_threads, int cap,
     int* lists, float* dx, float* lane_tab, int* lane_rows, float* partials,
     float* dlt, float* dmt, float* dst, unsigned long long* node_stats,
     void* stream) {
@@ -298,7 +298,7 @@ extern "C" int arendur_bounce_shade_bwd(
   const unsigned cgrid =
       (unsigned)((n + CLASSIFY_THREADS - 1) / CLASSIFY_THREADS);
   bounce_shade_bwd_classify_kernel<<<cgrid, CLASSIFY_THREADS, 0, st>>>(
-      xt, ct, stab, ns, n, need, dx);
+      xt, ct, stab, ns, n, n_alive, need, dx);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   bounce_shade_bwd_list_kernel<<<1, LIST_THREADS, 0, st>>>(need, n, list,

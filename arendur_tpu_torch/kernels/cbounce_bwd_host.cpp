@@ -15,15 +15,15 @@
 
 #include "cbounce_ad.cuh"
 
-// The arguments of arendur_bounce_shade_bwd (host memory), less its
-// scratch; dlt / dmt / dst are overwritten.  need [n]: 1 where the
+// The arguments of arendur_bounce_shade_bwd (host memory, n_alive a
+// plain count), less its scratch; dlt / dmt / dst are overwritten.  need [n]: 1 where the
 // lane's VJP needed the body; nodes [n]: the tape nodes the lane
 // recorded (0 for a lane that needed no body).  Returns the number of
 // lanes that ran past cap (their dx and table shares are NaN).
 extern "C" int arendur_bounce_shade_bwd_host(
     const float* xt, const float* ct, const float* ltab, int nl, int cl,
     const float* mtab, int nm, const float* stab, int ns, long n,
-    const void* cfg_words, int cap, float* dx, float* dlt, float* dmt,
+    long n_alive, const void* cfg_words, int cap, float* dx, float* dlt, float* dmt,
     float* dst, int* need, int* nodes) {
   cshade::ShadeCfg cfg;
   memcpy(&cfg, cfg_words, sizeof(cfg));
@@ -31,7 +31,8 @@ extern "C" int arendur_bounce_shade_bwd_host(
   ad::h_tape.node = tape.data();
   ad::h_tape.stride = 1;
   ad::h_tape.cap = cap;
-  const cshade::Tables tb = {ltab, nl, cl, mtab, nm, stab, ns};
+  const cshade::Tables tb =
+      cshade::dense_tables(ltab, nl, cl, mtab, nm, stab, ns);
   const cbounce_ad::TabLayout lay(nl, cl, nm, ns);
   float* dtab[cshade::N_ROW_SLOTS] = {dmt, dlt, dlt, dst};
   memset(dmt, 0, sizeof(float) * nm * 16);
@@ -41,7 +42,8 @@ extern "C" int arendur_bounce_shade_bwd_host(
   int failed = 0;
   for (long lane = 0; lane < n; ++lane) {
     ad::h_count = 0;
-    need[lane] = cbounce_ad::needs_body(xt + lane, ct + lane, n, tb);
+    need[lane] =
+        cbounce_ad::needs_body(xt + lane, ct + lane, n, lane, n_alive, tb);
     if (!need[lane]) {
       cbounce_ad::pass_through(ct + lane, n, dx + lane);
       nodes[lane] = ad::h_count;

@@ -14,11 +14,15 @@
 // two halves of the fused bounce K3 runs (cbounce_body.cuh hit_info and
 // shade_core), compiled from the same source.
 //
-// Bound: per lane K5 moves 69 floats and K6 82 (276 and 328 B), so at
-// N = 65,536 the bytes take ~5-6 us at the HBM rate; the kernels are
-// bound by the latency and issue rate of a long per-thread program, as
-// K3 is.  The design keeps every intermediate in registers; K5 has no
-// material or light branch, K6 the same divergence as K3.
+// Bound: per lane K5 moves 69 floats and K6 82 (276 and 328 B; K6 41
+// on a lane past the live count), so at N = 65,536 the bytes take ~5-6
+// us at the HBM rate; the kernels are bound by the latency and issue
+// rate of a long per-thread program, as K3 is.  K5 has no material or
+// light branch; K6 has K3's design (kernels/cbounce.cu): only the lanes
+// below the live count n_alive run the body (a block wholly past it
+// writes the contract's columns, cbounce.cuh dead_lane), no arrays in
+// local memory, the light table's rows at an odd pitch in shared
+// memory, and the registers capped at 128 for 4 blocks an SM.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -27,6 +31,8 @@
 namespace {
 
 constexpr int BLOCK = 128;
+constexpr int SPLIT_BLOCK = 128;
+constexpr int SPLIT_MIN_BLOCKS = 4;
 
 __global__ void __launch_bounds__(BLOCK)
     hit_shade_kernel(const float* __restrict__ xt,
@@ -38,34 +44,41 @@ __global__ void __launch_bounds__(BLOCK)
   __syncthreads();
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  cbounce::Tables tb = {};
-  tb.stab = smem;
-  tb.ns = ns;
+  const cshade::Tables tb =
+      cshade::dense_tables(nullptr, 0, 0, nullptr, 0, smem, ns);
   cbounce::hit_lane(xt + lane, n, tb, out + lane);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(SPLIT_BLOCK, SPLIT_MIN_BLOCKS)
     shade_split_kernel(const float* __restrict__ xt,
                        const float* __restrict__ ltab, int nl, int cl,
-                       long n, cbounce::ShadeCfg cfg,
-                       float* __restrict__ out) {
+                       long n, const int* __restrict__ n_alive,
+                       cbounce::ShadeCfg cfg, float* __restrict__ out) {
+  using namespace cshade;
+  const long na = live_count(n_alive, n);
+  const long lane = (long)blockIdx.x * SPLIT_BLOCK + threadIdx.x;
+  if ((long)blockIdx.x * SPLIT_BLOCK >= na) {  // the whole block is past it
+    if (lane < n)
+      cbounce::dead_lane(xt + lane, n, S_BETA, S_L, S_SPECULAR, S_SEL_PREV,
+                         S_WB_PREV, out + lane);
+    return;
+  }
   extern __shared__ float smem[];
-  const int nlt = nl * cl;
-  for (int i = threadIdx.x; i < nlt; i += blockDim.x) smem[i] = ltab[i];
+  const int lp = odd_pitch(cl);
+  stage_rows(ltab, nl, cl, lp, smem);
   __syncthreads();
-  long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  cbounce::Tables tb = {};
-  tb.ltab = smem;
-  tb.nl = nl;
-  tb.cl = cl;
+  if (lane >= na) {
+    cbounce::dead_lane(xt + lane, n, S_BETA, S_L, S_SPECULAR, S_SEL_PREV,
+                       S_WB_PREV, out + lane);
+    return;
+  }
+  const Tables tb{smem, nl, cl, nullptr, 0, nullptr, 0, lp, 0, 0};
   cbounce::shade_split_lane(xt + lane, n, tb, cfg, out + lane);
 }
 
-int set_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+size_t split_smem(int nl, int cl) {
+  return sizeof(float) * (size_t)nl * cshade::odd_pitch(cl);
 }
 
 }  // namespace
@@ -75,7 +88,7 @@ extern "C" int arendur_hit_shade(const float* xt, const float* stab, int ns,
                                  long n, float* out, void* stream) {
   if (n <= 0) return 0;
   size_t smem = sizeof(float) * (size_t)ns * 24;
-  int e = set_smem((const void*)hit_shade_kernel, smem);
+  int e = cshade::allow_smem((const void*)hit_shade_kernel, smem);
   if (e) return e;
   unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
   hit_shade_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(xt, stab, ns,
@@ -83,19 +96,29 @@ extern "C" int arendur_hit_shade(const float* xt, const float* stab, int ns,
   return (int)cudaGetLastError();
 }
 
-// cfg_words: the ShadeCfg as 42 little-endian 32-bit words (host memory)
+// cfg_words: the ShadeCfg as 42 little-endian 32-bit words (host
+// memory); n_alive: the live count on the device (int32; null: every
+// lane is live)
 extern "C" int arendur_shade_split(const float* xt, const float* ltab,
                                    int nl, int cl, long n,
+                                   const int* n_alive,
                                    const void* cfg_words, float* out,
                                    void* stream) {
   if (n <= 0) return 0;
   cbounce::ShadeCfg cfg;
   memcpy(&cfg, cfg_words, sizeof(cfg));
-  size_t smem = sizeof(float) * (size_t)nl * cl;
-  int e = set_smem((const void*)shade_split_kernel, smem);
+  const size_t smem = split_smem(nl, cl);
+  int e = cshade::allow_smem((const void*)shade_split_kernel, smem);
   if (e) return e;
-  unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
-  shade_split_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-      xt, ltab, nl, cl, n, cfg, out);
+  unsigned grid = (unsigned)((n + SPLIT_BLOCK - 1) / SPLIT_BLOCK);
+  shade_split_kernel<<<grid, SPLIT_BLOCK, smem, (cudaStream_t)stream>>>(
+      xt, ltab, nl, cl, n, n_alive, cfg, out);
   return (int)cudaGetLastError();
+}
+
+// What a K6 launch over a light table of nl rows of cl floats holds
+// (cshade::occupancy: smem, blocks an SM, registers, local memory).
+extern "C" int arendur_shade_split_occupancy(int nl, int cl, int* info) {
+  return cshade::occupancy((const void*)shade_split_kernel, SPLIT_BLOCK,
+                           split_smem(nl, cl), info);
 }

@@ -35,17 +35,20 @@ def build(out_dir: str):
                    check=True, capture_output=True, timeout=600)
     fn = ctypes.CDLL(lib).arendur_bounce_shade_bwd_host
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    fn.argtypes = [P, P, P, I, I, P, I, P, I, L, P, I, P, P, P, P, P, P]
+    fn.argtypes = [P, P, P, I, I, P, I, P, I, L, L, P, I, P, P, P, P, P, P]
     fn.restype = I
     return fn
 
 
-def run(fn, xt, ct, ltab, mtab, stab, static, min_depth, rr):
+def run(fn, xt, ct, ltab, mtab, stab, static, min_depth, rr, n_alive=None):
     """(dx, dltab, dmtab, dstab, need [N] bool, nodes [N], lanes past
-    the tape's cap) of the host build on CPU tensors, as numpy."""
+    the tape's cap) of the host build on CPU tensors, as numpy, under
+    the dead-lane contract for the live count n_alive (None: every lane
+    is live)."""
     xt, ct, lt, mt, st = (np.ascontiguousarray(t.numpy(), np.float32)
                           for t in (xt, ct, ltab, mtab, stab))
     n = xt.shape[1]
+    na = n if n_alive is None else int(n_alive)
     cfg = ops.pack_shade_cfg(static, min_depth, rr,
                              sph.THETA_UNIFORM_COMPAT)
     dx = np.empty((cb.IN_COLS, n), np.float32)
@@ -54,6 +57,6 @@ def run(fn, xt, ct, ltab, mtab, stab, static, min_depth, rr):
     nodes = np.empty(n, np.int32)
     p = lambda a: a.ctypes.data  # noqa: E731
     failed = fn(p(xt), p(ct), p(lt), lt.shape[0], lt.shape[1], p(mt),
-                mt.shape[0], p(st), st.shape[0], n, p(cfg), ops.TAPE_CAP,
+                mt.shape[0], p(st), st.shape[0], n, na, p(cfg), ops.TAPE_CAP,
                 p(dx), p(dlt), p(dmt), p(dst), p(need), p(nodes))
     return dx, dlt, dmt, dst, need.astype(bool), nodes, failed

@@ -10,11 +10,14 @@ bxdf/slot_shade.py) reach these only for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from arendur_tpu_torch.kernels import build
+from arendur_tpu_torch.render import cbounce as cb
+from arendur_tpu_torch.shapes import sphere as sph
 
 
 class Kernel:
@@ -73,7 +76,10 @@ def _raise_on(code: int, what: str):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on t's card, as the raw handle (the
+    lookup torch.cuda.current_stream makes, without its Stream
+    object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _n_alive_tensor(n_alive, n: int, device) -> torch.Tensor:
@@ -225,60 +231,102 @@ def pack_slot_cfg(present, dists) -> np.ndarray:
     return _cfg(ints, [0.0, 0.0, 0.0])
 
 
-def _check_smem(*tables):
-    smem = 4 * sum(t.numel() for t in tables)
+def _check_smem(smem: int):
     if smem > SMEM_LIMIT:
         raise ValueError(f"scene tables take {smem} B, more than the "
                          f"{SMEM_LIMIT} B of shared memory a block has")
 
 
-def _shade_args(xt, ltab, mtab, stab, static, min_depth, rr_threshold):
-    """Checked, contiguous, detached inputs of K3 / K4 and the packed
-    ShadeCfg."""
-    from arendur_tpu_torch.render import cbounce as cb
-    from arendur_tpu_torch.shapes import sphere as sph
-    xt, ltab, mtab, stab = (t.detach().contiguous()
-                            for t in (xt, ltab, mtab, stab))
-    n = xt.shape[1]
-    _check(xt, "xt", shape=(cb.IN_COLS, n))
+def shade_smem(nl: int, cl: int, nm: int = 0, ns: int = 0) -> int:
+    """Bytes of shared memory K3 (K6: nm = ns = 0) stages its tables in:
+    each row at the least odd pitch that holds it (kernels/cbounce.cuh
+    odd_pitch)."""
+    return 4 * (nl * (cl | 1) + nm * 17 + ns * 25)
+
+
+@functools.lru_cache(maxsize=256)
+def _shade_cfg(static, min_depth: int, rr_threshold: float,
+               theta_compat: bool):
+    """A pointer to the packed ShadeCfg, packed once per configuration
+    (the pointer keeps its array alive)."""
+    return pack_shade_cfg(static, min_depth, rr_threshold,
+                          theta_compat).ctypes.data_as(ctypes.c_void_p)
+
+
+def _n_alive_ptr(n_alive, device):
+    """(pointer, tensor) of the live count as an int32 device scalar; a
+    null pointer where n_alive is None (every lane live).  The tensor
+    must outlive the launch's enqueue."""
+    if n_alive is None:
+        return None, None
+    if n_alive.dtype != torch.int32 or n_alive.device != device:
+        n_alive = n_alive.to(device=device, dtype=torch.int32)
+    return n_alive.data_ptr(), n_alive
+
+
+def _shade_args(xt, ltab, mtab, stab):
+    """Checked, contiguous inputs of K3 / K4 (their data pointers are
+    read directly: no detach is needed)."""
+    xt, ltab, mtab, stab = (t.contiguous() for t in (xt, ltab, mtab, stab))
+    _check(xt, "xt")
+    if xt.dim() != 2 or xt.shape[0] != cb.IN_COLS:
+        raise ValueError(f"xt has shape {tuple(xt.shape)}, expected "
+                         f"({cb.IN_COLS}, N)")
     _check(ltab, "ltab")
     _check(mtab, "mtab", shape=(mtab.shape[0], 16))
     _check(stab, "stab", shape=(stab.shape[0], 24))
-    _check_smem(ltab, mtab, stab)
-    cfg = pack_shade_cfg(static, min_depth, rr_threshold,
-                         sph.THETA_UNIFORM_COMPAT)
-    return xt, ltab, mtab, stab, cfg
+    _check_smem(shade_smem(ltab.shape[0], ltab.shape[1], mtab.shape[0],
+                           stab.shape[0]))
+    return xt, ltab, mtab, stab
 
 
 def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
-                 rr_threshold: float):
-    """K3: [IN_COLS, N] -> [OUT_COLS, N] on the card."""
-    from arendur_tpu_torch.render import cbounce as cb
+                 rr_threshold: float, n_alive=None):
+    """K3: [IN_COLS, N] -> [OUT_COLS, N] on the card, under the dead-lane
+    contract for the live count n_alive (render/cbounce.py)."""
     lib = build.load()
-    xt, ltab, mtab, stab, cfg = _shade_args(xt, ltab, mtab, stab, static,
-                                            min_depth, rr_threshold)
+    xt, ltab, mtab, stab = _shade_args(xt, ltab, mtab, stab)
+    cfg = _shade_cfg(static, min_depth, rr_threshold,
+                     sph.THETA_UNIFORM_COMPAT)
+    na, _live = _n_alive_ptr(n_alive, xt.device)
     n = xt.shape[1]
     nl, cl = ltab.shape
     out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
     code = lib.arendur_bounce_shade(
         xt.data_ptr(), ltab.data_ptr(), nl, cl, mtab.data_ptr(),
-        mtab.shape[0], stab.data_ptr(), stab.shape[0], n,
-        cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), _stream(xt))
+        mtab.shape[0], stab.data_ptr(), stab.shape[0], n, na, cfg,
+        out.data_ptr(), _stream(xt))
     _raise_on(code, "bounce_shade")
     BOUNCE_SHADE.launched()
     return out
 
 
+def shade_occupancy(ltab, mtab=None, stab=None) -> dict:
+    """What a K3 launch over these tables holds (K6's, where mtab and
+    stab are None): dynamic shared memory of a block (B), blocks an SM
+    holds at once, registers and local memory (B) a thread."""
+    lib = build.load()
+    info = (ctypes.c_int * 4)()
+    nl, cl = ltab.shape
+    if mtab is None:
+        code = lib.arendur_shade_split_occupancy(nl, cl, info)
+    else:
+        code = lib.arendur_bounce_shade_occupancy(nl, cl, mtab.shape[0],
+                                                  stab.shape[0], info)
+    _raise_on(code, "shade occupancy")
+    return dict(zip(("smem", "blocks_per_sm", "registers", "local_bytes"),
+                    info))
+
+
 def hit_shade(xt, stab):
     """K5: the hit body, [HIT_IN_COLS, N] -> [HIT_OUT_COLS, N] on the
     card (geometry only: no gradient)."""
-    from arendur_tpu_torch.render import cbounce as cb
     lib = build.load()
     xt, stab = xt.detach().contiguous(), stab.detach().contiguous()
     n = xt.shape[1]
     _check(xt, "xt", shape=(cb.HIT_IN_COLS, n))
     _check(stab, "stab", shape=(stab.shape[0], 24))
-    _check_smem(stab)
+    _check_smem(4 * stab.numel())
     out = torch.empty(cb.HIT_OUT_COLS, n, dtype=torch.float32,
                       device=xt.device)
     code = lib.arendur_hit_shade(xt.data_ptr(), stab.data_ptr(),
@@ -289,24 +337,28 @@ def hit_shade(xt, stab):
     return out
 
 
-def shade_split(xt, ltab, static, min_depth: int, rr_threshold: float):
+def shade_split(xt, ltab, static, min_depth: int, rr_threshold: float,
+                n_alive=None):
     """K6: the split shade body over texture-resolved columns,
-    [SHADE_IN_COLS, N] -> [OUT_COLS, N] on the card."""
-    from arendur_tpu_torch.render import cbounce as cb
-    from arendur_tpu_torch.shapes import sphere as sph
+    [SHADE_IN_COLS, N] -> [OUT_COLS, N] on the card, under the dead-lane
+    contract for the live count n_alive (render/cbounce.py)."""
     lib = build.load()
-    xt, ltab = xt.detach().contiguous(), ltab.detach().contiguous()
-    n = xt.shape[1]
-    _check(xt, "xt", shape=(cb.SHADE_IN_COLS, n))
+    xt, ltab = xt.contiguous(), ltab.contiguous()
+    _check(xt, "xt")
+    if xt.dim() != 2 or xt.shape[0] != cb.SHADE_IN_COLS:
+        raise ValueError(f"xt has shape {tuple(xt.shape)}, expected "
+                         f"({cb.SHADE_IN_COLS}, N)")
     _check(ltab, "ltab")
-    _check_smem(ltab)
-    cfg = pack_shade_cfg(static, min_depth, rr_threshold,
-                         sph.THETA_UNIFORM_COMPAT)
     nl, cl = ltab.shape
+    _check_smem(shade_smem(nl, cl))
+    cfg = _shade_cfg(static, min_depth, rr_threshold,
+                     sph.THETA_UNIFORM_COMPAT)
+    na, _live = _n_alive_ptr(n_alive, xt.device)
+    n = xt.shape[1]
     out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
     code = lib.arendur_shade_split(
-        xt.data_ptr(), ltab.data_ptr(), nl, cl, n,
-        cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), _stream(xt))
+        xt.data_ptr(), ltab.data_ptr(), nl, cl, n, na, cfg, out.data_ptr(),
+        _stream(xt))
     _raise_on(code, "shade_split")
     SHADE_SPLIT.launched()
     return out
@@ -362,19 +414,21 @@ RED_LANES = 256
 
 
 def bounce_shade_bwd(xt, ltab, mtab, stab, ct, static, min_depth: int,
-                     rr_threshold: float, stats: dict = None):
-    """K4: the VJP of K3 for the output cotangent ct [OUT_COLS, N] on
-    the card: (dx [IN_COLS, N], dltab, dmtab, dstab).  Only the lanes
-    whose VJP needs the body (render/cbounce.py bwd_needs_body) are
-    taped; the others take the pass-through.  A taped lane whose forward
-    needs more than TAPE_CAP tape nodes comes back NaN.  stats, when
-    given, receives "nodes": an int64 device tensor [3], the most tape
-    nodes a lane used, their sum over lanes and the number of lanes
+                     rr_threshold: float, n_alive=None, stats: dict = None):
+    """K4: the VJP of K3 (under the dead-lane contract for n_alive) for
+    the output cotangent ct [OUT_COLS, N] on the card: (dx [IN_COLS, N],
+    dltab, dmtab, dstab).  Only the lanes whose VJP needs the body
+    (render/cbounce.py bwd_needs_body) are taped; the others, lanes past
+    n_alive among them, take the pass-through.  A taped lane whose
+    forward needs more than TAPE_CAP tape nodes comes back NaN.  stats,
+    when given, receives "nodes": an int64 device tensor [3], the most
+    tape nodes a lane used, their sum over lanes and the number of lanes
     that needed the body (reading it syncs)."""
-    from arendur_tpu_torch.render import cbounce as cb
     lib = build.load()
-    xt, ltab, mtab, stab, cfg = _shade_args(xt, ltab, mtab, stab, static,
-                                            min_depth, rr_threshold)
+    xt, ltab, mtab, stab = _shade_args(xt, ltab, mtab, stab)
+    cfg = _shade_cfg(static, min_depth, rr_threshold,
+                     sph.THETA_UNIFORM_COMPAT)
+    na, _live = _n_alive_ptr(n_alive, xt.device)
     n = xt.shape[1]
     ct = ct.detach().to(torch.float32).contiguous()
     _check(ct, "ct", shape=(cb.OUT_COLS, n))
@@ -397,8 +451,8 @@ def bounce_shade_bwd(xt, ltab, mtab, stab, ct, static, min_depth: int,
     nodes = torch.empty(3, dtype=torch.int64, device=dev)
     code = lib.arendur_bounce_shade_bwd(
         xt.data_ptr(), ct.data_ptr(), ltab.data_ptr(), nl, cl,
-        mtab.data_ptr(), nm, stab.data_ptr(), ns, n,
-        cfg.ctypes.data_as(ctypes.c_void_p), tape.data_ptr(), threads,
+        mtab.data_ptr(), nm, stab.data_ptr(), ns, n, na, cfg,
+        tape.data_ptr(), threads,
         TAPE_CAP, lists.data_ptr(), dx.data_ptr(), lane_tab.data_ptr(),
         lane_rows.data_ptr(), partials.data_ptr(), dlt.data_ptr(),
         dmt.data_ptr(), dst.data_ptr(), nodes.data_ptr(), _stream(xt))

@@ -50,6 +50,7 @@ __device__ __forceinline__ void read_slots(const float* x, long n,
   b->ts = col3(x, n, 3);
   b->bs = col3(x, n, 6);
   b->ng = col3(x, n, 9);
+#pragma unroll
   for (int k = 0; k < K; ++k) {
     b->type[k] = (int)x[(long)(C_TYPE + k) * n];
     b->kind[k] = (int)x[(long)(C_KIND + k) * n];

@@ -31,6 +31,18 @@ ray-cone uv footprint) and ``cbody_shade`` ([SHADE_IN_COLS=50, N] ->
 its plain body on either device, as the JAX package's is.
 
 Scene-table rows are direct indexed loads (no row cap).
+
+The dead-lane contract: every entry takes ``n_alive``, the wave's live
+count after compaction (a device scalar; None: every lane is live).
+Lanes below it are shaded as the body shades them.  A lane at or past
+it (alive first, so it is not alive) skips the body: its L, beta,
+specular, sel_prev and wb_prev pass through, alive, nee_prev,
+need_shadow and contrib are 0, and its rays take constants
+(``dead_lane_out``).  Nothing reads those lanes (the intersect kernels
+treat them as misses, the deferred MIS gates on alive, the unpermute
+reads L, which equals the body's), and their VJP is the identity on the
+carried values (``bwd_pass_through``).  The JAX package shades every
+lane; on those lanes beta and the ray columns differ from its body's.
 """
 
 from __future__ import annotations
@@ -79,6 +91,8 @@ C_BOUNCE = 57
 IN_COLS = 58
 OUT_COLS = 32
 OUT_L = 6         # output L: 6:9
+OUT_BETA = 9      # output beta: 9:12
+OUT_WB_PREV = 15
 
 
 # ---------------------------------------------------------------------------
@@ -890,6 +904,50 @@ S_U_RR = 48
 S_BOUNCE = 49
 SHADE_IN_COLS = 50
 
+# the input columns a lane past n_alive carries through (beta, L,
+# specular, sel_prev, wb_prev), in the fused and the split shade layout
+CARRIED = (C_BETA, C_L, C_SPECULAR, C_SEL_PREV, C_WB_PREV)
+S_CARRIED = (S_BETA, S_L, S_SPECULAR, S_SEL_PREV, S_WB_PREV)
+
+
+def dead_lanes(n_alive, n: int, device):
+    """[N] bool: the lanes at or past the live count n_alive (a device
+    scalar), or None where n_alive is None (every lane is live)."""
+    if n_alive is None:
+        return None
+    return torch.arange(n, device=device) >= n_alive
+
+
+def dead_lane_out(xt, carried=CARRIED) -> torch.Tensor:
+    """[OUT_COLS, N]: the output of lanes past the live count (kernel
+    twin: kernels/cbounce.cuh dead_lane), for inputs xt whose carried
+    columns are `carried` (CARRIED or S_CARRIED): L, beta and wb_prev
+    pass through, specular and sel_prev as the body converts them;
+    o = sh_o = 0, d = sh_d = (0, 0, 1), sh_t = 0, and alive, nee_prev,
+    need_shadow and contrib 0."""
+    c_beta, c_l, c_spec, c_sel, c_wb = carried
+    zero = torch.zeros_like(xt[0])
+    one = torch.ones_like(zero)
+    rows = [zero, zero, zero, zero, zero, one,
+            xt[c_l], xt[c_l + 1], xt[c_l + 2],
+            xt[c_beta], xt[c_beta + 1], xt[c_beta + 2],
+            zero, (xt[c_spec] > 0.5).to(torch.float32),
+            xt[c_sel].to(torch.int32).to(torch.float32), xt[c_wb], zero,
+            zero, zero, zero, zero, zero, one, zero, zero,
+            zero, zero, zero]
+    return torch.stack(rows + [zero] * (OUT_COLS - len(rows)), dim=0)
+
+
+def _live_lanes_only(body, xt, n_alive, carried):
+    """body(xt) [OUT_COLS, N] on the lanes below n_alive and
+    dead_lane_out on the others.  The dead lanes enter the body
+    detached, so no gradient reaches their inputs through it."""
+    dead = dead_lanes(n_alive, xt.shape[1], xt.device)
+    if dead is None:
+        return body(xt)
+    return torch.where(dead, dead_lane_out(xt, carried),
+                       body(torch.where(dead, xt.detach(), xt)))
+
 
 def cbody_shade(col, ltab, *, presence, dist_sets, lcidx, lpresent,
                 emi_cols, min_depth, rr_threshold, full_phi):
@@ -920,52 +978,64 @@ def _static_kwargs(static: sc.ShadeStatic, min_depth, rr_threshold):
 
 
 def cbody_reference(xt, ltab, mtab, stab, static: sc.ShadeStatic,
-                    min_depth: int, rr_threshold: float) -> torch.Tensor:
+                    min_depth: int, rr_threshold: float,
+                    n_alive=None) -> torch.Tensor:
     """Plain PyTorch version of the bounce-shade kernel: the body over
-    the transposed wave xt [IN_COLS, N] -> [OUT_COLS, N]."""
-    outs = cbody(lambda i: xt[i], ltab, mtab, stab,
-                 **_static_kwargs(static, min_depth, rr_threshold))
-    return torch.stack(outs, dim=0)
+    the transposed wave xt [IN_COLS, N] -> [OUT_COLS, N], under the
+    dead-lane contract for n_alive."""
+    kw = _static_kwargs(static, min_depth, rr_threshold)
+    return _live_lanes_only(
+        lambda x: torch.stack(cbody(lambda i: x[i], ltab, mtab, stab, **kw),
+                              dim=0), xt, n_alive, CARRIED)
 
 
 def cbody_vjp_reference(xt, ltab, mtab, stab, ct, static: sc.ShadeStatic,
-                        min_depth: int, rr_threshold: float):
+                        min_depth: int, rr_threshold: float, n_alive=None):
     """Plain PyTorch version of the bounce-shade backward kernel:
-    autograd over the body for the output cotangent ct [OUT_COLS, N].
-    Returns (dx [IN_COLS, N], dltab, dmtab, dstab); inputs the body
-    does not differentiate get zeros, as jax.vjp gives them."""
+    autograd over the body (under the dead-lane contract for n_alive)
+    for the output cotangent ct [OUT_COLS, N].  Returns (dx [IN_COLS,
+    N], dltab, dmtab, dstab); inputs the body does not differentiate get
+    zeros, as jax.vjp gives them."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True)
                for t in (xt, ltab, mtab, stab)]
-        out = cbody_reference(*ins, static, min_depth, rr_threshold)
+        out = cbody_reference(*ins, static, min_depth, rr_threshold,
+                              n_alive)
         grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, ins))
 
 
-def bwd_needs_body(xt, ct, stab) -> torch.Tensor:
+def bwd_needs_body(xt, ct, stab, n_alive=None) -> torch.Tensor:
     """Plain twin of K4's classifier (kernels/cbounce_ad.cuh needs_body):
-    [N] bool, True where a lane's VJP needs the body.  It does not where
-    the lane adds no emission (its emission gate: alive, hit, and a
-    light id >= 0, as _hit_info / _shade_core read it) and the output
-    cotangent ct [OUT_COLS, N] is zero in columns 0..27 outside L and
-    finite on L.  There L_out = L_in + 0 and no other output has a
-    cotangent, so the VJP is the pass-through: ct_L in dx's L columns,
-    zero in every other dx column and table cotangent."""
+    [N] bool, True where a lane's VJP needs the body.  A lane past
+    n_alive never does: its forward passes L, beta and wb_prev through.
+    Nor does a lane that adds no emission (its emission gate: alive,
+    hit, and a light id >= 0, as _hit_info / _shade_core read it) and
+    whose output cotangent ct [OUT_COLS, N] is zero in columns 0..27
+    outside L and finite on L: there L_out = L_in + 0 and no other
+    output has a cotangent.  Either way the VJP is the pass-through
+    (bwd_pass_through) and no table cotangent."""
     hitmask = xt[C_HIT] > 0.5
     srow = CRow(stab, xt[C_S_IDX].to(torch.int32))
     light_id = W(xt[C_IS_SPH] > 0.5, srow.col_abs(21),
                  xt[C_TROW + 25]).to(torch.int32)
     emit = (xt[C_ALIVE] > 0.5) & hitmask & (light_id >= 0)
     other = torch.cat([ct[:OUT_L], ct[OUT_L + 3:28]])
-    return emit | (other != 0).any(0) \
+    need = emit | (other != 0).any(0) \
         | ~torch.isfinite(ct[OUT_L:OUT_L + 3]).all(0)
+    dead = dead_lanes(n_alive, xt.shape[1], xt.device)
+    return need if dead is None else need & ~dead
 
 
 def bwd_pass_through(ct) -> torch.Tensor:
-    """dx [IN_COLS, N] of a lane whose VJP needs no body: ct_L on L_in."""
+    """dx [IN_COLS, N] of a lane whose VJP needs no body: the cotangents
+    of L, beta and wb_prev on their input columns (beta's and wb_prev's
+    are zero on a live lane that needs no body), zero elsewhere."""
     dx = ct.new_zeros(IN_COLS, ct.shape[1])
     dx[C_L:C_L + 3] = ct[OUT_L:OUT_L + 3]
+    dx[C_BETA:C_BETA + 3] = ct[OUT_BETA:OUT_BETA + 3]
+    dx[C_WB_PREV] = ct[OUT_WB_PREV]
     return dx
 
 
@@ -976,31 +1046,32 @@ class _BounceShadeKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xt, ltab, mtab, stab, static, min_depth,
-                rr_threshold):
+                rr_threshold, n_alive):
         from arendur_tpu_torch.kernels import ops
         ctx.save_for_backward(xt, ltab, mtab, stab)
-        ctx.cfg = (static, min_depth, rr_threshold)
+        ctx.cfg = (static, min_depth, rr_threshold, n_alive)
         return ops.bounce_shade(xt, ltab, mtab, stab, static, min_depth,
-                                rr_threshold)
+                                rr_threshold, n_alive)
 
     @staticmethod
     def backward(ctx, g):
         from arendur_tpu_torch.kernels import ops
         xt, ltab, mtab, stab = ctx.saved_tensors
         grads = ops.bounce_shade_bwd(xt, ltab, mtab, stab, g, *ctx.cfg)
-        return tuple(grads) + (None, None, None)
+        return tuple(grads) + (None,) * 4
 
 
 def bounce_shade_t(xt, ltab, mtab, stab, static: sc.ShadeStatic,
-                   min_depth: int, rr_threshold: float) -> torch.Tensor:
-    """The bounce shade over xt [IN_COLS, N] -> [OUT_COLS, N]: the
-    hand-written kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+                   min_depth: int, rr_threshold: float,
+                   n_alive=None) -> torch.Tensor:
+    """The bounce shade over xt [IN_COLS, N] -> [OUT_COLS, N] under the
+    dead-lane contract for n_alive: the hand-written kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if xt.is_cuda:
         return _BounceShadeKernel.apply(xt, ltab, mtab, stab, static,
-                                        min_depth, rr_threshold)
+                                        min_depth, rr_threshold, n_alive)
     return cbody_reference(xt, ltab, mtab, stab, static, min_depth,
-                           rr_threshold)
+                           rr_threshold, n_alive)
 
 
 def unpack_out_t(out: torch.Tensor) -> dict:
@@ -1022,22 +1093,27 @@ def cbody_hit_reference(xt: torch.Tensor, stab: torch.Tensor) -> torch.Tensor:
 
 
 def cbody_shade_reference(xt, ltab, static: sc.ShadeStatic, min_depth: int,
-                          rr_threshold: float) -> torch.Tensor:
+                          rr_threshold: float, n_alive=None) -> torch.Tensor:
     """Plain PyTorch version of the split shade kernel:
-    [SHADE_IN_COLS, N] -> [OUT_COLS, N]."""
-    outs = cbody_shade(lambda i: xt[i], ltab,
-                       **_static_kwargs(static, min_depth, rr_threshold))
-    return torch.stack(outs, dim=0)
+    [SHADE_IN_COLS, N] -> [OUT_COLS, N], under the dead-lane contract
+    for n_alive."""
+    kw = _static_kwargs(static, min_depth, rr_threshold)
+    return _live_lanes_only(
+        lambda x: torch.stack(cbody_shade(lambda i: x[i], ltab, **kw), dim=0),
+        xt, n_alive, S_CARRIED)
 
 
 def cbody_shade_vjp_reference(xt, ltab, ct, static: sc.ShadeStatic,
-                              min_depth: int, rr_threshold: float):
+                              min_depth: int, rr_threshold: float,
+                              n_alive=None):
     """The split shade's backward: autograd over the plain shade body
-    for the output cotangent ct [OUT_COLS, N] -> (dx, dltab), as the
-    JAX package's _bwd_shade takes jax.vjp of its plain body."""
+    (under the dead-lane contract for n_alive) for the output cotangent
+    ct [OUT_COLS, N] -> (dx, dltab), as the JAX package's _bwd_shade
+    takes jax.vjp of its plain body."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (xt, ltab)]
-        out = cbody_shade_reference(*ins, static, min_depth, rr_threshold)
+        out = cbody_shade_reference(*ins, static, min_depth, rr_threshold,
+                                    n_alive)
         grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, ins))
@@ -1061,27 +1137,30 @@ class _ShadeSplitKernel(torch.autograd.Function):
     backward kernel for this shade either)."""
 
     @staticmethod
-    def forward(ctx, xt, ltab, static, min_depth, rr_threshold):
+    def forward(ctx, xt, ltab, static, min_depth, rr_threshold, n_alive):
         from arendur_tpu_torch.kernels import ops
         ctx.save_for_backward(xt, ltab)
-        ctx.cfg = (static, min_depth, rr_threshold)
-        return ops.shade_split(xt, ltab, static, min_depth, rr_threshold)
+        ctx.cfg = (static, min_depth, rr_threshold, n_alive)
+        return ops.shade_split(xt, ltab, static, min_depth, rr_threshold,
+                               n_alive)
 
     @staticmethod
     def backward(ctx, g):
         grads = cbody_shade_vjp_reference(*ctx.saved_tensors, g, *ctx.cfg)
-        return tuple(grads) + (None, None, None)
+        return tuple(grads) + (None,) * 4
 
 
 def shade_split_t(xt, ltab, static: sc.ShadeStatic, min_depth: int,
-                  rr_threshold: float) -> torch.Tensor:
-    """The split shade over xt [SHADE_IN_COLS, N] -> [OUT_COLS, N]: the
-    hand-written kernel for CUDA tensors, the plain version for CPU
-    tensors; differentiable in xt and ltab."""
+                  rr_threshold: float, n_alive=None) -> torch.Tensor:
+    """The split shade over xt [SHADE_IN_COLS, N] -> [OUT_COLS, N] under
+    the dead-lane contract for n_alive: the hand-written kernel for CUDA
+    tensors, the plain version for CPU tensors; differentiable in xt and
+    ltab."""
     if xt.is_cuda:
         return _ShadeSplitKernel.apply(xt, ltab, static, min_depth,
-                                       rr_threshold)
-    return cbody_shade_reference(xt, ltab, static, min_depth, rr_threshold)
+                                       rr_threshold, n_alive)
+    return cbody_shade_reference(xt, ltab, static, min_depth, rr_threshold,
+                                 n_alive)
 
 
 def unpack_hit_t(out: torch.Tensor) -> dict:

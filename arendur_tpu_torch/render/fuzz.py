@@ -152,17 +152,23 @@ def train_step_bounces(ds, camera, film_cfg, config, ops, target, ray_idx):
     step (parallel/mesh.py, kd only, kd at 1.25x the scene's) of the wave
     ray_idx against target [H*W, 3] through ops (a WaveOps of
     render/integrator.py), on ds's device: per bounce, in order, a dict
-    of the fused bounce shade's input "xt" and tables "ltab", "mtab",
-    "stab" (detached) and its output's cotangent "ct" [OUT_COLS, N]."""
+    of the fused bounce shade's input "xt", tables "ltab", "mtab",
+    "stab" (detached), live count "n_alive" (a device scalar or None)
+    and its output's cotangent "ct" [OUT_COLS, N]."""
     import torch
     from arendur_tpu_torch.parallel import mesh
     bounces = []
 
-    def bounce_shade(xt, ltab, mtab, stab, static, min_depth, rr_threshold):
-        out = ops.bounce_shade(xt, ltab, mtab, stab, static, min_depth,
-                               rr_threshold)
+    def bounce_shade(xt, ltab, mtab, stab, static, min_depth, rr_threshold,
+                     n_alive=None):
+        args = (xt, ltab, mtab, stab, static, min_depth, rr_threshold)
+        # (a checkout whose wave hands the shade no live count calls
+        # entries that take none)
+        out = ops.bounce_shade(*args) if n_alive is None \
+            else ops.bounce_shade(*args, n_alive=n_alive)
         rec = dict(xt=xt.detach(), ltab=ltab.detach(), mtab=mtab.detach(),
-                   stab=stab.detach())
+                   stab=stab.detach(),
+                   n_alive=None if n_alive is None else n_alive.clone())
         bounces.append(rec)
         out.register_hook(lambda g: rec.update(ct=g.detach()))
         return out
@@ -213,6 +219,47 @@ def fuzz_split_inputs(ltab, mtab, stab, seed: int = 0, n: int = 2048,
     return xh, xs, x.T.contiguous()
 
 
+def _trace(ds, camera, film_cfg, config, ops, wave: int):
+    """trace_wave of wave `wave` of a render (as render() cuts the waves
+    of config.wave_size rays) through ops, without gradients."""
+    import torch
+    from arendur_tpu_torch.render import integrator as integ
+    from arendur_tpu_torch.sampling import sampler as smp
+    w = film_cfg.resolution[0]
+    ray_idx = wave * config.wave_size + torch.arange(
+        config.wave_size, dtype=torch.int64, device=ds.device)
+    pid = ray_idx // config.spp
+    pxy = torch.stack([(pid % w).to(torch.float32),
+                       (pid // w).to(torch.float32)], -1)
+    with torch.no_grad():
+        integ.trace_wave(ds, camera, config, pxy, pid, ray_idx % config.spp,
+                         smp.make_base_key(config.seed), ops=ops)
+
+
+def wave_shades(ds, camera, film_cfg, config, ops, wave: int = 0):
+    """The bounce shades of wave `wave` of a render through ops (a WaveOps
+    of render/integrator.py): the fused bounce shade's calls (K3), or
+    the split shade's (K6) where config carries textures.  Per bounce,
+    in order, a dict of its input "xt", the live count "n_alive" it was
+    handed (a device scalar, or None) and its output "out"."""
+    shades = []
+    textured = config.textures is not None
+    entry = ops.shade_split if textured else ops.bounce_shade
+
+    def record(xt, *args, n_alive=None):
+        out = entry(xt, *args) if n_alive is None \
+            else entry(xt, *args, n_alive=n_alive)
+        shades.append(dict(xt=xt.detach().clone(),
+                           n_alive=None if n_alive is None
+                           else n_alive.clone(), out=out.detach().clone()))
+        return out
+
+    wops = dataclasses.replace(
+        ops, **{"shade_split" if textured else "bounce_shade": record})
+    _trace(ds, camera, film_cfg, config, wops, wave)
+    return shades
+
+
 def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     """The closest-hit and any-hit queries of wave `wave` of a render
     (render/integrator.py trace_wave, as render() cuts the waves of
@@ -222,9 +269,6 @@ def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     of "kind" ("closest" or "any"), the arguments "o", "d", "tmax",
     "n_alive" (a device scalar or None), "period", "sph_tab" and
     "full_phi", and the result: "t" and "slot", or "blocked"."""
-    import torch
-    from arendur_tpu_torch.render import integrator as integ
-    from arendur_tpu_torch.sampling import sampler as smp
     queries = []
 
     def record(kind, fn):
@@ -247,15 +291,7 @@ def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     wops = dataclasses.replace(ops, closest_hit=record("closest",
                                                        ops.closest_hit),
                                any_hit=record("any", ops.any_hit))
-    w = film_cfg.resolution[0]
-    ray_idx = wave * config.wave_size + torch.arange(
-        config.wave_size, dtype=torch.int64, device=ds.device)
-    pid = ray_idx // config.spp
-    pxy = torch.stack([(pid % w).to(torch.float32),
-                       (pid // w).to(torch.float32)], -1)
-    with torch.no_grad():
-        integ.trace_wave(ds, camera, config, pxy, pid, ray_idx % config.spp,
-                         smp.make_base_key(config.seed), ops=wops)
+    _trace(ds, camera, film_cfg, config, wops, wave)
     return queries
 
 

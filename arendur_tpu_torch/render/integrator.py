@@ -117,7 +117,8 @@ PLAIN_OPS = WaveOps(ci.intersect_clusters_reference,
 
 
 def _compact_perm(alive: torch.Tensor):
-    """Stable alive-first permutation + live count (a device scalar)."""
+    """Stable alive-first permutation + live count (an int32 device
+    scalar, the form the kernels read)."""
     n = alive.shape[0]
     ai = alive.to(torch.int64)
     n_alive = ai.sum()
@@ -126,7 +127,7 @@ def _compact_perm(alive: torch.Tensor):
     dst = torch.where(alive, pos_alive, pos_dead)
     perm = torch.empty(n, dtype=torch.int64, device=alive.device)
     perm[dst] = torch.arange(n, device=alive.device)
-    return perm, n_alive
+    return perm, n_alive.to(torch.int32)
 
 
 def _permute(carry: dict, perm: torch.Tensor) -> dict:
@@ -438,7 +439,8 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
                                    u_rr, bounce)
             out_t = ops.bounce_shade(xt, scene.ltab, scene.mtab,
                                      scene.stab, static, config.min_depth,
-                                     float(config.rr_threshold))
+                                     float(config.rr_threshold),
+                                     n_alive=n_alive)
         else:
             # the textured split: hit kernel, texel lookups, shade
             # kernel; the hit geometry is detached, as in the JAX package
@@ -453,7 +455,8 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
                                   u_bsdf, u_rr, bounce)
             out_t = ops.shade_split(xs, scene.ltab, static,
                                     config.min_depth,
-                                    float(config.rr_threshold))
+                                    float(config.rr_threshold),
+                                    n_alive=n_alive)
         r = cb.unpack_out_t(out_t)
         blocked = occluded(scene, r["sh_o"].contiguous(),
                            r["sh_d"].contiguous(), r["sh_t"].contiguous(),

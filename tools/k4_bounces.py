@@ -9,7 +9,9 @@ the one in DIR, so that one call can time two checkouts in turns
 examples/cornellbox/cb.json at 256x256, 16 spp, depth 8, waves of
 65,536, kd at 1.25x its table value against the kernel-path image.
 The bounces are recorded by this checkout's render/fuzz.py
-train_step_bounces and timed with chip_smoke.py's helpers: per bounce,
+train_step_bounces (with each bounce's live count, where the timed
+checkout's wave hands its shade one) and timed with chip_smoke.py's
+helpers: per bounce,
 K4's ms per call by CUDA events (time_ms) and on the card (every
 launch of the call, k4_device_ms); then fwd+bwd paths/s over 3 steps
 after a warm one, and one step's wall and device busy time
@@ -69,7 +71,9 @@ def main():
     for r in fuzz.train_step_bounces(
             ds, camera, film_cfg, config, integ.KERNEL_OPS, target, idx0):
         args = (r["xt"], r["ltab"], r["mtab"], r["stab"], r["ct"]) + cfg
-        call = lambda: ops.bounce_shade_bwd(*args)  # noqa: E731
+        # the bounce's live count, where the checkout's wave hands one
+        kw = {} if r.get("n_alive") is None else {"n_alive": r["n_alive"]}
+        call = lambda: ops.bounce_shade_bwd(*args, **kw)  # noqa: E731
         per_bounce.append(dict(ms=cs.time_ms(call, 5),
                                device_ms=cs.k4_device_ms(call)))
 
