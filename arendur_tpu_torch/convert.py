@@ -38,12 +38,12 @@ def _fields(obj, cls, **extra):
 
 def scene_data_from_numpy(scene) -> sc.SceneData:
     """The JAX package's SceneData (NumPy leaves) as the port's
-    SceneData.  Instanced meshes and BVH-only scenes are not ported."""
-    if getattr(scene, "inst", ()):
-        raise NotImplementedError("instanced meshes are not yet ported")
-    if scene.tri_cw is None:
-        raise NotImplementedError("scenes without cluster tables are not "
-                                  "yet ported")
+    SceneData, its instanced meshes included.  A scene whose world
+    triangles have no cluster tables (BVH-only or brute force) is not
+    ported; one without world triangles is."""
+    if scene.tri_cw is None and scene.n_tris:
+        raise NotImplementedError("triangles without cluster tables are "
+                                  "not yet ported")
     s = scene.spheres
     spheres = _fields(s, sph.SphereSoA, phi_full=bool(s.phi_full))
     lt = scene.lights
@@ -56,6 +56,8 @@ def scene_data_from_numpy(scene) -> sc.SceneData:
         spheres=spheres, materials=materials, lights=lights,
         tri_cw=_np(scene.tri_cw), tri_cbox=_np(scene.tri_cbox),
         tri_remap=_np(scene.tri_remap),
+        inst=tuple(_fields(im, sc.InstancedMesh)
+                   for im in getattr(scene, "inst", ())),
         light_distribution=sc.Distribution1D(
             func=_np(dist.func), cdf=_np(dist.cdf),
             func_int=np.float32(dist.func_int)))

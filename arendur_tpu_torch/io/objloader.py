@@ -237,20 +237,34 @@ def material_row_from_mtl(mtl: Optional[Mtl], atlas_builder=None,
                 **texes)
 
 
-def load_obj_into(builder, path: str, transform=None):
-    """component::load_obj analogue: parse, infer materials, append
-    all (object, material) groups to a SceneBuilder.  Image maps are
-    registered on the builder's atlas."""
+def load_obj_groups(builder, path: str):
+    """Parse an .obj, register its materials and image maps on the
+    builder, and return its (object, material) groups as dicts (vertices,
+    faces, normals, uvs, mat_id) without adding geometry: the form
+    SceneBuilder.add_instanced_mesh takes, so that the mesh is loaded once
+    however many instances place it (ref: component/transformed.rs:20)."""
     mat_ids: Dict[str, int] = {}
     atlas_builder = getattr(builder, "atlas", None)
     tex_cache = getattr(builder, "tex_cache", {})
     base = os.path.dirname(os.path.abspath(path))
+    groups = []
     for mesh in parse_obj(path):
         key = mesh.material.name if mesh.material else "<default>"
         if key not in mat_ids:
             mat_ids[key] = builder.add_material(**material_row_from_mtl(
                 mesh.material, atlas_builder=atlas_builder,
                 tex_cache=tex_cache, base=base))
-        builder.add_mesh(mesh.vertices, mesh.faces, mat_ids[key],
-                         normals=mesh.normals, uvs=mesh.uvs,
+        groups.append(dict(vertices=mesh.vertices, faces=mesh.faces,
+                           normals=mesh.normals, uvs=mesh.uvs,
+                           mat_id=mat_ids[key]))
+    return groups
+
+
+def load_obj_into(builder, path: str, transform=None):
+    """component::load_obj analogue: parse, infer materials, append
+    all (object, material) groups to a SceneBuilder, baked by
+    `transform`.  Image maps are registered on the builder's atlas."""
+    for g in load_obj_groups(builder, path):
+        builder.add_mesh(g["vertices"], g["faces"], g["mat_id"],
+                         normals=g["normals"], uvs=g["uvs"],
                          transform=transform)

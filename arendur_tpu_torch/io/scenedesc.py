@@ -5,8 +5,10 @@ e.g. examples/cornellbox/cb.json).
 parse_scene(path) returns (SceneData, CameraData, FilmConfig,
 RenderConfig, outputfilename); the scene's image textures ride the
 RenderConfig as a TextureAtlas, emission profiles of sphere lights
-included.  Mesh instancing is not ported yet and raises
-NotImplementedError.
+included.  Meshes are deferred to the end: a "Transformed" component
+over a Mesh makes it an instanced mesh (one shared copy placed by the
+mesh's transform and by each "Transformed" composed after it), a Mesh
+that none names is baked into the world pool.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from arendur_tpu_torch.filming import camera as cam
 from arendur_tpu_torch.filming import film as flm
 from arendur_tpu_torch.sampling import filters as filt
 from arendur_tpu_torch.render.integrator import RenderConfig
-from arendur_tpu_torch.io.objloader import load_obj_into, texture_id_for
+from arendur_tpu_torch.io.objloader import (load_obj_groups, load_obj_into,
+                                            texture_id_for)
 
 
 def _mat4(obj) -> np.ndarray:
@@ -186,6 +189,7 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
     mat_ids: Dict[str, int] = {}
     sphere_specs: Dict[str, dict] = {}
     mesh_specs: Dict[str, dict] = {}
+    mesh_instances: Dict[str, list] = {}
 
     for light in desc.get("lights", []):
         (kind, body), = light.items()
@@ -264,8 +268,12 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
                                emission_tex_mean=etex_mean)
         elif kind == "Transformed":
             if body["original"] in mesh_specs:
-                raise NotImplementedError(
-                    "mesh instancing is not yet ported")
+                # mesh instancing: the geometry is shared, the mesh's own
+                # transform applies first, then this one
+                mesh_instances.setdefault(body["original"], []).append(
+                    mesh_specs[body["original"]]["transform"]
+                    @ _mat4(body["transform"]))
+                continue
             orig = sphere_specs.get(body["original"])
             if orig is None:
                 continue
@@ -277,8 +285,16 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
                                emission_tex=s["emission_tex"],
                                emission_tex_mean=s["emission_tex_mean"])
 
-    for spec in mesh_specs.values():
-        load_obj_into(builder, spec["fname"], transform=spec["transform"])
+    # the deferred meshes: baked where placed once, instanced (one shared
+    # copy, the mesh's own placement first) where a "Transformed" names it
+    for mname, spec in mesh_specs.items():
+        extra = mesh_instances.get(mname, [])
+        if not extra:
+            load_obj_into(builder, spec["fname"], transform=spec["transform"])
+        else:
+            builder.add_instanced_mesh(
+                load_obj_groups(builder, spec["fname"]),
+                [spec["transform"]] + extra)
 
     scene = builder.build()
 

@@ -135,6 +135,8 @@ def load() -> _Kernels:
             lib.arendur_any_hit.restype = I
             lib.arendur_max_spheres.argtypes = []
             lib.arendur_max_spheres.restype = I
+            lib.arendur_isect_encodes.argtypes = []
+            lib.arendur_isect_encodes.restype = ctypes.c_longlong
             lib.arendur_isect_occupancy.argtypes = [I, I, P]
             lib.arendur_isect_occupancy.restype = I
             lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, L,

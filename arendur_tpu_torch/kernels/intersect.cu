@@ -338,7 +338,8 @@ __global__ void __launch_bounds__(32 * W)
   // cluster) written beside it.  The next cluster staged is the next one
   // some ray of the block wants at warp 0's bounds then (a closest hit's
   // bounds merged up to the clusters swept so far, so a superset of what
-  // the warps will want when they reach it).
+  // the warps will want when they reach it).  With no clusters (C = 0)
+  // the first item is the end tag: no request is issued.
   const int per = K / CHUNK;
   auto next_wanted = [&](int c) {
     for (++c; c < C; ++c) {
@@ -493,19 +494,30 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // The TMA descriptor of the weights w [C, 16, 4K] seen as a 2-D tensor
 // of C * 64 rows (cluster, feature, quantity) of K floats, read in
 // boxes of 64 rows x CHUNK columns: one chunk of one cluster.  It
-// depends on (w, C, K) alone, so the last one encoded is kept: a wave's
-// 17 launches on one scene encode it once.
+// depends on (w, C, K) alone, so the last MAP_CACHE encoded are kept,
+// the oldest replaced first: a wave's launches on one scene, which
+// alternate between the world's weights and each instanced mesh's,
+// encode each once.  `encodes` counts the encodings since the library
+// was loaded.
+constexpr int MAP_CACHE = 8;
+long long encodes = 0;
+
 cudaError_t weight_map(const float* w, int C, int K, CUtensorMap* map) {
+  struct Entry {
+    const float* w;
+    int C, K;
+    CUtensorMap map;
+  };
   static std::mutex lock;
   static EncodeTiled encode = nullptr;
-  static const float* last_w = nullptr;
-  static int last_c = 0, last_k = 0;
-  static CUtensorMap last;
+  static Entry cache[MAP_CACHE];
+  static int used = 0, next = 0;
   std::lock_guard<std::mutex> hold(lock);
-  if (w == last_w && C == last_c && K == last_k) {
-    *map = last;
-    return cudaSuccess;
-  }
+  for (int i = 0; i < used; ++i)
+    if (cache[i].w == w && cache[i].C == C && cache[i].K == K) {
+      *map = cache[i].map;
+      return cudaSuccess;
+    }
   if (!encode) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -532,10 +544,10 @@ cudaError_t weight_map(const float* w, int C, int K, CUtensorMap* map) {
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  last = *map;
-  last_w = w;
-  last_c = C;
-  last_k = K;
+  ++encodes;
+  cache[next] = Entry{w, C, K, *map};
+  next = (next + 1) % MAP_CACHE;
+  if (used < MAP_CACHE) ++used;
   return cudaSuccess;
 }
 
@@ -544,13 +556,18 @@ int launch(Args a) {
   if (a.n <= 0) return 0;
   // a sphere table is refused past the shared memory and with batched
   // instancing (the JAX package never passes one there); the TMA
-  // descriptor needs 16-byte aligned weights
-  if (a.K <= 0 || a.K % CHUNK != 0 || a.C <= 0 || a.ns < 0 ||
+  // descriptor needs 16-byte aligned weights.  No clusters (C = 0, an
+  // empty world pool) is the sphere branch alone: the ring stages
+  // nothing, so no descriptor is encoded
+  if (a.K <= 0 || a.K % CHUNK != 0 || a.C < 0 || a.ns < 0 ||
       a.ns > MAX_SPHERES || (a.ns > 0 && a.period > 0) ||
-      ((uintptr_t)a.w & 15) != 0)
+      (a.C > 0 && ((uintptr_t)a.w & 15) != 0))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = weight_map(a.w, a.C, a.K, &a.wmap);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaSuccess;
+  if (a.C > 0) {
+    e = weight_map(a.w, a.C, a.K, &a.wmap);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int smem = smem_bytes(a.ns);
   e = allow_smem<ANY>(smem);
   if (e != cudaSuccess) return (int)e;
@@ -600,6 +617,10 @@ extern "C" int arendur_any_hit(const float* o, const float* d,
 }
 
 extern "C" int arendur_max_spheres() { return MAX_SPHERES; }
+
+// The TMA descriptors encoded since the library was loaded (the launches
+// that found theirs in the cache encode none).
+extern "C" long long arendur_isect_encodes() { return encodes; }
 
 // What a launch holds, for the build report: the dynamic shared memory
 // of a block with a table of ns spheres (into *smem), and the blocks an

@@ -136,7 +136,8 @@ int run_r(int rays_per_thread, const float* o, const float* d,
 // unused).  need [n, C] (may be null): the chunks of K / 64 the ray
 // needs in each cluster, 0 where it does not enter the cluster's box
 // before its bound; the any hit's stop at the chunk that blocked it.
-// Returns 0, or -1 for arguments the kernels refuse.
+// No clusters (C = 0) is the sphere pass alone.  Returns 0, or -1 for
+// arguments the kernels refuse.
 extern "C" int arendur_isect_host(int any, int rays_per_thread,
                                   const float* o, const float* d,
                                   const float* tmax, const float* w,
@@ -145,7 +146,7 @@ extern "C" int arendur_isect_host(int any, int rays_per_thread,
                                   long n, int C, int K, int period,
                                   float* t_out, int* i_out,
                                   unsigned char* need) {
-  if (K <= 0 || K % CHUNK != 0 || K / CHUNK > 255 || C <= 0 || ns < 0 ||
+  if (K <= 0 || K % CHUNK != 0 || K / CHUNK > 255 || C < 0 || ns < 0 ||
       (ns > 0 && period > 0))
     return -1;
   return any ? run_r<true>(rays_per_thread, o, d, tmax, w, cbox, n_alive, sph,

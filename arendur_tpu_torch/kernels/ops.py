@@ -38,6 +38,10 @@ ANY_HIT = Kernel("any_hit")
 # ANY_HIT's launches
 CLOSEST_HIT_SPHERES = Kernel("closest_hit_spheres")
 ANY_HIT_SPHERES = Kernel("any_hit_spheres")
+# K1 / K2 launches over an instanced mesh's [I * N] lanes (period N > 0);
+# each is also one of CLOSEST_HIT's / ANY_HIT's launches
+CLOSEST_HIT_INSTANCED = Kernel("closest_hit_instanced")
+ANY_HIT_INSTANCED = Kernel("any_hit_instanced")
 BOUNCE_SHADE = Kernel("bounce_shade")
 BOUNCE_SHADE_BWD = Kernel("bounce_shade_bwd")
 HIT_SHADE = Kernel("hit_shade")
@@ -45,8 +49,9 @@ SHADE_SPLIT = Kernel("shade_split")
 SLOT_SAMPLE = Kernel("slot_sample")
 SLOT_EVAL_PDF = Kernel("slot_eval_pdf")
 KERNELS = (CLOSEST_HIT, ANY_HIT, CLOSEST_HIT_SPHERES, ANY_HIT_SPHERES,
-           BOUNCE_SHADE, BOUNCE_SHADE_BWD, HIT_SHADE,
-           SHADE_SPLIT, SLOT_SAMPLE, SLOT_EVAL_PDF)
+           CLOSEST_HIT_INSTANCED, ANY_HIT_INSTANCED, BOUNCE_SHADE,
+           BOUNCE_SHADE_BWD, HIT_SHADE, SHADE_SPLIT, SLOT_SAMPLE,
+           SLOT_EVAL_PDF)
 
 
 def reset_counts():
@@ -100,7 +105,7 @@ def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
     if f16 != 16 or k4 % 4:
         raise ValueError("w_clusters must be [C, 16, 4K]")
     _check(w_clusters, "w_clusters")
-    if w_clusters.data_ptr() % 16:
+    if c and w_clusters.data_ptr() % 16:
         raise ValueError("w_clusters must be 16-byte aligned (the kernels "
                          "stage it by bulk copies)")
     _check(cbox, "cbox", shape=(c, 8))
@@ -132,11 +137,18 @@ def isect_occupancy(any_hit: bool, ns: int):
     return smem.value, blocks
 
 
+def isect_encodes() -> int:
+    """The TMA descriptors K1 / K2 encoded since the kernels were loaded
+    (a launch on weights whose descriptor is cached encodes none)."""
+    return int(build.load().arendur_isect_encodes())
+
+
 def closest_hit(w_clusters, cbox, o, d, tmax, n_alive=None,
                 period: int = 0, sph_tab=None, full_phi: bool = False):
     """K1: (t [N] f32, slot [N] int32); slot -1 = miss (t = tmax), -(2+s)
     = a hit on sphere s of sph_tab [S,24] (sphere.kernel_table rows;
-    full_phi: skip the phi clip, every sphere being full)."""
+    full_phi: skip the phi clip, every sphere being full).  w_clusters
+    may hold no cluster (C = 0): the sphere branch alone."""
     lib = build.load()
     n, c, k, na, sph, ns = _cluster_args(w_clusters, cbox, o, d, tmax,
                                          n_alive, sph_tab, period)
@@ -150,6 +162,8 @@ def closest_hit(w_clusters, cbox, o, d, tmax, n_alive=None,
     CLOSEST_HIT.launched()
     if ns:
         CLOSEST_HIT_SPHERES.launched()
+    if period:
+        CLOSEST_HIT_INSTANCED.launched()
     return t, slot
 
 
@@ -169,6 +183,8 @@ def any_hit(w_clusters, cbox, o, d, tmax, n_alive=None, period: int = 0,
     ANY_HIT.launched()
     if ns:
         ANY_HIT_SPHERES.launched()
+    if period:
+        ANY_HIT_INSTANCED.launched()
     return blocked != 0
 
 

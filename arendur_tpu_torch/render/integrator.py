@@ -21,9 +21,13 @@ lookups run in plain PyTorch (materials.resolve_params); the split
 shade kernel (K6) shades on the resolved material columns.  The
 untextured wave carries no cone and launches neither.
 
-Scenes the fused and split branches do not serve, those whose area
-lights carry an emission texture, take the composed bounce (the JAX
-package's per-bounce composition, integrator.py:440-547): the full
+Instanced meshes ride every branch: each scene query adds one [I * N]
+lane launch of K1 / K2 per instanced mesh (scene.closest_hits), and the
+bounce shades read the winning instance's triangle row baked into world
+space.  Scenes the fused and split branches do not serve, those whose
+area lights carry an emission texture and those with no triangle at
+all, take the composed bounce (the JAX package's per-bounce
+composition, integrator.py:440-547): the full
 closest hit (scene.intersect, K1), the emission through the texture,
 the material's BSDF (materials.compute_scattering), the NEE light
 branch (lighting/nee.py: the fused evaluate + pdf, kernel K9, and the
@@ -135,19 +139,11 @@ def _permute(carry: dict, perm: torch.Tensor) -> dict:
 
 
 def _closest(scene: sc.DeviceScene, o, d, n_alive, ops: WaveOps):
-    """Closest hit over the triangles and the spheres (K1 with the
-    scene's sphere table): (t [N] with inf for misses, slot [N]: the
-    cluster slot, -(2+s) for sphere s, -1 for a miss, tri_idx [N] int64
-    with -1 where no triangle was hit)."""
-    n = o.shape[0]
-    tmax = torch.full((n,), float("inf"), device=o.device)
-    t_k, slot = ops.closest_hit(scene.cw, scene.cbox, o, d, tmax,
-                                n_alive=n_alive, sph_tab=scene.ktab,
-                                full_phi=scene.full_phi)
-    tri_hit = slot >= 0
-    tri_idx = torch.where(tri_hit,
-                          scene.remap[torch.clamp(slot, min=0).long()], -1)
-    return torch.where(slot != -1, t_k, float("inf")), slot, tri_idx
+    """Closest hit over the world's triangles, the spheres (K1 with the
+    scene's sphere table) and the instanced meshes (one [I * N]-lane K1
+    each): scene.Closest."""
+    tmax = torch.full((o.shape[0],), float("inf"), device=o.device)
+    return sc.closest_hits(scene, o, d, tmax, n_alive, ops.closest_hit)
 
 
 def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
@@ -155,28 +151,38 @@ def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
     """Raw closest hit for the bounce shade (twin: scene.intersect_raw
     under ARENDUR_SPHERES=kernel): dict(t, hit, is_sphere, s_idx,
     p_local, trow [N,26]); p_local is rebuilt from the kernel's t on the
-    winning sphere's frame.  The ray geometry is detached, as in the JAX
+    winning sphere's frame, and a lane whose nearest triangle is
+    instanced carries that instance's row baked into world space
+    (scene.instance_world_rows), which the bounce shade reads as it
+    reads a world row.  The ray geometry is detached, as in the JAX
     package (detached-sampling estimator): no gradient reaches t or
     p_local from o and d."""
     o, d = o.detach(), d.detach()
-    t, slot, tri_idx = _closest(scene, o, d, n_alive, ops)
-    p_local, s_idx = sph.hit_p_local(scene.ktab, slot, o, d, t)
-    return dict(t=t, hit=slot != -1, is_sphere=slot <= -2, s_idx=s_idx,
-                p_local=p_local,
-                trow=scene.tpack[torch.clamp(tri_idx, min=0)])
+    c = _closest(scene, o, d, n_alive, ops)
+    p_local, s_idx = sph.hit_p_local(scene.ktab, c.slot, o, d, c.t_k)
+    trow = scene.tpack[torch.clamp(c.tri_idx, min=0)]
+    for im, hit_i, li, best in c.wins:
+        trow = torch.where(hit_i[:, None],
+                           sc.instance_world_rows(im, li, best), trow)
+    return dict(t=c.t, hit=c.hit, is_sphere=c.use_sphere, s_idx=s_idx,
+                p_local=p_local, trow=trow)
 
 
 def intersect_light(scene: sc.DeviceScene, o, d, n_alive=None,
                     ops: WaveOps = KERNEL_OPS):
-    """What the final deferred-MIS pass needs of a closest hit: (hit,
-    light_id) with light_id -1 where the hit is no light (ray geometry
-    detached, as in intersect_raw)."""
+    """What the final deferred-MIS pass needs of a closest hit (twin: the
+    hit and light_id of the JAX pass's full scene.intersect): (hit,
+    light_id) with light_id -1 where the hit is no light, an instanced
+    triangle among them; ray geometry detached, as in intersect_raw."""
     o, d = o.detach(), d.detach()
-    _, slot, tri_idx = _closest(scene, o, d, n_alive, ops)
-    light_tri = scene.tpack[torch.clamp(tri_idx, min=0), 25]
-    s_idx = torch.clamp(-2 - slot.long(), min=0)
-    light_id = torch.where(slot <= -2, scene.stab[s_idx, 21], light_tri)
-    return slot != -1, torch.where(slot != -1, light_id, -1.0).long()
+    c = _closest(scene, o, d, n_alive, ops)
+    light_tri = scene.tpack[torch.clamp(c.tri_idx, min=0), 25]
+    for _, hit_i, _, _ in c.wins:
+        light_tri = torch.where(hit_i, -1.0, light_tri)
+    s_idx = torch.clamp(-2 - c.slot.long(), min=0)
+    light_id = torch.where(c.use_sphere, scene.stab[s_idx, 21], light_tri)
+    hit = c.hit
+    return hit, torch.where(hit, light_id, -1.0).long()
 
 
 def occluded(scene: sc.DeviceScene, o, d, tmax, n_alive=None,
@@ -358,8 +364,12 @@ def composed_bounce(scene: sc.DeviceScene, config: RenderConfig, c: dict,
                wb_prev=torch.where(lane_active, wb, c["wb_prev"]),
                nee_prev=do_nee, keys=c["keys"], orig=c["orig"])
     if textures is not None:
-        is_sph = hit.hit & (hit.prim >= scene.n_tris)
-        s_idx = torch.clamp(hit.prim - scene.n_tris, min=0)
+        # the spheres' primitive ids lie in [T, T + S); instanced
+        # triangles follow them
+        n_sph = scene.ktab.shape[0]
+        is_sph = hit.hit & (hit.prim >= scene.n_tris) \
+            & (hit.prim < scene.n_tris + n_sph)
+        s_idx = torch.clamp(hit.prim - scene.n_tris, min=0, max=n_sph - 1)
         out["cone_g"] = curv_spread(scene, config, c["cone_g"], is_sph, s_idx,
                                     out["cone_w"],
                                     alive & ((kind & SPECULAR) != 0))
@@ -393,11 +403,12 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
     dropped as invalid} (a device scalar).  composed=True takes the
     composed bounce on any scene; a scene whose lights carry emission
     textures, which only the composed bounce reads, takes it always (as
-    the JAX package's _mega_eligible decides)."""
+    the JAX package's _mega_eligible decides), as does a scene with no
+    triangle, world or instanced."""
     static = scene.static
     textures = config.textures
     tex_present = None
-    composed = composed or scene.emission_textured
+    composed = composed or scene.composed_only
     ws = smp.WaveSampler(base_key, pixel_id, sample_id,
                          kind=config.sampler, sample_dx=config.sample_dx,
                          sample_dy=config.sample_dy)

@@ -2,19 +2,27 @@
 arendur_tpu/scene.py; ref: src/renderer/scene.rs, src/component/).
 
 ``SceneBuilder`` accumulates geometry on the host and freezes it into a
-``SceneData`` of NumPy arrays (meshes, spheres, lights, materials; no
-instancing yet); its image textures, material maps and emission
-profiles alike, go into an atlas of their own (``build_textures``),
-which the render takes through its config.  ``DeviceScene.build``
-moves the tables the render reads onto one device and computes, once
-and from NumPy, the host-static sets the bounce shade is specialised on
-(slot presence, distribution presence, the light column map, the light
-types present, full-phi spheres).  Primitive ids: [0, T) triangles,
-[T, T+S) spheres.
+``SceneData`` of NumPy arrays (meshes, spheres, lights, materials, and
+instanced meshes: one local-space copy of a mesh placed by I
+transforms, ``InstancedMesh``); its image textures, material maps and
+emission profiles alike, go into an atlas of their own
+(``build_textures``), which the render takes through its config.
+``DeviceScene.build`` moves the tables the render reads onto one device
+and computes, once and from NumPy, the host-static sets the bounce
+shade is specialised on (slot presence, distribution presence, the
+light column map, the light types present, full-phi spheres).  A scene
+may have no world triangle at all (pure-instanced or triangle-less):
+its world pool then holds no cluster.  Primitive ids: [0, T) world
+triangles, [T, T+S) spheres, then each instanced mesh's T_m local
+triangles in order (the winning instance is not part of the id).
 
-For the composed bounce, ``intersect`` returns the full closest-hit
-record ``Hit`` and ``light_emission`` / ``emission_tex_factor`` read an
-area light's radiance through its emission texture.
+The closest hit over the world pool and the spheres is one K1 launch;
+each instanced mesh adds one K1 launch over its [I * N] lanes (the rays
+taken into each instance's frame, ``period`` N), bounded by the hit so
+far, and the winning instance per lane (``closest_hits``).  For the
+composed bounce, ``intersect`` returns the full closest-hit record
+``Hit`` and ``light_emission`` / ``emission_tex_factor`` read an area
+light's radiance through its emission texture.
 """
 
 from __future__ import annotations
@@ -75,6 +83,27 @@ def build_distribution_1d(func) -> Distribution1D:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class InstancedMesh:
+    """One mesh kept in local space, placed I times by per-instance
+    transforms (twin: scene.InstancedMesh; ref:
+    component/transformed.rs:20).  Rays go into each instance's frame
+    (the direction by the linear part alone, so t is unchanged), meet the
+    shared cluster tables, and the winning hit's shading frame comes back
+    to world space (normals by the inverse-transpose)."""
+    cw: np.ndarray      # [C,16,4K] cluster determinant weights (local)
+    cbox: np.ndarray    # [C,8] cluster AABBs (local)
+    remap: np.ndarray   # [C*K] slot -> local triangle id
+    attr: np.ndarray    # [T,26] packed v/n/uv/mat/light rows (local)
+    o2w: np.ndarray     # [I,4,4] row-vector convention
+    w2o: np.ndarray     # [I,4,4]
+    nrm: np.ndarray     # [I,3,3] inverse-transpose of the linear part
+
+    @property
+    def n_instances(self):
+        return self.o2w.shape[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class SceneData:
     tri_v0: np.ndarray
     tri_v1: np.ndarray
@@ -97,6 +126,9 @@ class SceneData:
     tri_cbox: Optional[np.ndarray] = None
     tri_remap: Optional[np.ndarray] = None
     light_distribution: Distribution1D = None
+    # instanced meshes (shared local-space geometry, per-instance
+    # transforms)
+    inst: tuple = ()
 
     @property
     def n_tris(self):
@@ -176,6 +208,31 @@ def tri_pack(scene: SceneData) -> np.ndarray:
     ], axis=1).astype(np.float32)
 
 
+def _tri_rows(v, f, normals=None, uvs=None):
+    """Per-triangle corner rows of faces f [F,3] over vertices v [V,3]:
+    (p0, p1, p2, n0, n1, n2, uv0, uv1, uv2), the face normal where the
+    mesh has no normals and the reference's default uvs where it has no
+    uvs (ref: triangle.rs:292-296)."""
+    p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    nf = len(f)
+    if normals is not None and len(normals):
+        nn = np.asarray(normals, np.float32)
+        n0, n1, n2 = nn[f[:, 0]], nn[f[:, 1]], nn[f[:, 2]]
+    else:
+        face_n = np.cross(p1 - p0, p2 - p0)
+        norm = np.linalg.norm(face_n, axis=-1, keepdims=True)
+        face_n = face_n / np.maximum(norm, 1e-20)
+        n0 = n1 = n2 = face_n
+    if uvs is not None and len(uvs):
+        uu = np.asarray(uvs, np.float32)
+        uv0, uv1, uv2 = uu[f[:, 0]], uu[f[:, 1]], uu[f[:, 2]]
+    else:
+        uv0 = np.tile(np.array([0.0, 0.0], np.float32), (nf, 1))
+        uv1 = np.tile(np.array([1.0, 0.0], np.float32), (nf, 1))
+        uv2 = np.tile(np.array([1.0, 1.0], np.float32), (nf, 1))
+    return p0, p1, p2, n0, n1, n2, uv0, uv1, uv2
+
+
 class SceneBuilder:
     """Host-side accumulation of meshes, spheres, lights and
     materials, frozen into a SceneData (the arencli parse_input
@@ -196,6 +253,7 @@ class SceneBuilder:
         self.sphere_rows = []
         self.material_rows = []
         self.light_rows = []
+        self.instanced = []           # add_instanced_mesh records
         from arendur_tpu_torch.texturing.texture import AtlasBuilder
         self.atlas = AtlasBuilder()   # image textures (obj / JSON maps)
         self.tex_cache = {}           # (path, gamma) -> texture id
@@ -226,24 +284,9 @@ class SceneBuilder:
             if normals is not None:
                 inv = np.linalg.inv(m[:3, :3])
                 normals = np.asarray(normals, np.float32) @ inv.T
-        p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+        p0, p1, p2, n0, n1, n2, uv0, uv1, uv2 = _tri_rows(v, f, normals,
+                                                         uvs)
         nf = len(f)
-        if normals is not None:
-            nn = np.asarray(normals, np.float32)
-            n0, n1, n2 = nn[f[:, 0]], nn[f[:, 1]], nn[f[:, 2]]
-        else:
-            face_n = np.cross(p1 - p0, p2 - p0)
-            norm = np.linalg.norm(face_n, axis=-1, keepdims=True)
-            face_n = face_n / np.maximum(norm, 1e-20)
-            n0 = n1 = n2 = face_n
-        if uvs is not None:
-            uu = np.asarray(uvs, np.float32)
-            uv0, uv1, uv2 = uu[f[:, 0]], uu[f[:, 1]], uu[f[:, 2]]
-        else:
-            # per-triangle default uvs (ref: triangle.rs:292-296)
-            uv0 = np.tile(np.array([0.0, 0.0], np.float32), (nf, 1))
-            uv1 = np.tile(np.array([1.0, 0.0], np.float32), (nf, 1))
-            uv2 = np.tile(np.array([1.0, 1.0], np.float32), (nf, 1))
         light_ids = np.full(nf, -1, np.int32)
         if emission is not None:
             base_tri = sum(len(a) for a in self.tv0)
@@ -264,6 +307,31 @@ class SceneBuilder:
         self.tuv2.append(uv2)
         self.tmat.append(np.full(nf, mat_id, np.int32))
         self.tlight.append(light_ids)
+
+    def add_instanced_mesh(self, groups, transforms):
+        """Add a mesh placed by several instance transforms that share
+        one copy of its geometry (ref: component/transformed.rs:20).
+
+        groups: dicts with keys vertices [V,3], faces [F,3], mat_id and
+        optional normals / uvs, the (object, material) groups of one
+        source mesh, kept in local space.  transforms: [I,4,4]
+        object-to-world matrices (row-vector convention; only the linear
+        part and the translation row are read).  Instanced triangles are
+        never lights (their light column is -1)."""
+        cols = [[] for _ in range(10)]
+        for g in groups:
+            f = np.asarray(g["faces"], np.int64)
+            rows = _tri_rows(np.asarray(g["vertices"], np.float32), f,
+                             g.get("normals"), g.get("uvs"))
+            for lst, a in zip(cols, rows + (np.full((len(f), 1), g["mat_id"],
+                                                    np.float32),)):
+                lst.append(a)
+        cat = [np.concatenate(lst, 0) for lst in cols]
+        attr = np.concatenate(
+            cat + [np.full((len(cat[0]), 1), -1.0, np.float32)], axis=1)
+        ts = np.stack([np.asarray(t, np.float32) for t in transforms])
+        self.instanced.append(dict(attr=attr.astype(np.float32),
+                                   transforms=ts))
 
     def add_sphere(self, radius, zmin, zmax, phimax, mat_id: int,
                    transform=None, emission=None, emission_tex: int = -1,
@@ -304,8 +372,9 @@ class SceneBuilder:
                     0.0, 0.0, 0.0)))
 
     def _world_bsphere(self):
-        """Scene bounding sphere over triangles and transformed
-        spheres (ref: distantlight.rs:43-50)."""
+        """Scene bounding sphere over triangles, transformed spheres and
+        instanced meshes (their local box corners through each transform;
+        ref: distantlight.rs:43-50)."""
         pts = []
         for lst in (self.tv0, self.tv1, self.tv2):
             for a in lst:
@@ -319,6 +388,18 @@ class SceneBuilder:
                 np.linalg.norm(m[:3, :3], 2))
             pts.append(c - r)
             pts.append(c + r)
+        for rec in self.instanced:
+            a = rec["attr"]
+            v = np.concatenate([a[:, 0:3], a[:, 3:6], a[:, 6:9]], 0)
+            lo, hi = v.min(0), v.max(0)
+            corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                                for y in (lo[1], hi[1])
+                                for z in (lo[2], hi[2])], np.float32)
+            for t in rec["transforms"]:
+                m = np.asarray(t, np.float32)
+                w = corners @ m[:3, :3] + m[3, :3]
+                pts.append(w.min(0))
+                pts.append(w.max(0))
         if not pts:
             return np.zeros(3, np.float32), 1.0
         lo = np.min(np.stack(pts), 0)
@@ -441,8 +522,18 @@ class SceneBuilder:
             tabs = build_clusters(v0, v1, v2)
             cw, cbox, remap = (tabs["w_chunks"], tabs["cbox"],
                                tabs["remap"])
+        inst = []
+        for rec in self.instanced:
+            a = rec["attr"]
+            itabs = build_clusters(a[:, 0:3], a[:, 3:6], a[:, 6:9])
+            ts = rec["transforms"]
+            inst.append(InstancedMesh(
+                cw=itabs["w_chunks"], cbox=itabs["cbox"],
+                remap=itabs["remap"], attr=a, o2w=ts,
+                w2o=np.stack([np.linalg.inv(t) for t in ts]),
+                nrm=np.stack([np.linalg.inv(m).T for m in ts[:, :3, :3]])))
         return SceneData(
-            tri_cw=cw, tri_cbox=cbox, tri_remap=remap,
+            tri_cw=cw, tri_cbox=cbox, tri_remap=remap, inst=tuple(inst),
             tri_v0=v0, tri_v1=v1, tri_v2=v2,
             tri_n0=catf(self.tn0, (3,)),
             tri_n1=catf(self.tn1, (3,)),
@@ -491,14 +582,33 @@ def shade_static(scene: SceneData) -> ShadeStatic:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class DeviceInstances:
+    """One instanced mesh's tables on the device."""
+    cw: torch.Tensor        # [C,16,4K] local cluster weights
+    cbox: torch.Tensor      # [C,8]
+    remap: torch.Tensor     # [C*K] int64 slot -> local triangle id
+    attr: torch.Tensor      # [T,26] local triangle rows (light -1)
+    o2w: torch.Tensor       # [I,4,4]
+    w2o: torch.Tensor       # [I,4,4]
+    nrm: torch.Tensor       # [I,3,3]
+    prim_base: int          # the primitive id of its local triangle 0
+
+    @property
+    def n_instances(self):
+        return self.o2w.shape[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class DeviceScene:
     """The tables one render reads, on one device, plus the
     host-static shade configuration."""
     device: torch.device
     n_tris: int
-    cw: torch.Tensor        # [C,16,4K] cluster determinant weights
+    cw: torch.Tensor        # [C,16,4K] cluster determinant weights (C = 0:
+                            # an empty world pool)
     cbox: torch.Tensor      # [C,8] cluster AABBs
-    remap: torch.Tensor     # [C*K] int64 slot -> triangle id
+    remap: torch.Tensor     # [C*K] int64 slot -> triangle id ([-1] for an
+                            # empty world pool)
     tpack: torch.Tensor     # [T,26] triangle attribute rows
     ltab: torch.Tensor      # [L,Cl] light_pack rows
     mtab: torch.Tensor      # [M,16] material rows
@@ -511,22 +621,45 @@ class DeviceScene:
     static: ShadeStatic
     materials: mats.MaterialTable  # the NumPy rows mtab was packed from
     emission_textured: bool = False  # some light has an emission texture
+    inst: tuple = ()        # DeviceInstances, one per instanced mesh
+
+    @property
+    def composed_only(self) -> bool:
+        """Whether only the composed bounce serves the scene (twin:
+        integrator._mega_eligible): a light carries an emission texture,
+        or the scene has no triangle, world or instanced."""
+        return self.emission_textured or (self.n_tris == 0
+                                          and not self.inst)
 
     @staticmethod
     def build(scene: SceneData, device) -> "DeviceScene":
-        if scene.tri_cw is None:
+        if scene.tri_cw is None and scene.n_tris:
             raise NotImplementedError(
-                "scenes without triangles are not yet ported")
+                "triangles without cluster tables are not yet ported")
         etex = scene.lights.emission_tex
         device = torch.device(device)
         t = lambda a, dt=torch.float32: torch.as_tensor(
             np.ascontiguousarray(a), dtype=dt, device=device)
+        if scene.tri_cw is None:
+            # an empty world pool: no cluster, so K1 / K2 test the spheres
+            # alone; a slot is never >= 0, so the remap is never read
+            cw = np.zeros((0, 16, 4 * 64), np.float32)
+            cbox = np.zeros((0, 8), np.float32)
+            remap = np.full(1, -1, np.int64)
+        else:
+            cw, cbox, remap = scene.tri_cw, scene.tri_cbox, scene.tri_remap
+        inst, base = [], scene.n_tris + scene.spheres.count
+        for im in scene.inst:
+            inst.append(DeviceInstances(
+                cw=t(im.cw), cbox=t(im.cbox), remap=t(im.remap, torch.int64),
+                attr=t(im.attr), o2w=t(im.o2w), w2o=t(im.w2o),
+                nrm=t(im.nrm), prim_base=int(base)))
+            base += im.attr.shape[0]
         ltab, _, _ = light_pack(scene)
         dist = scene.light_distribution
         return DeviceScene(
             device=device, n_tris=int(scene.n_tris),
-            cw=t(scene.tri_cw), cbox=t(scene.tri_cbox),
-            remap=t(scene.tri_remap, torch.int64),
+            cw=t(cw), cbox=t(cbox), remap=t(remap, torch.int64),
             tpack=t(tri_pack(scene)), ltab=t(ltab),
             mtab=t(mats.param_table(scene.materials)),
             stab=t(sph.shade_table(scene.spheres)),
@@ -536,7 +669,134 @@ class DeviceScene:
             light_func_int=float(dist.func_int),
             static=shade_static(scene), materials=scene.materials,
             emission_textured=bool(etex is not None
-                                   and (np.asarray(etex) >= 0).any()))
+                                   and (np.asarray(etex) >= 0).any()),
+            inst=tuple(inst))
+
+
+# ---------------------------------------------------------------------------
+# the closest hit over the world pool, the spheres and the instanced meshes
+# ---------------------------------------------------------------------------
+
+def affine(m, p, point: bool = True):
+    """Components p (x, y, z) through row-vector matrices m [..., 4, 4]:
+    x m[0] + y m[1] + z m[2], plus the translation row m[3] for a point
+    (the projective column is not read, as the JAX package's instanced
+    path reads only the linear part and row 3).  m's leading dimensions
+    broadcast against the components'."""
+    x, y, z = p
+    out = tuple(x * m[..., 0, k] + y * m[..., 1, k] + z * m[..., 2, k]
+                for k in range(3))
+    if point:
+        out = tuple(out[k] + m[..., 3, k] for k in range(3))
+    return out
+
+
+def instance_rays(im: DeviceInstances, o, d):
+    """Rays o, d [N,3] in each instance's frame: (o, d) [I * N, 3], lane
+    i * N + n ray n in instance i's frame (twin: the ol / dl of
+    scene.intersect, scene.py:952-956), each one batched product over
+    the I linear parts."""
+    n, ni = o.shape[0], im.n_instances
+    lin = im.w2o[:, :3, :3]
+    ol = torch.baddbmm(im.w2o[:, None, 3, :3], o.expand(ni, n, 3), lin)
+    dl = torch.bmm(d.expand(ni, n, 3), lin)
+    return ol.reshape(ni * n, 3), dl.reshape(ni * n, 3)
+
+
+def instance_closest(im: DeviceInstances, o, d, bound, n_alive=None,
+                     closest_hit=None):
+    """The closest hit of N rays o, d [N,3] against every instance of one
+    instanced mesh: one K1 launch over the [I * N] lanes (lane i * N + n
+    is ray n in instance i's frame; period N applies the live count per
+    instance), bounded by `bound` [N], then the instance with the least t
+    per ray (the first at equal t).  Returns (t [N], inf where no
+    instance is hit, local triangle id [N] int64 or -1, instance [N])."""
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    n, ni = o.shape[0], im.n_instances
+    ol, dl = instance_rays(im, o, d)
+    t_f, slot_f = (closest_hit or ci.intersect_clusters)(
+        im.cw, im.cbox, ol, dl, bound.repeat(ni), n_alive=n_alive, period=n)
+    li_f = torch.where(slot_f >= 0,
+                       im.remap[torch.clamp(slot_f, min=0).long()], -1)
+    t_im = torch.where(li_f >= 0, t_f, float("inf")).reshape(ni, n)
+    best = torch.argmin(t_im, dim=0)
+    t_i = t_im.gather(0, best[None])[0]
+    li = li_f.reshape(ni, n).gather(0, best[None])[0]
+    return t_i, li, best
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Closest:
+    """The closest hit of N rays over the whole scene before any shading
+    (twin: the shared first half of scene.intersect / intersect_raw under
+    ARENDUR_SPHERES=kernel)."""
+    t_k: torch.Tensor       # [N] the world K1's t (its tmax on a miss)
+    slot: torch.Tensor      # [N] the world K1's slot / sphere code
+    tri_idx: torch.Tensor   # [N] int64 world triangle, -1 = none
+    t_tri: torch.Tensor     # [N] the nearest triangle hit's t, inf = none
+    tri_hit: torch.Tensor   # [N] bool: some triangle, world or instanced
+    wins: tuple             # per instanced mesh: (mesh, hit [N] bool: it
+                            # holds the nearest triangle, local triangle
+                            # id [N], instance [N]); a later mesh's
+                            # win replaces an earlier one's
+    use_sphere: torch.Tensor  # [N] bool: a sphere is the closest hit
+
+    @property
+    def hit(self):
+        return self.tri_hit | self.use_sphere
+
+    @property
+    def t(self):
+        """[N] the closest hit's t, inf on a miss."""
+        return torch.where(self.hit, torch.where(self.use_sphere, self.t_k,
+                                                 self.t_tri), float("inf"))
+
+
+def closest_hits(scene: DeviceScene, o, d, tmax, n_alive=None,
+                 closest_hit=None) -> Closest:
+    """The closest hit of N rays o, d [N,3] within tmax [N], in the JAX
+    package's order of operations (scene.py:932-1012): the world K1 with
+    the sphere table (a sphere hit keeps the triangles' t at inf), then
+    each instanced mesh's [I * N]-lane K1 bounded by min(tmax, t_tri),
+    then a sphere wins where its t <= the nearest triangle's.  Ray
+    geometry is detached."""
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    o, d, tmax = o.detach(), d.detach(), tmax.detach()
+    t_k, slot = (closest_hit or ci.intersect_clusters)(
+        scene.cw, scene.cbox, o, d, tmax, n_alive=n_alive,
+        sph_tab=scene.ktab, full_phi=scene.full_phi)
+    tri_hit = slot >= 0
+    t_tri = torch.where(tri_hit, t_k, float("inf"))
+    tri_idx = torch.where(tri_hit,
+                          scene.remap[torch.clamp(slot, min=0).long()], -1)
+    wins = []
+    for im in scene.inst:
+        t_i, li, best = instance_closest(im, o, d, torch.minimum(tmax, t_tri),
+                                         n_alive, closest_hit)
+        hit_i = (li >= 0) & (t_i < t_tri) & torch.isfinite(t_i)
+        t_tri = torch.where(hit_i, t_i, t_tri)
+        tri_hit = tri_hit | hit_i
+        wins.append((im, hit_i, li, best))
+    use_sphere = (slot <= -2) & (t_k <= t_tri)
+    return Closest(t_k=t_k, slot=slot, tri_idx=tri_idx, t_tri=t_tri,
+                   tri_hit=tri_hit, wins=tuple(wins), use_sphere=use_sphere)
+
+
+def instance_world_rows(im: DeviceInstances, li, best) -> torch.Tensor:
+    """[N,26] the winning instance's triangle row in world space (twin:
+    the trow_w of scene.intersect_raw, scene.py:788-809): vertices by
+    o2w, normals by the inverse-transpose, uv and material as stored,
+    light -1; the bounce shade reads it as it reads a world row."""
+    irow = im.attr[torch.clamp(li, min=0)]
+    o2w, nrm = im.o2w[best], im.nrm[best]
+    col = lambda j: irow[:, j]  # noqa: E731
+    tp = lambda j: affine(o2w, (col(j), col(j + 1), col(j + 2)))  # noqa
+    tn = lambda j: affine(nrm, (col(j), col(j + 1), col(j + 2)),  # noqa
+                          point=False)
+    parts = [c for j in (0, 3, 6) for c in tp(j)] \
+        + [c for j in (9, 12, 15) for c in tn(j)]
+    return torch.cat([torch.stack(parts, -1), irow[:, 18:25],
+                      torch.full_like(irow[:, 25:26], -1.0)], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -597,28 +857,55 @@ def sphere_hit_info(stab: torch.Tensor, s_idx, p_local):
     return pos, ng, torch.stack([u, v], -1), st(dpdu), st(dpdv), pos_err
 
 
+def _instance_shading(im: DeviceInstances, o, d, li, best):
+    """The winning instance's hit in world space (twin: the instanced
+    block of scene.intersect, scene.py:963-1002): the local ray and
+    triangle row give barycentrics and shading info, which go back to
+    world space: (pos, pos_err, uv, dpdu, dpdv, ng, ns) as component
+    tuples (uv as (u, v)), the shading normal turned toward ng."""
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.render import cmath as cm
+    w2o, o2w, nrm = im.w2o[best], im.o2w[best], im.nrm[best]
+    ol = affine(w2o, o.unbind(-1))
+    dl = affine(w2o, d.unbind(-1), point=False)
+    irow = im.attr[torch.clamp(li, min=0)]
+    col = lambda j: irow[:, j]  # noqa: E731
+    b0, b1 = cb.bary_from_vertices(ol, dl, (col(0), col(1), col(2)),
+                                   (col(3), col(4), col(5)),
+                                   (col(6), col(7), col(8)))
+    pos_l, perr_l, dpdu_l, dpdv_l, ns_l = cb.tri_shading_from_row(col, b0,
+                                                                  b1)
+    b2 = 1.0 - b0 - b1
+    uv = (b0 * col(18) + b1 * col(20) + b2 * col(22),
+          b0 * col(19) + b1 * col(21) + b2 * col(23))
+    pos = affine(o2w, pos_l)
+    dpdu = affine(o2w, dpdu_l, point=False)
+    dpdv = affine(o2w, dpdv_l, point=False)
+    ng = cm.vnormalize(cm.vcross(dpdu, dpdv))
+    ns = cm.vnormalize(affine(nrm, ns_l, point=False))
+    ns = cm.vwhere(cm.vdot(ns, ng) < 0.0, cm.vneg(ns), ns)
+    perr = cm.vadd(affine(o2w[:, :3, :3].abs(), perr_l, point=False),
+                   cm.vscale(cm.vabs(pos), 1e-7))
+    return pos, perr, uv, dpdu, dpdv, ng, ns
+
+
 def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
               closest_hit=None) -> Hit:
     """Closest hit of N rays against the scene with full shading info
     (twin: scene.intersect under ARENDUR_SPHERES=kernel): the closest
-    hit over the triangle clusters and the analytic spheres in one call
-    (K1 on CUDA tensors, or the given `closest_hit` entry), then the hit
-    record, with benign defaults on miss lanes.  The ray geometry is
-    detached, as in the JAX package."""
+    hit over the world's triangle clusters and the analytic spheres in
+    one call (K1 on CUDA tensors, or the given `closest_hit` entry), one
+    more per instanced mesh (closest_hits), then the hit record, with
+    benign defaults on miss lanes.  The ray geometry is detached, as in
+    the JAX package."""
     from arendur_tpu_torch.render import cbounce as cb
     from arendur_tpu_torch.render import cmath as cm
-    from arendur_tpu_torch.shapes import cluster_intersect as ci
     o, d = o.detach(), d.detach()
     n = o.shape[0]
     if tmax is None:
         tmax = torch.full((n,), float("inf"), device=o.device)
-    t_k, slot = (closest_hit or ci.intersect_clusters)(
-        scene.cw, scene.cbox, o, d, tmax.detach(), n_alive=n_alive,
-        sph_tab=scene.ktab, full_phi=scene.full_phi)
-    tri_hit = slot >= 0
-    tri_idx = torch.where(tri_hit,
-                          scene.remap[torch.clamp(slot, min=0).long()], -1)
-    trow = scene.tpack[torch.clamp(tri_idx, min=0)]
+    c = closest_hits(scene, o, d, tmax, n_alive, closest_hit)
+    trow = scene.tpack[torch.clamp(c.tri_idx, min=0)]
     tcol = lambda j: trow[:, j]
     oc = (o[:, 0], o[:, 1], o[:, 2])
     dc = (d[:, 0], d[:, 1], d[:, 2])
@@ -628,51 +915,72 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
     pos_t, perr_t, dpdu_t, dpdv_t, ns_raw = cb.tri_shading_from_row(
         tcol, b0, b1)
     b2 = 1.0 - b0 - b1
-    uv_t = torch.stack([b0 * tcol(18) + b1 * tcol(20) + b2 * tcol(22),
-                        b0 * tcol(19) + b1 * tcol(21) + b2 * tcol(23)], -1)
+    uv_t = (b0 * tcol(18) + b1 * tcol(20) + b2 * tcol(22),
+            b0 * tcol(19) + b1 * tcol(21) + b2 * tcol(23))
     ng_t = cm.vnormalize(cm.vcross(dpdu_t, dpdv_t))
     # the shading normal turned toward the geometric one (ref:
     # interaction.rs:167-181)
     ns_t = cm.vwhere(cm.vdot(ns_raw, ng_t) < 0.0, cm.vneg(ns_raw), ns_raw)
-    st = lambda c: torch.stack(c, -1)
+    tri = [pos_t, perr_t, uv_t, dpdu_t, dpdv_t, ng_t, ns_t]
+    mat_t, light_t, prim_t = tcol(24), tcol(25), c.tri_idx
+    for im, hit_i, li, best in c.wins:
+        got = _instance_shading(im, o, d, li, best)
+        tri = [tuple(torch.where(hit_i, a, b) for a, b in zip(x, y))
+               for x, y in zip(got, tri)]
+        mat_t = torch.where(hit_i, im.attr[torch.clamp(li, min=0), 24],
+                            mat_t)
+        light_t = torch.where(hit_i, -1.0, light_t)
+        prim_t = torch.where(hit_i, im.prim_base + li, prim_t)
+    st = lambda v: torch.stack(v, -1)
+    pos_t, perr_t, uv_t, dpdu_t, dpdv_t, ng_t, ns_t = (st(v) for v in tri)
 
-    use_sphere = slot <= -2
-    p_local, s_idx = sph.hit_p_local(scene.ktab, slot, o, d, t_k)
+    use_sphere = c.use_sphere
+    p_local, s_idx = sph.hit_p_local(scene.ktab, c.slot, o, d, c.t_k)
     pos_s, ng_s, uv_s, dpdu_s, dpdv_s, perr_s = sphere_hit_info(
         scene.stab, s_idx, p_local)
     srow = scene.stab[s_idx]
-    hit = tri_hit | use_sphere
+    hit = c.hit
     pick = lambda a, b: torch.where(use_sphere[:, None], a, b)
     hm = hit[:, None]
     z = torch.zeros_like(o)
     axis = lambda j: z + torch.eye(3, device=o.device)[j]
     return Hit(
         hit=hit,
-        t=torch.where(hit, t_k, float("inf")),
+        t=c.t,
         prim=torch.where(hit, torch.where(use_sphere, scene.n_tris + s_idx,
-                                          tri_idx), -1),
-        pos=torch.where(hm, pick(pos_s, st(pos_t)), 0.0),
-        pos_err=torch.where(hm, pick(perr_s, st(perr_t)), 0.0),
-        ng=torch.where(hm, pick(ng_s, st(ng_t)), axis(2)),
-        ns=torch.where(hm, pick(ng_s, st(ns_t)), axis(2)),
-        dpdu=torch.where(hm, pick(dpdu_s, st(dpdu_t)), axis(0)),
-        dpdv=torch.where(hm, pick(dpdv_s, st(dpdv_t)), axis(1)),
+                                          prim_t), -1),
+        pos=torch.where(hm, pick(pos_s, pos_t), 0.0),
+        pos_err=torch.where(hm, pick(perr_s, perr_t), 0.0),
+        ng=torch.where(hm, pick(ng_s, ng_t), axis(2)),
+        ns=torch.where(hm, pick(ng_s, ns_t), axis(2)),
+        dpdu=torch.where(hm, pick(dpdu_s, dpdu_t), axis(0)),
+        dpdv=torch.where(hm, pick(dpdv_s, dpdv_t), axis(1)),
         uv=torch.where(hm, pick(uv_s, uv_t), 0.0),
         mat_id=torch.where(hit, torch.where(use_sphere, srow[:, 20],
-                                            tcol(24)), 0.0).to(torch.int32),
+                                            mat_t), 0.0).to(torch.int32),
         light_id=torch.where(hit, torch.where(use_sphere, srow[:, 21],
-                                              tcol(25)), -1.0).to(torch.int32))
+                                              light_t), -1.0).to(torch.int32))
 
 
 def occluded(scene: "DeviceScene", o, d, tmax, n_alive=None,
              any_hit=None) -> torch.Tensor:
-    """Shadow any-hit against the triangles and the spheres in one call
-    (K2 on CUDA tensors, or the given `any_hit` entry); the ray geometry
+    """Shadow any-hit against the world's triangles and the spheres in
+    one call (K2 on CUDA tensors, or the given `any_hit` entry), ORed
+    with one [I * N]-lane any hit per instanced mesh; the ray geometry
     is detached (twin: scene.occluded under ARENDUR_SPHERES=kernel)."""
     from arendur_tpu_torch.shapes import cluster_intersect as ci
-    return (any_hit or ci.occluded_clusters)(
-        scene.cw, scene.cbox, o.detach(), d.detach(), tmax.detach(),
-        n_alive=n_alive, sph_tab=scene.ktab, full_phi=scene.full_phi)
+    any_hit = any_hit or ci.occluded_clusters
+    o, d, tmax = o.detach(), d.detach(), tmax.detach()
+    blocked = any_hit(scene.cw, scene.cbox, o, d, tmax, n_alive=n_alive,
+                      sph_tab=scene.ktab, full_phi=scene.full_phi)
+    n = o.shape[0]
+    for im in scene.inst:
+        ni = im.n_instances
+        ol, dl = instance_rays(im, o, d)
+        blk = any_hit(im.cw, im.cbox, ol, dl, tmax.repeat(ni),
+                      n_alive=n_alive, period=n)
+        blocked = blocked | blk.reshape(ni, n).any(0)
+    return blocked
 
 
 def _light_cols(scene: "DeviceScene", name: str) -> slice:

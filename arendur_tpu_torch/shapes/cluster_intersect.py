@@ -17,7 +17,9 @@ sphere hit seeds the closest hit's best t with the code -(2+s) and the
 triangles replace it only when strictly closer (the sphere wins ties);
 for the any hit a sphere hit blocks the ray.  ``full_phi`` skips the
 phi clip (every sphere full, ``SphereSoA.phi_full``).  A sphere table
-with batched instancing (``period > 0``) is refused.
+with batched instancing (``period > 0``) is refused.  Cluster tables of
+no cluster (C = 0: a scene whose world pool is empty) leave the spheres
+alone to test.
 
 Results are detached: ray geometry carries no gradient (the JAX
 package's stop_gradient at scene.py:743-744, 1078-1080).  ``n_alive``
@@ -36,6 +38,25 @@ import torch
 
 from arendur_tpu_torch.shapes import mxu_intersect as mxi
 from arendur_tpu_torch.shapes import sphere as sph
+
+
+# rows of one determinant product in the plain versions: a larger query
+# (an instanced mesh's [I * N] lanes) runs in blocks of this many rays,
+# so that the [rows, 4K] products stay small; every ray's result is its
+# own row's
+ROW_BLOCK = 1 << 16
+
+
+def _blocked(fn, o, d, tmax):
+    """fn(o, d, tmax) over row blocks of ROW_BLOCK rays, concatenated."""
+    if o.shape[0] <= ROW_BLOCK:
+        return fn(o, d, tmax)
+    parts = [fn(o[i:i + ROW_BLOCK], d[i:i + ROW_BLOCK],
+                tmax[i:i + ROW_BLOCK])
+             for i in range(0, o.shape[0], ROW_BLOCK)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 def _live(n: int, n_alive, period: int, device) -> Optional[torch.Tensor]:
@@ -62,8 +83,9 @@ def intersect_clusters_reference(w_clusters, cbox, o, d, tmax,
     _no_instanced_spheres(sph_tab, period)
     k = w_clusters.shape[-1] // 4
     o, d, tmax = o.detach(), d.detach(), tmax.detach()
-    t, slot, _, _ = mxi.intersect_mxu(w_clusters, o, d, tmax,
-                                      w_clusters.shape[0] * k, chunk=k)
+    t, slot = _blocked(lambda o_, d_, t_: mxi.intersect_mxu(
+        w_clusters, o_, d_, t_, w_clusters.shape[0] * k, chunk=k)[:2],
+        o, d, tmax)
     if sph_tab is not None:
         t_s, code = sph.sphere_best(sph_tab, o, d, tmax, full_phi)
         tri = (slot >= 0) & (t < t_s)
@@ -83,8 +105,8 @@ def occluded_clusters_reference(w_clusters, cbox, o, d, tmax,
     _no_instanced_spheres(sph_tab, period)
     k = w_clusters.shape[-1] // 4
     o, d, tmax = o.detach(), d.detach(), tmax.detach()
-    blocked = mxi.occluded_mxu(w_clusters, o, d, tmax,
-                               w_clusters.shape[0] * k, chunk=k)
+    blocked = _blocked(lambda o_, d_, t_: mxi.occluded_mxu(
+        w_clusters, o_, d_, t_, w_clusters.shape[0] * k, chunk=k), o, d, tmax)
     if sph_tab is not None:
         blocked = blocked | (sph.sphere_best(sph_tab, o, d, tmax,
                                              full_phi)[1] != -1)

@@ -109,8 +109,26 @@ Phases, one line each:
      the tie set (render/fuzz.py tie_set: equal t across slots,
      clusters and spheres, rays past n_alive, period > 0 without
      spheres) against the plain versions on every lane, its winners
-     asserted.
-In phases 6, 8, 10 and 12 one kernel-path run (the timed render, one
+     asserted;
+ 15. instanced meshes on examples/cornellbox/cb_inst.json (the Cornell
+     box placed 100 times by one instanced mesh, 200 spheres, no world
+     triangle): on 4,096 camera rays over the frame, their first
+     bounce's continuation rays (with a live count) and shadow rays, the
+     world K1 / K2 with no cluster (the sphere table alone) equal to the
+     plain versions on every lane with no descriptor encoded, the
+     instanced K1 / K2 over the 100 x 4,096 lanes (period 4,096) against
+     the plain versions lane by lane (dead lanes miss), and the whole
+     query (scene.closest_hits) kernels against plain; the 64x48, 4 spp,
+     depth-8 render through the kernels against the plain path; one
+     64x48 train step's gradients (the whole frame, one wave) against
+     the plain path's; paths/s at
+     256x256, 16 spp, depth 8 with no sphere test outside K1 / K2, one
+     wave's launches, device busy time and TMA descriptor encodes (also
+     on cb.json with cb_inst's instances beside its world pool), and K1
+     / K2 per instanced query on wave 0 (camera rays, first-bounce
+     shadow rays: 6.55 M lanes) by CUDA events and on the card, against
+     the bound and the plain version.
+In phases 6, 8, 10, 12 and 15 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
 PyTorch (phases 6, 8, 10) the local sphere test too: no sphere test
@@ -119,10 +137,12 @@ Then the kernels JSON line (each kernel's launches in the run of its
 main path: K1-K4 in the kernel-path train step of phase 8, K1 / K2
 with a sphere table counted apart as well, K5 and K6
 in phase 10's textured render, K8 and K9 in phase 12's composed
-render, K7 (K3 on the wide tables) in phase 13's render; its ms and
-plain_ms, all by CUDA events, K4's the mean per call over phase 7's
-eight train bounces, K1's and K2's the mean per launch over phase 3's
-fused-wave queries; and its bound: the larger of the bytes it must
+render, K7 (K3 on the wide tables) in phase 13's render, K1 / K2's
+instanced launches in phase 15's 64x48 render; its ms and plain_ms, all
+by CUDA events, K4's the mean per call over phase 7's eight train
+bounces, K1's and K2's the mean per launch over phase 3's fused-wave
+queries, the instanced rows' on phase 15's wave-0 queries; and its
+bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations this run's inputs need over
 67 TFLOP/s of f32, the H100 SXM's data-sheet peaks (K4's: the bytes of
 its lanes, all columns of a listed lane's input but only the gate
@@ -173,6 +193,8 @@ COMPOSED_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
                     "any_hit_spheres", "slot_sample", "slot_eval_pdf")
 FUSED_ATOL = 2e-3        # forced composed vs fused (tests/test_pallas_shade)
 SPHERE_KERNELS = ("closest_hit_spheres", "any_hit_spheres")
+INSTANCED_KERNELS = FORWARD_KERNELS + ("closest_hit_instanced",
+                                       "any_hit_instanced")
 
 
 _T0 = time.perf_counter()
@@ -454,6 +476,13 @@ def wave_query_work(ds, q, result):
         if tab is None else sphere()[1] == -1
     return nbytes, nops + TRI_FLOPS * any_hit_pairs(
         ds.cw, ds.cbox, o[free], d[free], tm[free])
+
+
+def blocked_sum(fn, *rows, block=1 << 16):
+    """fn summed over row blocks of its [N, ...] arguments (the work
+    counts of an instanced mesh's [I * N] lanes, in bounded memory)."""
+    return sum(fn(*(r[i:i + block] for r in rows))
+               for i in range(0, rows[0].shape[0], block))
 
 
 def query_call(fn, ds, q):
@@ -1644,13 +1673,18 @@ def main(argv=None):
     # operations on the same rays
     kk = ds.cw.shape[2] // 4
     sph_bytes = 4 * ds.ktab.numel()
+    # the sphere branch alone: its operations on the same rays and the
+    # table it reads (the bound of PERF.md's "K1 / K2 branch" row)
+    sph1_ops = plain_ops(lambda: sph.sphere_best(ds.ktab, o_cam, d_cam, tinf,
+                                                 ds.full_phi))
+    sph2_ops = plain_ops(lambda: sph.sphere_best(ds.ktab, *sh, ds.full_phi))
+    branch_bound = [bound_ms(sph_bytes, v) for v in (sph1_ops, sph2_ops)]
     k1s_ops = TRI_FLOPS * kk * slab_pairs(ds.cbox, o_cam, d_cam, t_k) \
-        + plain_ops(lambda: sph.sphere_best(ds.ktab, o_cam, d_cam, tinf,
-                                            ds.full_phi))
+        + sph1_ops
     blk_s = sph.sphere_best(ds.ktab, *sh, ds.full_phi)[1] != -1
     k2s_ops = TRI_FLOPS * any_hit_pairs(
         ds.cw, ds.cbox, sh[0][~blk_s], sh[1][~blk_s], sh[2][~blk_s]) \
-        + plain_ops(lambda: sph.sphere_best(ds.ktab, *sh, ds.full_phi))
+        + sph2_ops
     kern_rows["closest_hit_spheres"] = dict(
         max_abs_err=max(k14_err, cam_agree[3]), ms=k1s_ms,
         plain_ms=k1s_plain, bound=bound_ms(k1_bytes + sph_bytes, k1s_ops))
@@ -1664,7 +1698,8 @@ def main(argv=None):
                      k2_queued_ms=[k2s_q, k2n_q],
                      plain_ms=[k1s_plain, k2s_plain],
                      cam_agree=cam_agree, shadow_agree=sh_agree,
-                     ops=[k1s_ops, k2s_ops])
+                     ops=[k1s_ops, k2s_ops], branch_ops=[sph1_ops, sph2_ops],
+                     branch_bound_ms=[b[0] for b in branch_bound])
     _say("[14] K1 / K2 sphere branch " + "; ".join(
         f"{r['scene']} full_phi {r['full_phi']}: codes agree "
         f"{r['codes_agree']:.6f} ({r['sphere_lanes']} sphere lanes, "
@@ -1680,13 +1715,294 @@ def main(argv=None):
         f"{k1s_dev:.4f} / {k1s_q:.4f} ms vs {k1n_dev:.4f} / {k1n_q:.4f} "
         f"ms, K2 {k2s_dev:.4f} / {k2s_q:.4f} ms vs {k2n_dev:.4f} / "
         f"{k2n_q:.4f} ms; plain K1 {k1s_plain:.3f} ms, K2 "
-        f"{k2s_plain:.3f} ms; table past the cap refused (cudaError "
+        f"{k2s_plain:.3f} ms; the sphere branch alone: bound K1 "
+        f"{branch_bound[0][0]:.4f} ms, K2 {branch_bound[1][0]:.4f} ms "
+        f"({branch_bound[0][1]}); table past the cap refused (cudaError "
         f"{refused}), cap {ops.MAX_SPHERES} spheres | tie set ("
         f"{n_ts} rays): " + "; ".join(
             f"{k}: slots equal {v['slots_equal']}, blocked equal "
             f"{v['blocked_equal']}, t equal on the crafted rays "
             f"{v['t_equal_crafted']}, winners {v['winners']} of {v['cases']}"
             for k, v in tie.items()))
+
+    # phase 15: instanced meshes, cb_inst.json (the Cornell box placed
+    # 100 times, 200 spheres, no world triangle)
+    inst_json = os.path.join(REPO, "examples/cornellbox/cb_inst.json")
+    s_i, cam_i, film_i, cfg_i, _ = scenedesc.parse_scene(
+        inst_json, spp_override=16, resolution_override=(256, 256))
+    cfg_i = dataclasses.replace(cfg_i, max_depth=8, wave_size=1 << 16)
+    ds_i = sc.DeviceScene.build(s_i, dev)
+    im = ds_i.inst[0]
+    n_inst = im.n_instances
+    if ds_i.cw.shape[0] or ds_i.n_tris or len(ds_i.inst) != 1 \
+            or ds_i.composed_only:
+        raise AssertionError("cb_inst.json is not a pure-instanced scene")
+    # a ray set of 4,096 camera rays over the whole frame (every 16th
+    # pixel, sample 0), its first bounce's continuation rays (with a live
+    # count) and its shadow rays
+    n4 = 4096
+    pid4 = torch.arange(n4, device=dev) * 16
+    sid4 = torch.zeros_like(pid4)
+    pxy4 = torch.stack([(pid4 % 256).float(), (pid4 // 256).float()], -1)
+    ws4 = smp.WaveSampler(smp.make_base_key(0), pid4, sid4, sample_dx=4,
+                          sample_dy=4)
+    o4, d4 = cam.generate_rays(cam_i, pxy4 + ws4.film_jitter(), ws4.u2(2))
+
+    def first_bounce(o_, d_, keys):
+        """The first fused bounce's output on the kernel path."""
+        raw_ = integ.intersect_raw(ds_i, o_, d_, None, integ.KERNEL_OPS)
+        u_s, u_l_, u_b_, u_r = integ.bounce_draws(cfg_i, keys, 0)
+        li_, sp_ = nee.sample_one_light(ds_i, u_s)
+        x_ = integ.pack_bounce_input(integ.initial_carry(o_, d_, keys), raw_,
+                                     li_, sp_, u_l_, u_b_, u_r, 0)
+        return cb.unpack_out_t(cb.bounce_shade_t(
+            x_, ds_i.ltab, ds_i.mtab, ds_i.stab, ds_i.static,
+            cfg_i.min_depth, cfg_i.rr_threshold))
+
+    r4 = first_bounce(o4, d4, ws4.keys)
+    t4 = torch.full((n4,), float("inf"), device=dev)
+    na4 = torch.tensor(n4 - 500, device=dev)
+    skw = dict(sph_tab=ds_i.ktab, full_phi=ds_i.full_phi)
+    k15 = []
+    k15_err = 0.0
+    for nm, o_, d_, tm_, na in (
+            ("camera", o4, d4, t4, None),
+            ("bounce 1", r4["o"].contiguous(), r4["d"].contiguous(), t4, na4),
+            ("shadow", r4["sh_o"].contiguous(), r4["sh_d"].contiguous(),
+             r4["sh_t"].contiguous(), None)):
+        # the world K1 / K2 with no cluster: the sphere table alone,
+        # equal to the plain versions on every lane, no descriptor
+        enc = ops.isect_encodes()
+        wa = (ds_i.cw, ds_i.cbox, o_, d_, tm_, na)
+        t_k, s_k = ci.intersect_clusters(*wa, **skw)
+        b_k = ci.occluded_clusters(*wa, **skw)
+        no_encode = ops.isect_encodes() == enc
+        t_p, s_p = ci.intersect_clusters_reference(*wa, **skw)
+        b_p = ci.occluded_clusters_reference(*wa, **skw)
+        world_equal = bool(torch.equal(s_k, s_p) and torch.equal(t_k, t_p)
+                           and torch.equal(b_k, b_p))
+        # the instanced launches over the 100 x 4,096 lanes (period
+        # 4,096), bounded by tmax (no world triangle), every lane against
+        # the plain versions
+        ol, dl = sc.instance_rays(im, o_, d_)
+        ia = (im.cw, im.cbox, ol, dl, tm_.repeat(n_inst), na)
+        ti_k, si_k = ci.intersect_clusters(*ia, period=n4)
+        bi_k = ci.occluded_clusters(*ia, period=n4)
+        ti_p, si_p = ci.intersect_clusters_reference(*ia, period=n4)
+        bi_p = ci.occluded_clusters_reference(*ia, period=n4)
+        agree = si_k == si_p
+        hit = agree & (si_k >= 0)
+        trel = ((ti_k - ti_p).abs()[hit] / ti_p.abs()[hit]).max().item() \
+            if hit.any() else 0.0
+        if hit.any():
+            k15_err = max(k15_err, (ti_k - ti_p).abs()[hit].max().item())
+        live = torch.ones(n_inst * n4, dtype=torch.bool, device=dev) \
+            if na is None else (torch.arange(n_inst * n4, device=dev) % n4
+                                < int(na))
+        dead_ok = bool((si_k[~live] == -1).all() and not bi_k[~live].any())
+        # the whole query, the kernels' against the plain versions'
+        c_k = sc.closest_hits(ds_i, o_, d_, tm_, na, ci.intersect_clusters)
+        c_p = sc.closest_hits(ds_i, o_, d_, tm_, na,
+                              ci.intersect_clusters_reference)
+        q_hit = (c_k.hit == c_p.hit).float().mean().item()
+        k15.append(dict(set=nm, world_equal=world_equal,
+                        no_encode=no_encode,
+                        slots_agree=agree.float().mean().item(),
+                        blocked_agree=(bi_k == bi_p).float().mean().item(),
+                        t_rel=trel, dead_lanes_miss=dead_ok,
+                        inst_hit=(si_k >= 0).float().mean().item(),
+                        sphere_lanes=int((s_k <= -2).sum()),
+                        query_hit_agree=q_hit))
+        if not (world_equal and no_encode and dead_ok) or trel > T_RTOL \
+                or min(k15[-1]["slots_agree"], k15[-1]["blocked_agree"],
+                       q_hit) < K1_K2_GATE:
+            raise AssertionError(f"K1 / K2 on cb_inst, {nm}: {k15[-1]}")
+
+    # the cb_inst render at 64x48, 4 spp, depth 8 (waves of 4,096: each
+    # instanced query 409,600 lanes), kernels against the plain path
+    s15, cam15, film15, cfg15, _ = scenedesc.parse_scene(
+        inst_json, spp_override=4, resolution_override=(64, 48))
+    cfg15 = dataclasses.replace(cfg15, max_depth=8, wave_size=n4)
+    ds15 = sc.DeviceScene.build(s15, dev)
+    ops.reset_counts()
+    img_ik = integ.render(ds15, cam15, film15, cfg15)
+    torch.cuda.synchronize()
+    inst_launches = ops.counts()
+    img_ip = integ.render(ds15, cam15, film15, cfg15, ops=integ.PLAIN_OPS)
+    dinst = float((img_ik - img_ip).abs().max().item())
+    if not torch.isfinite(img_ik).all() or img_ik.shape != (48, 64, 3) \
+            or not img_ik.max() > 0.0:
+        raise AssertionError("cb_inst render is not finite [48,64,3]")
+    if min(inst_launches[k] for k in INSTANCED_KERNELS) < 1 or any(
+            inst_launches[k] for k in ("hit_shade", "shade_split",
+                                       "slot_sample", "slot_eval_pdf")):
+        raise AssertionError(f"cb_inst path launches: {inst_launches}")
+    if dinst > PLAIN_ATOL:
+        raise AssertionError(f"cb_inst kernel and plain paths differ: "
+                             f"{dinst}")
+    if out_dir:
+        np.save(os.path.join(out_dir, "cb_inst_64x48_kernels.npy"),
+                img_ik.cpu().numpy())
+    # one train step at 64x48 on the whole frame (12,288 paths in one
+    # wave: on part of the frame the Lanczos filter leaves pixels of
+    # near-zero weight at its edge, whose loss ulps decide the gradient),
+    # kernels against plain
+    n15 = 64 * 48 * 4
+    cfg15s = dataclasses.replace(cfg15, wave_size=n15)
+    m15 = ds15.materials
+    p15 = {k: torch.tensor(v, device=dev) for k, v in
+           (("kd", m15.kd), ("ks", m15.ks), ("roughness", m15.roughness))}
+    grads15, losses15 = {}, {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        step = mesh.train_step_fn(ds15, cam15, film15, cfg15s, lr=GRAD_LR,
+                                  ops=wops)
+        if name == "kernels":
+            ops.reset_counts()
+        new, loss = step(dict(p15), img_ik.reshape(-1, 3) * 0.8,
+                         torch.arange(n15, device=dev))
+        torch.cuda.synchronize()
+        if name == "kernels":
+            step15_launches = ops.counts()
+        grads15[name] = {k: (p15[k] - new[k]) / GRAD_LR for k in new}
+        losses15[name] = loss.item()
+    grel15 = {k: ((grads15["kernels"][k] - grads15["plain"][k]).norm()
+                  / grads15["plain"][k].norm().clamp(min=1e-30)).item()
+              for k in p15}
+    finite15 = all(torch.isfinite(g).all().item()
+                   for gs in grads15.values() for g in gs.values())
+    if not finite15 or max(grel15.values()) > GRAD_GATE \
+            or min(step15_launches[k] for k in INSTANCED_KERNELS
+                   + ("bounce_shade_bwd",)) < 1:
+        raise AssertionError(f"cb_inst train step: grad rel {grel15}, "
+                             f"finite {finite15}, {step15_launches}")
+
+    # the full-width render: paths/s with no sphere test outside K1 / K2,
+    # then one wave's launches, device busy time and TMA encodes
+    integ.render(ds_i, cam_i, film_i, dataclasses.replace(
+        cfg_i, spp=1, sample_dx=1, sample_dy=1))
+    torch.cuda.synchronize()
+    with sphere_tests_refused():
+        t0 = time.perf_counter()
+        img_if = integ.render(ds_i, cam_i, film_i, cfg_i)
+        torch.cuda.synchronize()
+        dt_i = time.perf_counter() - t0
+    if not torch.isfinite(img_if).all():
+        raise AssertionError("cb_inst 256x256 render not finite")
+    inst_rate = 256 * 256 * 16 / dt_i
+    wave_i = (ds_i, cam_i, cfg_i, pxy, pid, sid, smp.make_base_key(0))
+    with torch.no_grad():
+        integ.trace_wave(*wave_i)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        enc0 = ops.isect_encodes()
+        t0 = time.perf_counter()
+        integ.trace_wave(*wave_i)
+        torch.cuda.synchronize()
+        iwave_s = time.perf_counter() - t0
+        iwave_launches = ops.counts()
+        iwave_encodes = ops.isect_encodes() - enc0
+        iprof = wave_profile(lambda: integ.trace_wave(*wave_i))
+    ibusy, ink, iown = _busy_s(iprof)
+    # a world pool and instances together (cb.json's box and spheres
+    # beside cb_inst's instanced mesh): the descriptor cache holds both
+    # weights, so a wave after the first encodes none
+    ds_mix = sc.DeviceScene.build(dataclasses.replace(scene, inst=s_i.inst),
+                                  dev)
+    wave_mix = (ds_mix, camera, config, pxy, pid, sid, smp.make_base_key(0))
+    with torch.no_grad():
+        enc0 = ops.isect_encodes()
+        integ.trace_wave(*wave_mix)
+        mix_first = ops.isect_encodes() - enc0
+        enc0 = ops.isect_encodes()
+        ops.reset_counts()
+        integ.trace_wave(*wave_mix)
+        torch.cuda.synchronize()
+        mix_encodes = ops.isect_encodes() - enc0
+        mix_launches = ops.counts()
+    if iwave_encodes or mix_encodes:
+        raise AssertionError(f"TMA descriptors re-encoded in a wave: "
+                             f"cb_inst {iwave_encodes}, mixed {mix_encodes}")
+    # K1 / K2 per instanced query on the main path's inputs: wave 0's
+    # camera rays through the 100 instances (6.55 M lanes), and the
+    # shadow rays of its first bounce
+    o_w0, d_w0 = cam.generate_rays(cam_i, pxy + ws.film_jitter(), ws.u2(2))
+    r_w0 = first_bounce(o_w0, d_w0, ws.keys)
+    iq = {}
+    for kind, o_, d_, tm_ in (
+            ("closest", o_w0, d_w0, tinf),
+            ("any", r_w0["sh_o"].contiguous(), r_w0["sh_d"].contiguous(),
+             r_w0["sh_t"].contiguous())):
+        ol, dl = sc.instance_rays(im, o_, d_)
+        tb = tm_.repeat(n_inst)
+        fn, plain = ((ops.closest_hit, ci.intersect_clusters_reference)
+                     if kind == "closest" else
+                     (ops.any_hit, ci.occluded_clusters_reference))
+        call = lambda: fn(im.cw, im.cbox, ol, dl, tb, None, n)  # noqa
+        got, ref = results(call()), results(plain(im.cw, im.cbox, ol, dl,
+                                                  tb, None, n))
+        lanes = (got[-1] == ref[-1]).float().mean().item()
+        if lanes < K1_K2_GATE:
+            raise AssertionError(f"instanced {kind} on wave 0: {lanes}")
+        kk = im.cw.shape[2] // 4
+        nbytes = 4 * (ol.shape[0] * (7 + len(got)) + im.cw.numel()
+                      + im.cbox.numel())
+        if kind == "closest":
+            nops = TRI_FLOPS * kk * blocked_sum(
+                lambda a, b, c: slab_pairs(im.cbox, a, b, c), ol, dl, got[0])
+        else:
+            nops = TRI_FLOPS * blocked_sum(
+                lambda a, b, c: any_hit_pairs(im.cw, im.cbox, a, b, c), ol,
+                dl, tb)
+        dev_ms, q_ms = kernel_ms(call, "cluster_kernel", iters=5)
+        iq[kind] = dict(lanes_equal=lanes, ms=time_ms(call, iters=5),
+                        device_ms=dev_ms, queued_ms=q_ms,
+                        plain_ms=time_ms(lambda: plain(
+                            im.cw, im.cbox, ol, dl, tb, None, n), iters=1),
+                        bound=bound_ms(nbytes, nops), lanes=ol.shape[0],
+                        live_hit=(got[-1] != (0 if kind == "any" else -1))
+                        .float().mean().item())
+    kern_rows["closest_hit_instanced"] = dict(
+        max_abs_err=k15_err, ms=iq["closest"]["ms"],
+        plain_ms=iq["closest"]["plain_ms"], bound=iq["closest"]["bound"])
+    kern_rows["any_hit_instanced"] = dict(
+        max_abs_err=1.0 - min(iq["any"]["lanes_equal"],
+                              min(r["blocked_agree"] for r in k15)),
+        ms=iq["any"]["ms"], plain_ms=iq["any"]["plain_ms"],
+        bound=iq["any"]["bound"])
+    _say("[15] cb_inst.json (" f"{n_inst} instances of {im.attr.shape[0]} "
+         f"triangles in {im.cw.shape[0]} clusters, "
+         f"{ds_i.ktab.shape[0]} spheres, no world triangle): " + "; ".join(
+             f"{r['set']}: world K1 / K2 with no cluster equal to plain "
+             f"{r['world_equal']} ({r['sphere_lanes']} sphere lanes, no "
+             f"descriptor {r['no_encode']}), instanced {n_inst} x {n4} lanes"
+             f" slots agree {r['slots_agree']:.6f} (hit {r['inst_hit']:.4f}"
+             f"), blocked agree {r['blocked_agree']:.6f}, max t rel "
+             f"{r['t_rel']:.2e}, dead lanes miss {r['dead_lanes_miss']}, "
+             f"query hits agree {r['query_hit_agree']:.6f}" for r in k15)
+         + f" | 64x48 4spp depth 8: launches {inst_launches}; max |kernel "
+         f"- plain| {dinst:.3e} (gate {PLAIN_ATOL}) | train step 64x48: "
+         f"loss kernels {losses15['kernels']:.6e} plain "
+         f"{losses15['plain']:.6e}; grad rel " + ", ".join(
+             f"{k} {v:.2e}" for k, v in grel15.items())
+         + f"; finite {finite15} | 256x256 16spp depth 8: {inst_rate:.0f} "
+         f"paths/s (no sphere test outside K1 / K2) | one wave "
+         f"{1e3 * iwave_s:.1f} ms, kernel launches {iwave_launches}, TMA "
+         f"encodes {iwave_encodes}, device busy {1e3 * ibusy:.1f} ms in "
+         f"{ink} launches (share {ibusy / iwave_s:.2f}), of which "
+         + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in iown.items())
+         + f" | cb.json plus cb_inst's instances: TMA encodes {mix_first} in"
+         f" the first wave, {mix_encodes} in the next "
+         f"({mix_launches['closest_hit']} K1 / {mix_launches['any_hit']} K2 "
+         f"launches) | per instanced query on "
+         f"wave 0: " + "; ".join(
+             f"{'K1' if k == 'closest' else 'K2'} {v['lanes']} lanes: equal "
+             f"to plain {v['lanes_equal']:.6f}, hit / blocked "
+             f"{v['live_hit']:.4f}, {v['ms']:.3f} ms by events (device "
+             f"{v['device_ms']:.3f}, queued {v['queued_ms']:.3f}) vs bound "
+             f"{v['bound'][0]:.4f} ms ({v['bound'][1]}), plain "
+             f"{v['plain_ms']:.1f} ms" for k, v in iq.items())
+         + f" ({card})")
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -1698,6 +2014,10 @@ def main(argv=None):
                                 "arendur_tpu/shapes/pallas_intersect.py:102"),
         "any_hit_spheres": (src + "intersect.cu",
                             "arendur_tpu/shapes/pallas_intersect.py:102"),
+        "closest_hit_instanced": (
+            src + "intersect.cu", "arendur_tpu/shapes/pallas_intersect.py:138"),
+        "any_hit_instanced": (
+            src + "intersect.cu", "arendur_tpu/shapes/pallas_intersect.py:195"),
         "bounce_shade": (src + "cbounce.cu",
                          "arendur_tpu/render/cbounce.py:955"),
         "bounce_shade_bwd": (src + "cbounce_bwd.cu",
@@ -1719,10 +2039,14 @@ def main(argv=None):
     main_launches.update({k: comp_launches[k]
                           for k in ("slot_sample", "slot_eval_pdf")})
     main_launches["bounce_shade_wide"] = wide_launches["bounce_shade"]
+    main_launches.update({k: inst_launches[k]
+                          for k in ("closest_hit_instanced",
+                                    "any_hit_instanced")})
     rows = []
     for k in TRAIN_KERNELS + ("hit_shade", "shade_split",
                               "bounce_shade_wide", "slot_sample",
-                              "slot_eval_pdf"):
+                              "slot_eval_pdf", "closest_hit_instanced",
+                              "any_hit_instanced"):
         r = dict(kern_rows[k])
         b_ms, b_by = r.pop("bound")
         rows.append(dict(name=k, route="cuda", source=meta[k][0],
@@ -1765,7 +2089,19 @@ def main(argv=None):
                            wide_launches=wide_launches, wide_dmax=dwide,
                            k14=k14, k14_times=k14_times, tie_set=tie,
                            wave_queries=wave_q, k1_k2_twice=twice,
-                           occupancy=occ),
+                           occupancy=occ, k15=k15,
+                           inst_launches=inst_launches, inst_dplain=dinst,
+                           inst_train_grad_rel=grel15,
+                           inst_train_losses=losses15,
+                           inst_train_launches=step15_launches,
+                           inst_paths_per_s=inst_rate,
+                           inst_wave=[iwave_s, ibusy, ink],
+                           inst_wave_launches=iwave_launches,
+                           inst_wave_kernel_s=iown,
+                           inst_wave_encodes=iwave_encodes,
+                           mixed_encodes=[mix_first, mix_encodes],
+                           inst_queries={k: dict(v, bound=list(v["bound"]))
+                                         for k, v in iq.items()}),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -509,3 +509,45 @@ def test_bounce_shade_kernel_serves_wide_tables(card):
     torch.testing.assert_close(integ.render(wide, camera, film, config),
                                integ.render(narrow, camera, film, config),
                                rtol=0.0, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full_phi", [False, True])
+def test_no_cluster_kernels_match_plain(card, full_phi):
+    """K1 / K2 with no cluster (C = 0: an empty world pool) and a sphere
+    table: the sphere branch alone, every live lane's code and blocked
+    flag against the plain versions, no descriptor encoded."""
+    ds, o, d, tmax = _sphere_rays(card, "cornell", 9)
+    w0, c0 = ds.cw[:0].contiguous(), ds.cbox[:0].contiguous()
+    na = torch.tensor(N - 1000, device=card)
+    kw = dict(sph_tab=ds.ktab, full_phi=full_phi)
+    encodes = ops.isect_encodes()
+    t, s = ci.intersect_clusters(w0, c0, o, d, tmax, na, **kw)
+    b = ci.occluded_clusters(w0, c0, o, d, tmax, na, **kw)
+    assert ops.isect_encodes() == encodes
+    t_p, s_p = ci.intersect_clusters_reference(w0, c0, o, d, tmax, na, **kw)
+    b_p = ci.occluded_clusters_reference(w0, c0, o, d, tmax, na, **kw)
+    assert torch.equal(s, s_p) and torch.equal(b, b_p)
+    torch.testing.assert_close(t, t_p, rtol=T_RTOL, atol=0.0)
+    assert (s[:N - 1000] <= -2).sum() > N // 8
+
+
+@pytest.mark.gpu
+def test_instanced_render_kernel_path_matches_plain_path(card):
+    """cb_inst.json (100 instances of the Cornell box, 200 spheres, an
+    empty world pool) at 24x16, 2 spp, depth 3: the kernel path, whose
+    instanced queries are [I * N]-lane K1 / K2 launches, against the
+    plain path."""
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        os.path.join(REPO, "examples/cornellbox/cb_inst.json"),
+        spp_override=2, resolution_override=(24, 16))
+    ds = sc.DeviceScene.build(scene, card)
+    config = dataclasses.replace(config, max_depth=3)
+    ops.reset_counts()
+    img_k = integ.render(ds, camera, film, config)
+    launches = ops.counts()
+    img_p = integ.render(ds, camera, film, config, ops=integ.PLAIN_OPS)
+    for k in ("closest_hit_instanced", "any_hit_instanced", "bounce_shade"):
+        assert launches[k] >= 1, launches
+    assert torch.isfinite(img_k).all() and img_k.max() > 0.05
+    torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)

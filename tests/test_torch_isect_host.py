@@ -172,3 +172,42 @@ def test_refused_arguments(host_fn, cornell):
     with pytest.raises(ValueError):
         host_isect.run(host_fn, True, ds.cw[:, :, :4 * 32], ds.cbox,
                        o[:256], d[:256], tmax[:256])
+
+
+@pytest.mark.parametrize("table", ["none", "phi clip", "full_phi"])
+def test_no_cluster_matches_plain(host_fn, cornell, table):
+    """No cluster (C = 0: a scene whose world pool is empty): the sphere
+    pass alone, every lane equal to the plain versions (sphere_best)."""
+    ds, (o, d, tmax) = cornell
+    tab = None if table == "none" else ds.ktab
+    w0, c0 = ds.cw[:0].contiguous(), ds.cbox[:0].contiguous()
+    for rpt in (1, 2):
+        t, s, b = check(host_fn, w0, c0, o, d, tmax, N_FUZZ - DEAD,
+                        sph_tab=tab, full_phi=table == "full_phi",
+                        rays_per_thread=rpt)
+        assert (s >= 0).sum() == 0
+        if tab is None:
+            assert (s == -1).all() and not b.any()
+        else:
+            assert (s[:N_FUZZ - DEAD] <= -2).sum() > N_FUZZ // 8
+
+
+def test_instanced_launch_matches_plain(host_fn, cornell):
+    """One instanced mesh's [I * N] lanes (period N) over the Cornell
+    tables: the rays taken into three instances' frames, every lane equal
+    to the plain versions, the live count applied per instance."""
+    ds, (o, d, tmax) = cornell
+    n = 1024
+    m = torch.eye(4).repeat(3, 1, 1)
+    m[1, :3, :3] = torch.tensor([[0.8, 0.6, 0.0], [-0.6, 0.8, 0.0],
+                                 [0.0, 0.0, 1.0]])
+    m[1:, 3, :3] = torch.tensor([[0.3, -0.2, 0.1], [-0.4, 0.0, 0.5]])
+    ol = torch.stack(sc.affine(m[:, None], o[:n].unbind(-1)), -1)
+    dl = torch.stack(sc.affine(m[:, None], d[:n].unbind(-1), point=False),
+                     -1)
+    t, s, b = check(host_fn, ds.cw, ds.cbox, ol.reshape(-1, 3).contiguous(),
+                    dl.reshape(-1, 3).contiguous(), tmax[:n].repeat(3),
+                    n - DEAD, period=n)
+    live = (np.arange(3 * n) % n) < n - DEAD
+    assert (s[~live] == -1).all() and not b[~live].any()
+    assert (s[live] >= 0).mean() > 0.3

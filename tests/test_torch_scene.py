@@ -132,9 +132,10 @@ def test_numpy_bvh_matches_reference():
 
 
 def test_unported_descs_raise(tmp_path):
-    """Mesh instancing is not ported: a Transformed of a mesh raises.
-    An Image desc on a sphere light (an emission texture) loads since
-    the composed path is ported, as the JAX package's loader reads it."""
+    """Descs the port once refused now load as the JAX package's loader
+    reads them: an Image desc on a sphere light (an emission texture,
+    since the composed path is ported) and a Transformed of a mesh (an
+    instanced mesh of two placements, since instancing is ported)."""
     import json
     with open(CB) as f:
         desc = json.load(f)
@@ -159,8 +160,13 @@ def test_unported_descs_raise(tmp_path):
     p.write_text(json.dumps(desc).replace(
         "./examples/cornellbox/", os.path.join(REPO, "examples/cornellbox/")
         + "/"))
-    with pytest.raises(NotImplementedError):
-        tsd.parse_scene(str(p))
+    ts = tsd.parse_scene(str(p))[0]
+    js = jsd.parse_scene(str(p))[0]
+    assert ts.n_tris == 0 and len(ts.inst) == 1
+    assert ts.inst[0].n_instances == 2
+    for k in ("cw", "cbox", "remap", "attr", "o2w", "w2o", "nrm"):
+        np.testing.assert_array_equal(getattr(ts.inst[0], k),
+                                      np.asarray(getattr(js.inst[0], k)))
 
 
 @pytest.mark.parametrize("key", ["map_Kd", "map_Ks", "map_bump"])
