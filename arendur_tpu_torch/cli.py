@@ -4,11 +4,13 @@ ref: examples/arencli.rs).
 Usage:
     python -m arendur_tpu_torch.cli scene.json [options]
 
-Renders the JSON scene description (cb.json schema) with the wavefront
-path tracer on one device and saves a PNG, printing the wall-clock time
-like the reference ("Done! Time used: {:.4}s", arencli.rs:54-61).
-Flags of the JAX CLI whose paths are not ported yet exit with an error
-that says so.
+Renders the JSON scene description (cb.json schema) on one device with
+the wavefront path tracer (``--renderer pt``), the bidirectional path
+tracer (``bpt``) or Whitted direct lighting (``whitted``) and saves a
+PNG, printing the wall-clock time like the reference ("Done! Time used:
+{:.4}s", arencli.rs:54-61).  Flags of the JAX CLI whose paths are not
+ported yet (``--intersector bvh|naive``, ``--resume``) exit with an
+error that says so.
 """
 
 from __future__ import annotations
@@ -64,8 +66,6 @@ def main(argv=None):
                     help="per-wave progress + invalid-sample warnings")
     args = ap.parse_args(argv)
 
-    if args.renderer != "pt":
-        return _not_ported(f"--renderer {args.renderer}")
     if args.bvh or args.intersector != "cluster":
         return _not_ported("--intersector "
                            + ("bvh" if args.bvh else args.intersector))
@@ -97,15 +97,25 @@ def main(argv=None):
     out = args.output or outname
     print(f"rendering {args.input}: {film_cfg.resolution[0]}x"
           f"{film_cfg.resolution[1]}, {config.spp} spp, "
-          f"depth {config.max_depth}, device={device}")
+          f"depth {config.max_depth}, renderer={args.renderer}, "
+          f"device={device}")
     if args.verbose:
         import logging
         logging.basicConfig(level=logging.INFO)
     t0 = time.time()
     dscene = sc.DeviceScene.build(scene, device)
-    img = integ.render(dscene, camera, film_cfg, config,
-                       progress=args.verbose,
-                       composed=args.composed).cpu()
+    if args.renderer == "pt":
+        img = integ.render(dscene, camera, film_cfg, config,
+                           progress=args.verbose, composed=args.composed)
+    elif args.renderer == "bpt":
+        from arendur_tpu_torch.render import bpt
+        img = bpt.render_bpt(dscene, camera, film_cfg, config,
+                             progress=args.verbose)
+    else:
+        from arendur_tpu_torch.render import whitted
+        img = whitted.render_whitted(dscene, camera, film_cfg, config,
+                                     progress=args.verbose)
+    img = img.cpu()
     dt = time.time() - t0
     print(f"Done! Time used: {dt:.4f}s")
     flm.save_png(img, out)

@@ -2,9 +2,11 @@
 arendur_tpu/filming/film.py; ref: src/filming/film.rs).
 
 The film is two flat accumulators, rgb_sum [H*W, 3] and weight_sum
-[H*W].  Unlike the JAX version the splats update the state in place
-(the state tensors are owned by the caller's render loop), which
-saves a full copy of the film per wave.
+[H*W], and for the bidirectional renderer a third, the additive splat
+plane [H*W, 3] of its light-tracing (t = 1) contributions.  Unlike the
+JAX version the splats update the state in place (the state tensors are
+owned by the caller's render loop), which saves a full copy of the film
+per wave.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class FilmState:
     # True when rgb/weight carry film_pad() rows of halo on both ends
     # for the scatter-free pixel-major splat
     padded: bool = False
+    splat: Optional[torch.Tensor] = None  # [H*W, 3] additive splat plane
 
 
 def film_pad(config: FilmConfig) -> int:
@@ -55,14 +58,17 @@ def _pad_flat(config: FilmConfig) -> int:
     return p * w + p
 
 
-def film_init(config: FilmConfig, device, padded: bool = False) \
-        -> FilmState:
+def film_init(config: FilmConfig, device, padded: bool = False,
+              with_splat: bool = False) -> FilmState:
+    """An empty film; with_splat adds the splat plane."""
     w, h = config.resolution
     n = h * w + (2 * _pad_flat(config) if padded else 0)
     return FilmState(
         rgb=torch.zeros(n, 3, dtype=torch.float32, device=device),
         weight=torch.zeros(n, dtype=torch.float32, device=device),
-        padded=padded)
+        padded=padded,
+        splat=(torch.zeros(h * w, 3, dtype=torch.float32, device=device)
+               if with_splat else None))
 
 
 def film_splat(config: FilmConfig, state: FilmState, pfilm, radiance,
@@ -164,9 +170,35 @@ def film_splat_pixmajor(config: FilmConfig, state: FilmState, jitter,
     return state
 
 
-def film_finalize(state: FilmState, config: FilmConfig) -> torch.Tensor:
+def film_add_splat(config: FilmConfig, state: FilmState, praster,
+                   radiance, mask: Optional[torch.Tensor] = None) \
+        -> FilmState:
+    """Add N light-tracing splats (praster [N,2] raster positions,
+    radiance [N,3]) to the splat plane, each to its nearest pixel, those
+    outside the crop window dropped (twin: film.film_add_splat).  They
+    are measurement-equation densities: summed, not averaged; the
+    render scales the plane by 1/spp at film_finalize."""
+    w, h = config.resolution
+    (cx0, cy0), (cx1, cy1) = config.crop()
+    ix = torch.floor(praster[:, 0]).to(torch.int32)
+    iy = torch.floor(praster[:, 1]).to(torch.int32)
+    inside = (ix >= cx0) & (ix < cx1) & (iy >= cy0) & (iy < cy1)
+    if mask is not None:
+        inside = inside & mask
+    flat_idx = torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)
+    contrib = torch.where(inside[:, None], radiance, 0.0)
+    if state.splat is None:
+        state.splat = torch.zeros(h * w, 3, dtype=torch.float32,
+                                  device=praster.device)
+    state.splat.index_add_(0, flat_idx.long(), contrib)
+    return state
+
+
+def film_finalize(state: FilmState, config: FilmConfig,
+                  splat_scale: float = 0.0) -> torch.Tensor:
     """sum / weight per pixel, black where weight == 0 (ref:
-    TilePixel::finalize, film.rs:338-345).  Returns [H, W, 3]."""
+    TilePixel::finalize, film.rs:338-345), plus splat_scale times the
+    splat plane.  Returns [H, W, 3]."""
     w, h = config.resolution
     rgb_sum, wgt_sum = state.rgb, state.weight
     if state.padded:
@@ -176,6 +208,8 @@ def film_finalize(state: FilmState, config: FilmConfig) -> torch.Tensor:
     safe = torch.where(wgt_sum > 0.0, wgt_sum, 1.0)
     img = torch.where((wgt_sum > 0.0)[:, None],
                       rgb_sum / safe[:, None], 0.0)
+    if state.splat is not None and splat_scale != 0.0:
+        img = img + splat_scale * state.splat
     return img.reshape(h, w, 3)
 
 

@@ -19,26 +19,12 @@ import torch
 
 from arendur_tpu_torch import scene as sc
 from arendur_tpu_torch.bxdf.types import ALL
-
-
-def sample_discrete(cdf: torch.Tensor, func: torch.Tensor,
-                    func_int: float, u: torch.Tensor):
-    """Sample an index of a piecewise-constant distribution; returns
-    (idx int64, pdf) (ref: distribution.rs:99-118)."""
-    n = func.shape[0]
-    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, n - 1)
-    if func_int > 0.0:
-        pdf = func[idx] / (torch.tensor(func_int, dtype=torch.float32)
-                           * n)
-    else:
-        pdf = torch.full_like(u, 1.0 / n)
-    return idx, pdf
+from arendur_tpu_torch.sampling import distribution
 
 
 def sample_one_light(scene, u: torch.Tensor):
     """Power-weighted light pick for a DeviceScene: (lidx, selpdf)."""
-    return sample_discrete(scene.light_cdf, scene.light_func,
-                           scene.light_func_int, u)
+    return distribution.sample_discrete(scene.light_distribution, u)
 
 
 def _c(x):
@@ -55,15 +41,19 @@ def _light_rows(scene: sc.DeviceScene, lidx):
                    dict(scene.static.lcidx))
 
 
-def light_sample(scene: sc.DeviceScene, lidx, pos, u2) -> dict:
+def light_sample(scene: sc.DeviceScene, lidx, pos, u2,
+                 need_nl: bool = False) -> dict:
     """A light sample of light lidx [N] toward pos [N,3] (twin:
     nee.light_sample): dict(radiance [N,3], pdf, pfrom [N,3], wi [N,3],
-    uv [N,2], delta)."""
+    uv [N,2], delta), with need_nl also nl [N,3], the light's normal at
+    pfrom (-wi for point, spot and distant lights)."""
     from arendur_tpu_torch.render import cbounce as cb
     ls = cb.light_sample_rows(_light_rows(scene, lidx),
                               scene.static.lpresent, _c(pos),
-                              (u2[:, 0], u2[:, 1]), need_uv=True)
-    out = {k: _r(ls[k]) for k in ("radiance", "pfrom", "wi")}
+                              (u2[:, 0], u2[:, 1]), need_uv=True,
+                              need_nl=need_nl)
+    keys = ("radiance", "pfrom", "wi") + (("nl",) if need_nl else ())
+    out = {k: _r(ls[k]) for k in keys}
     out.update(pdf=ls["pdf"], delta=ls["delta"], uv=_r(ls["uv"]))
     return out
 

@@ -268,10 +268,14 @@ def _sample_sphere_local_row(radius, zmin, zmax, thetamin, thetamax,
     return p, nrm, 1.0 / area
 
 
-def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False):
+def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False,
+                      need_nl: bool = False):
     """Twin: nee.light_sample_rows.  need_uv adds "uv", the (u, v) of
     the sampled light point (the emission-texture lookup of the composed
-    path); the bounce shade runs without it, as the JAX kernels do."""
+    path); need_nl adds "nl", the light's surface normal there (-wi on
+    the lanes of a point, spot or distant light; BPT's s = 1 strategy
+    reads it); the bounce shade runs without either, as the JAX kernels
+    do."""
     has = lambda t: present is None or t in present
     lt = lrow.col1("ltype").to(torch.int32)
     emission = lrow.col3("emission")
@@ -303,9 +307,12 @@ def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False):
                 torch.stack(lp_l, -1), lrow.col1("s_radius"),
                 lrow.col1("s_thetamin"), lrow.col1("s_thetamax"),
                 lrow.col1("s_phimax"))[:2]
+        if need_nl:
+            nl_s = vnormalize(cm.tv16(o2w, ln_l))
     else:
         pfrom_s, rad_s, pdf_s = zero3, zero3, zero1
         uv_s = (zero1, zero1)
+        nl_s = zero3
 
     has_tris = has(sc.L_AREA_TRI) and "tri_v0" in lrow._cidx
     if has_tris:
@@ -342,6 +349,7 @@ def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False):
     else:
         lp_t, pdf_t, rad_t = zero3, zero1, zero3
         uv_t = (zero1, zero1)
+        ln_t = None
 
     lpos = lrow.col3("pos")
     if has(sc.L_POINT) or has(sc.L_SPOT):
@@ -405,6 +413,10 @@ def light_sample_rows(lrow: CRow, present, pos, u2, need_uv: bool = False):
     if need_uv:
         out["uv"] = tuple(pick(uv_s[j], uv_t[j], zero1, zero1, zero1, zero1)
                           for j in range(2))
+    if need_nl:
+        mwi = vneg(wi)
+        out["nl"] = pick(nl_s, mwi if ln_t is None else ln_t, mwi, mwi, mwi,
+                         mwi, vec=True)
     return out
 
 

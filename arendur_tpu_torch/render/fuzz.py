@@ -35,6 +35,10 @@ slots, clusters and spheres, rays past n_alive) with exact arithmetic.
 
 ``wave_queries`` records the closest-hit and any-hit queries of one
 wave (K1 / K2's main-path inputs) and their results.
+``bpt_wave_sets`` records one BPT wave's K1 / K2 queries (tagged by
+walk step and strategy), its BSDF samples (K8) and its fused evaluate +
+pdf calls (K9); ``bpt_light_rays`` draws the light subpaths' first
+rays, started just off a light's surface.
 
 ``spread_materials`` copies each material row of a scene several times
 and spreads the triangles and spheres over the copies: the tables grow
@@ -260,6 +264,26 @@ def wave_shades(ds, camera, film_cfg, config, ops, wave: int = 0):
     return shades
 
 
+def _query_recorder(queries: list, kind: str, fn):
+    """A closest_hit / any_hit entry that calls fn and appends the query
+    to `queries` (the dicts of wave_queries)."""
+    def call(w_clusters, cbox, o, d, tmax, n_alive=None, period=0,
+             sph_tab=None, full_phi=False):
+        out = fn(w_clusters, cbox, o, d, tmax, n_alive, period, sph_tab,
+                 full_phi)
+        q = dict(kind=kind, o=o.detach().clone(), d=d.detach().clone(),
+                 tmax=tmax.detach().clone(),
+                 n_alive=None if n_alive is None else n_alive.clone(),
+                 period=period, sph_tab=sph_tab, full_phi=full_phi)
+        if kind == "closest":
+            q.update(t=out[0].clone(), slot=out[1].clone())
+        else:
+            q.update(blocked=out.clone())
+        queries.append(q)
+        return out
+    return call
+
+
 def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     """The closest-hit and any-hit queries of wave `wave` of a render
     (render/integrator.py trace_wave, as render() cuts the waves of
@@ -270,29 +294,91 @@ def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     "n_alive" (a device scalar or None), "period", "sph_tab" and
     "full_phi", and the result: "t" and "slot", or "blocked"."""
     queries = []
-
-    def record(kind, fn):
-        def call(w_clusters, cbox, o, d, tmax, n_alive=None, period=0,
-                 sph_tab=None, full_phi=False):
-            out = fn(w_clusters, cbox, o, d, tmax, n_alive, period, sph_tab,
-                     full_phi)
-            q = dict(kind=kind, o=o.detach().clone(), d=d.detach().clone(),
-                     tmax=tmax.detach().clone(),
-                     n_alive=None if n_alive is None else n_alive.clone(),
-                     period=period, sph_tab=sph_tab, full_phi=full_phi)
-            if kind == "closest":
-                q.update(t=out[0].clone(), slot=out[1].clone())
-            else:
-                q.update(blocked=out.clone())
-            queries.append(q)
-            return out
-        return call
-
-    wops = dataclasses.replace(ops, closest_hit=record("closest",
-                                                       ops.closest_hit),
-                               any_hit=record("any", ops.any_hit))
+    wops = dataclasses.replace(
+        ops, closest_hit=_query_recorder(queries, "closest", ops.closest_hit),
+        any_hit=_query_recorder(queries, "any", ops.any_hit))
     _trace(ds, camera, film_cfg, config, wops, wave)
     return queries
+
+
+def bpt_wave_sets(ds, camera, film_cfg, config, ops, wave: int = 0):
+    """What BPT's kernels see in wave `wave` of a render_bpt (render/
+    bpt.py, as it cuts the waves of config.wave_size rays) through ops:
+    dict(queries: the closest-hit and any-hit queries in call order (the
+    dicts of wave_queries, each with its "tag": "camera walk i" and
+    "light walk i" for the walks' max_depth + 1 and max_depth closest
+    hits, "s{s} t{t}" for the shadow rays of the (s >= 1, t >= 2)
+    connections in the wave's loop order, then of the t = 1 lens
+    rays; an instanced mesh's launches carry their world query's tag),
+    samples: the BSDF samples (K8) of the walks' vertices, evals: the
+    fused evaluate + pdf calls (K9): walk reverse densities, connections'
+    f, MIS densities; each a dict of the BsdfSlots "b", "wo", "u" or
+    "wi", "types" and the result "out")."""
+    import torch
+    from arendur_tpu_torch.render import bpt
+    from arendur_tpu_torch.sampling import sampler as smp
+    queries, samples, evals = [], [], []
+
+    def sample(b, wo, u, types):
+        out = ops.bsdf_sample(b, wo, u, types)
+        samples.append(dict(b=b, wo=wo, u=u, types=types, out=out))
+        return out
+
+    def eval_pdf(b, wo, wi, types):
+        out = ops.bsdf_eval_pdf(b, wo, wi, types)
+        evals.append(dict(b=b, wo=wo, wi=wi, types=types, out=out))
+        return out
+
+    wops = dataclasses.replace(
+        ops, closest_hit=_query_recorder(queries, "closest", ops.closest_hit),
+        any_hit=_query_recorder(queries, "any", ops.any_hit),
+        bsdf_sample=sample, bsdf_eval_pdf=eval_pdf)
+    w = film_cfg.resolution[0]
+    ray_idx = wave * config.wave_size + torch.arange(
+        config.wave_size, dtype=torch.int64, device=ds.device)
+    pid = ray_idx // config.spp
+    pxy = torch.stack([(pid % w).to(torch.float32),
+                       (pid // w).to(torch.float32)], -1)
+    with torch.no_grad():
+        bpt.trace_wave_bpt(ds, camera, config, film_cfg, pxy, pid,
+                           ray_idx % config.spp,
+                           smp.make_base_key(config.seed), ops=wops)
+    depth = config.max_depth
+    tags = dict(
+        closest=[f"camera walk {i}" for i in range(depth + 1)]
+        + [f"light walk {i}" for i in range(depth)],
+        any=[f"s{s} t{t}" for t in range(2, depth + 3)
+             for s in range(1, depth + 2) if s + t <= depth + 2]
+        + [f"s{s} t1" for s in range(2, depth + 2)])
+    seen, last = {"closest": 0, "any": 0}, None
+    for q in queries:
+        if q["period"]:
+            q["tag"] = f"{last} instanced"
+            continue
+        last = q["tag"] = tags[q["kind"]][seen[q["kind"]]]
+        seen[q["kind"]] += 1
+    return dict(queries=queries, samples=samples, evals=evals)
+
+
+def bpt_light_rays(ds, n: int = 4096, seed: int = 0, textures=None):
+    """The first rays of n BPT light subpaths on ds (render/bpt.py): a
+    light picked by power, an emitted ray (lighting/emission.py
+    generate_path) from seeded uniforms, started 1e-4 off an area
+    light's surface.  Returns (o, d, tmax) on ds's device; on a sphere
+    light the closest hit's quadratic is ill-conditioned there."""
+    import torch
+    from arendur_tpu_torch import scene as sc
+    from arendur_tpu_torch.lighting import emission as emi
+    from arendur_tpu_torch.sampling import distribution
+    rng = np.random.default_rng(seed)
+    u = lambda *shape: torch.tensor(rng.uniform(size=shape),  # noqa: E731
+                                    dtype=torch.float32, device=ds.device)
+    lidx, _ = distribution.sample_discrete(ds.light_distribution, u(n))
+    gp = emi.generate_path(ds, lidx, u(n, 2), u(n, 2), textures=textures)
+    lt = ds.ltab[lidx, dict(ds.static.lcidx)["ltype"][0]]
+    area = (lt == sc.L_AREA_SPHERE) | (lt == sc.L_AREA_TRI)
+    o = gp["pos"] + gp["n"] * 1e-4 * area.float()[:, None]
+    return o, gp["dir"], torch.full((n,), float("inf"), device=ds.device)
 
 
 TIE_K, TIE_C = 64, 3

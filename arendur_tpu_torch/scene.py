@@ -624,6 +624,13 @@ class DeviceScene:
     inst: tuple = ()        # DeviceInstances, one per instanced mesh
 
     @property
+    def light_distribution(self) -> Distribution1D:
+        """The power-weighted light-selection distribution, its leaves
+        on the device (sampling/distribution.py reads it)."""
+        return Distribution1D(func=self.light_func, cdf=self.light_cdf,
+                              func_int=self.light_func_int)
+
+    @property
     def composed_only(self) -> bool:
         """Whether only the composed bounce serves the scene (twin:
         integrator._mega_eligible): a light carries an emission texture,

@@ -127,18 +127,38 @@ Phases, one line each:
      on cb.json with cb_inst's instances beside its world pool), and K1
      / K2 per instanced query on wave 0 (camera rays, first-bounce
      shadow rays: 6.55 M lanes) by CUDA events and on the card, against
-     the bound and the plain version.
-In phases 6, 8, 10, 12 and 15 one kernel-path run (the timed render, one
+     the bound and the plain version;
+ 16. the Whitted and bidirectional (BPT) renderers on cb.json: on the
+     sets of wave 0 of a 256x256, 16 spp, depth-8 BPT render as the
+     kernel path ran it (render/fuzz.py bpt_wave_sets: 17 closest-hit
+     queries of the two walks, 44 any-hit queries of the connections
+     and lens rays, 17 BSDF samples, 161 fused evaluations), K1 / K2
+     against their plain versions per query (the light walk's first
+     query, rays started 1e-4 off the sphere lights, reported apart)
+     with each query's time by CUDA events, bound and plain time, and
+     K8 / K9 equal to their plain versions to the bit on every call,
+     timed on eight calls each (inputs rotated past the L2); the 64x48,
+     8 spp, depth-8 BPT render and the 64x48, 32 spp Whitted render
+     through the kernels against the plain path (K1, K2, K8, K9 must
+     have launched in BPT's, K1, K2, K9 in Whitted's, no bounce shade
+     in either); BPT and Whitted paths/s at 256x256, 16 spp, depth 8
+     (BPT's from two timed waves where the whole frame would take more
+     than 60 s); one BPT wave's launches, top-level host ops, device
+     busy share and each kernel's launches and device ms.
+In phases 6, 8, 10, 12, 15 and 16 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
-PyTorch (phases 6, 8, 10) the local sphere test too: no sphere test
+PyTorch (phases 6, 8, 10, 16) the local sphere test too: no sphere test
 runs outside K1 / K2 there.
 Then the kernels JSON line (each kernel's launches in the run of its
 main path: K1-K4 in the kernel-path train step of phase 8, K1 / K2
 with a sphere table counted apart as well, K5 and K6
 in phase 10's textured render, K8 and K9 in phase 12's composed
 render, K7 (K3 on the wide tables) in phase 13's render, K1 / K2's
-instanced launches in phase 15's 64x48 render; its ms and plain_ms, all
+instanced launches in phase 15's 64x48 render, and for K1 / K2 / K8 /
+K9 also their launches in phase 16's 64x48 BPT render and in one BPT
+wave, and their ms, plain ms and bound on BPT's wave-0 sets (bpt_*);
+its ms and plain_ms, all
 by CUDA events, K4's the mean per call over phase 7's eight train
 bounces, K1's and K2's the mean per launch over phase 3's fused-wave
 queries, the instanced rows' on phase 15's wave-0 queries; and its
@@ -2004,6 +2024,227 @@ def main(argv=None):
              f"{v['plain_ms']:.1f} ms" for k, v in iq.items())
          + f" ({card})")
 
+    # phase 16: the Whitted and bidirectional (BPT) renderers on cb.json
+    from arendur_tpu_torch.render import bpt, whitted
+    # BPT's own sets: wave 0 of the 256x256, 16 spp, depth-8 render, as
+    # the kernel path ran it (render/fuzz.py bpt_wave_sets)
+    with torch.no_grad():
+        sets = fuzz.bpt_wave_sets(ds, camera, film_cfg, config,
+                                  integ.KERNEL_OPS)
+    q16 = {}
+    for q in sets["queries"]:
+        closest = q["kind"] == "closest"
+        call = query_call(ops.closest_hit if closest else ops.any_hit, ds, q)
+        plain = query_call(ci.intersect_clusters_reference if closest
+                           else ci.occluded_clusters_reference, ds, q)
+        got, ref = results(call()), results(plain())
+        rec = (q["t"], q["slot"]) if closest else (q["blocked"],)
+        recorded = all(torch.equal(a, b) for a, b in zip(got, rec))
+        lanes = (got[-1] == ref[-1]).float().mean().item()
+        err = 0.0
+        if closest:
+            hit = (got[1] == ref[1]) & (got[1] >= 0)
+            if hit.any():
+                err = (got[0] - ref[0]).abs()[hit].max().item()
+                trel = ((got[0] - ref[0]).abs()[hit]
+                        / ref[0].abs()[hit]).max().item()
+                if trel > T_RTOL:
+                    raise AssertionError(f"K1 on BPT's {q['tag']}: t rel "
+                                         f"{trel}")
+        nbytes, nops = wave_query_work(ds, q, got)
+        q16[q["tag"]] = dict(
+            kind=q["kind"], lanes_equal=lanes, recorded=recorded,
+            max_abs_err=err, hit=(got[-1] != (0 if not closest else -1))
+            .float().mean().item(), ms=time_ms(call, iters=3),
+            plain_ms=time_ms(plain, iters=1), bytes=nbytes, ops=nops)
+        q16[q["tag"]]["bound_ms"] = bound_ms(nbytes, nops)[0]
+        if lanes < K1_K2_GATE or not recorded:
+            raise AssertionError(f"K1 / K2 on BPT's {q['tag']}: "
+                                 f"{q16[q['tag']]}")
+    # K8 / K9 on every BSDF sample and fused evaluation of the wave,
+    # equal to the bit; their times on eight of the calls each
+    k16_89 = {}
+    for name, recs, plain_fn, raw in (
+            ("slot_sample", sets["samples"], sl.bsdf_sample,
+             ops.slot_sample),
+            ("slot_eval_pdf", sets["evals"], sl.bsdf_eval_pdf,
+             ops.slot_eval_pdf)):
+        diff = lanes = 0
+        for r in recs:
+            x2 = r["u"] if name == "slot_sample" else r["wi"]
+            ref = plain_fn(r["b"], r["wo"], x2, r["types"])
+            diff += sum(bit_diff(a.float(), b.float())
+                        for a, b in zip(r["out"], ref))
+            lanes += r["wo"].shape[0]
+        if diff:
+            raise AssertionError(f"{name} on BPT's calls: {diff} elements "
+                                 f"differ from the plain version")
+        pick = recs[::max(1, len(recs) // 8)][:8]
+        ms, pms, nb, nop = [], [], [], []
+        for r in pick:
+            x2 = r["u"] if name == "slot_sample" else r["wi"]
+            xs = ssh.pack_slots(r["b"], r["wo"], x2)
+            args = (r["types"], r["b"].present, r["b"].dists)
+            ms.append(time_ms(rotating(lambda x: raw(x, *args), xs),
+                              iters=5))
+            pms.append(time_ms(lambda: plain_fn(r["b"], r["wo"], x2,
+                                                r["types"]), iters=2))
+            cols = (ssh.SAMPLE_IN_COLS + ssh.SAMPLE_OUT_COLS
+                    if name == "slot_sample"
+                    else ssh.EVAL_IN_COLS + ssh.EVAL_OUT_COLS)
+            nb.append(4 * r["wo"].shape[0] * cols)
+            nop.append(plain_ops(lambda: plain_fn(r["b"], r["wo"], x2,
+                                                  r["types"])))
+        k16_89[name] = dict(calls=len(recs), lanes=lanes,
+                            ms=sum(ms) / len(ms), plain_ms=sum(pms) / len(pms),
+                            bound=bound_ms(sum(nb) / len(nb),
+                                           sum(nop) / len(nop)))
+    del sets
+    # the 64x48, 8 spp, depth-8 BPT render and the 64x48, 32 spp Whitted
+    # render through the kernels against the plain path
+    s16, cam16, film16, cfg16, _ = scenedesc.parse_scene(
+        cb_json, spp_override=8, resolution_override=(64, 48))
+    cfg16 = dataclasses.replace(cfg16, max_depth=8, wave_size=1 << 16)
+    ds16 = sc.DeviceScene.build(s16, dev)
+    cfg16w = dataclasses.replace(cfg16, spp=32, sample_dx=4, sample_dy=8)
+    ops.reset_counts()
+    img_bk = bpt.render_bpt(ds16, cam16, film16, cfg16)
+    torch.cuda.synchronize()
+    bpt_launches = ops.counts()
+    img_bp = bpt.render_bpt(ds16, cam16, film16, cfg16,
+                            ops=integ.PLAIN_OPS)
+    ops.reset_counts()
+    img_wk = whitted.render_whitted(ds16, cam16, film16, cfg16w)
+    torch.cuda.synchronize()
+    wh_launches = ops.counts()
+    img_wp = whitted.render_whitted(ds16, cam16, film16, cfg16w,
+                                    ops=integ.PLAIN_OPS)
+    dbpt = float((img_bk - img_bp).abs().max().item())
+    dwh = float((img_wk - img_wp).abs().max().item())
+    for nm, img_, lau, need in (
+            ("BPT", img_bk, bpt_launches, COMPOSED_KERNELS),
+            ("Whitted", img_wk, wh_launches,
+             ("closest_hit", "any_hit", "closest_hit_spheres",
+              "any_hit_spheres", "slot_eval_pdf"))):
+        if not torch.isfinite(img_).all() or img_.shape != (48, 64, 3) \
+                or not img_.max() > 0.0:
+            raise AssertionError(f"{nm} render is not finite [48,64,3]")
+        if min(lau[k] for k in need) < 1 or any(
+                lau[k] for k in ("bounce_shade", "hit_shade", "shade_split")):
+            raise AssertionError(f"{nm} path launches: {lau}")
+    if wh_launches["slot_sample"]:
+        raise AssertionError(f"Whitted sampled a BSDF: {wh_launches}")
+    if max(dbpt, dwh) > PLAIN_ATOL:
+        raise AssertionError(f"BPT / Whitted kernel and plain paths differ: "
+                             f"{dbpt}, {dwh}")
+    if out_dir:
+        np.save(os.path.join(out_dir, "cornell_bpt_64x48_kernels.npy"),
+                img_bk.cpu().numpy())
+        np.save(os.path.join(out_dir, "cornell_whitted_64x48_kernels.npy"),
+                img_wk.cpu().numpy())
+    # paths/s at 256x256, 16 spp, depth 8 on the kernel path (no sphere
+    # test outside K1 / K2); BPT renders the whole frame where two waves
+    # say it takes at most 60 s, else its rate is that of the timed waves
+    wave16 = (ds, camera, config, film_cfg, pxy, pid, sid,
+              smp.make_base_key(0))
+    with torch.no_grad():
+        bpt.trace_wave_bpt(*wave16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            bpt.trace_wave_bpt(*wave16)
+        torch.cuda.synchronize()
+        bwave_s = (time.perf_counter() - t0) / 2
+    n_frame = 256 * 256 * 16
+    bpt_whole = bwave_s * n_frame / n <= 60.0
+    with sphere_tests_refused():
+        if bpt_whole:
+            t0 = time.perf_counter()
+            img_bf = bpt.render_bpt(ds, camera, film_cfg, config)
+            torch.cuda.synchronize()
+            bpt_rate = n_frame / (time.perf_counter() - t0)
+            if not torch.isfinite(img_bf).all():
+                raise AssertionError("BPT 256x256 render not finite")
+        else:
+            bpt_rate = n / bwave_s
+        whitted.render_whitted(ds, camera, film_cfg, dataclasses.replace(
+            config, spp=1, sample_dx=1, sample_dy=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_wf = whitted.render_whitted(ds, camera, film_cfg, config)
+        torch.cuda.synchronize()
+        wh_rate = n_frame / (time.perf_counter() - t0)
+    if not torch.isfinite(img_wf).all():
+        raise AssertionError("Whitted 256x256 render not finite")
+    # one BPT wave: its launches, host ops, device busy share and each
+    # kernel's launches and device ms
+    with torch.no_grad():
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        bpt.trace_wave_bpt(*wave16)
+        torch.cuda.synchronize()
+        bw_s = time.perf_counter() - t0
+        bw_launches = ops.counts()
+        bprof = wave_profile(lambda: bpt.trace_wave_bpt(*wave16))
+    bbusy, bnk, _ = _busy_s(bprof)
+    host_ops = sum(1 for e in bprof.events()
+                   if e.device_type.name == "CPU" and e.cpu_parent is None
+                   and e.name.startswith("aten::"))
+    per_k = {}
+    for e in bprof.events():
+        if e.device_type.name != "CUDA" or e.time_range.end <= 0:
+            continue
+        k = ("K1" if "cluster_kernel<false" in e.name else
+             "K2" if "cluster_kernel<true" in e.name else
+             "K1 / K2" if "cluster_kernel" in e.name else
+             "K8" if "slot_sample_kernel" in e.name else
+             "K9" if "slot_eval_pdf_kernel" in e.name else "other")
+        c, t_ = per_k.get(k, (0, 0.0))
+        per_k[k] = (c + 1, t_ + 1e-3 * (e.time_range.end
+                                        - e.time_range.start))
+    light0 = q16["light walk 0"]
+    k1_rest = min(v["lanes_equal"] for t, v in q16.items()
+                  if v["kind"] == "closest" and t != "light walk 0")
+    bpt_rows = {
+        "closest_hit": [v for v in q16.values() if v["kind"] == "closest"],
+        "any_hit": [v for v in q16.values() if v["kind"] == "any"]}
+    bpt_kern = {}
+    for k, rows_k in bpt_rows.items():
+        mean = lambda key: sum(r[key] for r in rows_k) / len(rows_k)  # noqa
+        bpt_kern[k] = dict(ms=mean("ms"), plain_ms=mean("plain_ms"),
+                           bound=bound_ms(mean("bytes"), mean("ops")),
+                           queries=len(rows_k),
+                           lanes_equal=min(r["lanes_equal"] for r in rows_k))
+    for k, v in k16_89.items():
+        bpt_kern[k] = v
+    _say("[16] Whitted and BPT on cb.json | BPT's wave-0 sets (256x256 16spp "
+         f"depth 8, {len(q16)} queries): K1 light walk 0 (rays started 1e-4 "
+         f"off the sphere lights) lanes equal to plain "
+         f"{light0['lanes_equal']:.6f}, hit {light0['hit']:.4f}; other K1 "
+         f"queries min lanes equal {k1_rest:.6f}; K2 "
+         f"({len(bpt_rows['any_hit'])} connection / lens queries) min lanes "
+         f"equal {bpt_kern['any_hit']['lanes_equal']:.6f}; per launch "
+         + "; ".join(
+             f"{k} {v['ms']:.4f} ms vs bound {v['bound'][0]:.4f} ms "
+             f"({v['bound'][1]}), plain {v['plain_ms']:.3f} ms"
+             for k, v in bpt_kern.items())
+         + f"; K8 {k16_89['slot_sample']['calls']} calls / K9 "
+         f"{k16_89['slot_eval_pdf']['calls']} calls equal to the bit | "
+         f"64x48 BPT 8spp depth 8: launches {bpt_launches}; max |kernel - "
+         f"plain| {dbpt:.3e} | 64x48 Whitted 32spp: launches {wh_launches}; "
+         f"max |kernel - plain| {dwh:.3e} (gate {PLAIN_ATOL}) | 256x256 16spp "
+         f"depth 8: BPT {bpt_rate:.0f} paths/s ("
+         + ("whole frame" if bpt_whole else
+            f"two timed waves of {n}: the frame would take "
+            f"{bwave_s * n_frame / n:.0f} s")
+         + f"), Whitted {wh_rate:.0f} paths/s (no sphere test outside K1 / "
+         f"K2) | one BPT wave {1e3 * bw_s:.1f} ms, kernel launches "
+         f"{bw_launches}, {host_ops} top-level aten ops, device busy "
+         f"{1e3 * bbusy:.1f} ms in {bnk} launches (share {bbusy / bw_s:.2f})"
+         ", per kernel (launches, device ms) " + ", ".join(
+             f"{k} ({c}, {t_:.2f})" for k, (c, t_) in sorted(per_k.items()))
+         + f" ({card})")
+
     src = "arendur_tpu_torch/kernels/"
     meta = {
         "closest_hit": (src + "intersect.cu",
@@ -2052,6 +2293,15 @@ def main(argv=None):
         rows.append(dict(name=k, route="cuda", source=meta[k][0],
                          replaces=meta[k][1], launches=main_launches[k], **r,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        if k in bpt_launches and bpt_launches[k]:
+            # the 64x48 BPT render's launches, and the kernel on BPT's
+            # own wave-0 inputs (phase 16)
+            rows[-1]["bpt_launches"] = bpt_launches[k]
+            rows[-1]["bpt_wave_launches"] = bw_launches[k]
+            if k in bpt_kern:
+                rows[-1].update(bpt_ms=bpt_kern[k]["ms"],
+                                bpt_plain_ms=bpt_kern[k]["plain_ms"],
+                                bpt_bound_ms=bpt_kern[k]["bound"][0])
         if b_ms > r["ms"]:
             raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
                                  f"{b_ms} ms")
@@ -2101,7 +2351,19 @@ def main(argv=None):
                            inst_wave_encodes=iwave_encodes,
                            mixed_encodes=[mix_first, mix_encodes],
                            inst_queries={k: dict(v, bound=list(v["bound"]))
-                                         for k, v in iq.items()}),
+                                         for k, v in iq.items()},
+                           bpt_queries=q16,
+                           bpt_kernels={k: dict(v, bound=list(v["bound"]))
+                                        for k, v in bpt_kern.items()},
+                           bpt_launches=bpt_launches,
+                           whitted_launches=wh_launches,
+                           bpt_dplain=dbpt, whitted_dplain=dwh,
+                           bpt_paths_per_s=bpt_rate,
+                           bpt_whole_frame=bpt_whole,
+                           whitted_paths_per_s=wh_rate,
+                           bpt_wave=[bw_s, bbusy, bnk, host_ops],
+                           bpt_wave_launches=bw_launches,
+                           bpt_wave_kernels=per_k),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

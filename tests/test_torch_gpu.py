@@ -551,3 +551,64 @@ def test_instanced_render_kernel_path_matches_plain_path(card):
         assert launches[k] >= 1, launches
     assert torch.isfinite(img_k).all() and img_k.max() > 0.05
     torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("renderer", ["bpt", "whitted"])
+def test_bpt_and_whitted_kernel_path_matches_plain_path(card, renderer):
+    """cb.json at 16x12, 4 spp (BPT at depth 3) through K1, K2, K8 and K9
+    (Whitted: K1, K2 and K9) against the plain path; no bounce shade
+    launches."""
+    from arendur_tpu_torch.render import bpt, whitted
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        CB, spp_override=4, resolution_override=(16, 12))
+    ds = sc.DeviceScene.build(scene, card)
+    config = dataclasses.replace(config, max_depth=3)
+    render = bpt.render_bpt if renderer == "bpt" else whitted.render_whitted
+    ops.reset_counts()
+    img_k = render(ds, camera, film, config)
+    launches = ops.counts()
+    img_p = render(ds, camera, film, config, ops=integ.PLAIN_OPS)
+    used = ("closest_hit", "any_hit", "closest_hit_spheres",
+            "any_hit_spheres", "slot_eval_pdf") \
+        + (("slot_sample",) if renderer == "bpt" else ())
+    assert min(launches[k] for k in used) >= 1, launches
+    assert launches["bounce_shade"] == launches["hit_shade"] \
+        == launches["shade_split"] == 0
+    assert torch.isfinite(img_k).all() and img_k.max() > 0.0
+    torch.testing.assert_close(img_k, img_p, rtol=0.0, atol=PLAIN_ATOL)
+
+
+@pytest.mark.gpu
+def test_bpt_wave_sets_kernels_match_plain(card):
+    """One BPT wave's own K1 / K2 queries (the light walk's
+    sphere-started first query among them), BSDF samples and fused
+    evaluations (render/fuzz.py bpt_wave_sets) at 4,096 lanes, depth 4:
+    K1 / K2 against their plain versions (SLOT_GATE), K8 / K9 equal to
+    theirs to the bit."""
+    from arendur_tpu_torch.bxdf import slots as sl
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        CB, spp_override=4, resolution_override=(32, 32))
+    ds = sc.DeviceScene.build(scene, card)
+    config = dataclasses.replace(config, max_depth=4, wave_size=4096)
+    sets = fuzz.bpt_wave_sets(ds, camera, film, config, integ.KERNEL_OPS)
+    assert any(q["tag"] == "light walk 0" for q in sets["queries"])
+    for q in sets["queries"]:
+        args = (ds.cw, ds.cbox, q["o"], q["d"], q["tmax"], q["n_alive"],
+                q["period"], q["sph_tab"], q["full_phi"])
+        if q["kind"] == "closest":
+            _, s_p = ci.intersect_clusters_reference(*args)
+            agree = (q["slot"] == s_p).float().mean().item()
+        else:
+            agree = (q["blocked"] == ci.occluded_clusters_reference(*args)) \
+                .float().mean().item()
+        assert agree >= SLOT_GATE, (q["tag"], agree)
+    same = lambda a, b: bool(((a == b) | (a.isnan() & b.isnan()))  # noqa
+                             .all())
+    for rec in sets["samples"]:
+        ref = sl.bsdf_sample(rec["b"], rec["wo"], rec["u"], rec["types"])
+        assert all(same(a.float(), b.float())
+                   for a, b in zip(rec["out"], ref))
+    for rec in sets["evals"]:
+        ref = sl.bsdf_eval_pdf(rec["b"], rec["wo"], rec["wi"], rec["types"])
+        assert all(same(a, b) for a, b in zip(rec["out"], ref))

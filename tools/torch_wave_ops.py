@@ -1,13 +1,16 @@
 """Count the PyTorch operations one wave of the port issues, by stage.
 
-    python tools/torch_wave_ops.py [--textured | --composed] [--res 16x16]
-                                   [--spp 4]
+    python tools/torch_wave_ops.py [--textured | --composed | --bpt |
+                                    --whitted] [--res 16x16] [--spp 4]
 
 Runs one trace_wave of the Cornell box (examples/cornellbox/cb.json;
 with --textured, bench.py's checkerboard kd texture on every matte
 material; with --composed, the emission-textured box
-examples/cornellbox/cb_etex.json, which takes the composed bounce) on
-the CPU, at depth 8, and counts every aten operation it dispatches.  On
+examples/cornellbox/cb_etex.json, which takes the composed bounce; with
+--bpt / --whitted, one wave of the bidirectional or the Whitted
+renderer, render/bpt.py trace_wave_bpt / render/whitted.py
+whitted_wave, on cb.json) on the CPU, at depth 8, and counts every aten
+operation it dispatches.  On
 the card each of these is at least one kernel launch issued by the
 host, so the count is the host's launch work per wave; it does not
 depend on the wave's width.  The hand-written kernels (K1, K2, K3, K5,
@@ -72,6 +75,13 @@ STAGES = (
     ("integrator.py", "intersect_light", "hit glue"),
     ("integrator.py", "_closest", "hit glue"),
     ("integrator.py", "occluded", "shadow glue"),
+    ("bpt.py", "mis_weight", "MIS weight"),
+    ("bpt.py", "_random_walk", "walk glue"),
+    ("bpt.py", None, "connection glue"),
+    ("emission.py", None, "light emission"),
+    ("importance.py", None, "camera importance"),
+    ("distribution.py", None, "light select"),
+    ("whitted.py", None, "Whitted glue"),
 )
 
 
@@ -117,6 +127,8 @@ def main(argv=None):
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--textured", action="store_true")
     mode.add_argument("--composed", action="store_true")
+    mode.add_argument("--bpt", action="store_true")
+    mode.add_argument("--whitted", action="store_true")
     ap.add_argument("--res", default="16x16")
     ap.add_argument("--spp", type=int, default=4)
     args = ap.parse_args(argv)
@@ -126,7 +138,7 @@ def main(argv=None):
     from arendur_tpu_torch.sampling import sampler as smp
 
     w, h = (int(v) for v in args.res.lower().split("x"))
-    scene, camera, _, config, _ = scenedesc.parse_scene(
+    scene, camera, film_cfg, config, _ = scenedesc.parse_scene(
         os.path.join(REPO, "examples/cornellbox", "cb_etex.json"
                      if args.composed else "cb.json"),
         spp_override=args.spp, resolution_override=(w, h))
@@ -171,11 +183,22 @@ def main(argv=None):
     ray_idx = torch.arange(n)
     pid, sid = ray_idx // args.spp, ray_idx % args.spp
     pxy = torch.stack([(pid % w).float(), (pid // w).float()], -1)
+    key = smp.make_base_key(0)
     with torch.no_grad(), counter:
-        integ.trace_wave(ds, camera, config, pxy, pid, sid,
-                         smp.make_base_key(0), ops=wave_ops)
+        if args.bpt:
+            from arendur_tpu_torch.render import bpt
+            bpt.trace_wave_bpt(ds, camera, config, film_cfg, pxy, pid, sid,
+                               key, ops=wave_ops)
+        elif args.whitted:
+            from arendur_tpu_torch.render import whitted
+            whitted.whitted_wave(ds, camera, config, pxy, pid, sid, key,
+                                 ops=wave_ops)
+        else:
+            integ.trace_wave(ds, camera, config, pxy, pid, sid, key,
+                             ops=wave_ops)
     counts = dict(sorted(counter.counts.items()))
     print(json.dumps(dict(textured=args.textured, composed=args.composed,
+                          bpt=args.bpt, whitted=args.whitted,
                           stages=counts, total=sum(counts.values()))))
 
 
