@@ -8,9 +8,12 @@ Renders the JSON scene description (cb.json schema) on one device with
 the wavefront path tracer (``--renderer pt``), the bidirectional path
 tracer (``bpt``) or Whitted direct lighting (``whitted``) and saves a
 PNG, printing the wall-clock time like the reference ("Done! Time used:
-{:.4}s", arencli.rs:54-61).  Flags of the JAX CLI whose paths are not
-ported yet (``--intersector bvh|naive``, ``--resume``) exit with an
-error that says so.
+{:.4}s", arencli.rs:54-61).  It takes the JAX CLI's flags:
+``--intersector cluster|bvh|naive`` picks the world triangles' test
+(the SAH cluster kernels, the BVH walk or the brute force; ``--bvh`` is
+the old alias of ``bvh``), and ``--resume`` checkpoints the path
+tracer's film to ``<output>.ckpt.npz`` every ``--checkpoint-every``
+waves and resumes from it when it is there.
 """
 
 from __future__ import annotations
@@ -19,12 +22,6 @@ import argparse
 import dataclasses
 import sys
 import time
-
-
-def _not_ported(what: str):
-    print(f"error: {what} is not yet ported to arendur_tpu_torch",
-          file=sys.stderr)
-    return 2
 
 
 def main(argv=None):
@@ -42,8 +39,10 @@ def main(argv=None):
                     default="pt")
     ap.add_argument("--intersector", choices=("cluster", "bvh", "naive"),
                     default="cluster",
-                    help="triangle intersection structure (only "
-                         "'cluster' is ported)")
+                    help="triangle intersection structure: 'cluster' "
+                         "(SAH cluster tables, kernels K1 / K2; default), "
+                         "'bvh' (per-ray stack traversal), 'naive' "
+                         "(brute-force wavefront)")
     ap.add_argument("--bvh", action="store_true",
                     help="deprecated alias for --intersector bvh")
     ap.add_argument("--wave", type=int, default=1 << 16,
@@ -55,8 +54,12 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="alias for --device cpu")
     ap.add_argument("--resume", action="store_true",
-                    help="checkpoint/resume (not yet ported)")
-    ap.add_argument("--checkpoint-every", type=int, default=4)
+                    help="checkpoint the film every few waves and "
+                         "resume from <output>.ckpt.npz if present "
+                         "(bit-identical to an uninterrupted render; "
+                         "--renderer pt)")
+    ap.add_argument("--checkpoint-every", type=int, default=4,
+                    help="waves between checkpoints with --resume")
     ap.add_argument("--composed", action="store_true",
                     help="render through the composed bounce even where "
                          "the fused one serves (the JAX CLI's "
@@ -65,12 +68,6 @@ def main(argv=None):
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="per-wave progress + invalid-sample warnings")
     args = ap.parse_args(argv)
-
-    if args.bvh or args.intersector != "cluster":
-        return _not_ported("--intersector "
-                           + ("bvh" if args.bvh else args.intersector))
-    if args.resume:
-        return _not_ported("--resume")
 
     import torch
     from arendur_tpu_torch import scene as sc
@@ -88,8 +85,10 @@ def main(argv=None):
     if args.res:
         w, h = args.res.lower().split("x")
         res = (int(w), int(h))
+    intersector = "bvh" if args.bvh else args.intersector
     scene, camera, film_cfg, config, outname = scenedesc.parse_scene(
-        args.input, spp_override=args.spp, resolution_override=res)
+        args.input, spp_override=args.spp, resolution_override=res,
+        intersector=intersector)
     if args.depth is not None:
         config = dataclasses.replace(config, max_depth=args.depth)
     config = dataclasses.replace(config, wave_size=args.wave,
@@ -98,15 +97,18 @@ def main(argv=None):
     print(f"rendering {args.input}: {film_cfg.resolution[0]}x"
           f"{film_cfg.resolution[1]}, {config.spp} spp, "
           f"depth {config.max_depth}, renderer={args.renderer}, "
-          f"device={device}")
+          f"intersector={intersector}, device={device}")
     if args.verbose:
         import logging
         logging.basicConfig(level=logging.INFO)
     t0 = time.time()
     dscene = sc.DeviceScene.build(scene, device)
     if args.renderer == "pt":
+        ckpt = (out + ".ckpt.npz") if args.resume else None
         img = integ.render(dscene, camera, film_cfg, config,
-                           progress=args.verbose, composed=args.composed)
+                           progress=args.verbose, composed=args.composed,
+                           checkpoint_path=ckpt,
+                           checkpoint_every=args.checkpoint_every)
     elif args.renderer == "bpt":
         from arendur_tpu_torch.render import bpt
         img = bpt.render_bpt(dscene, camera, film_cfg, config,

@@ -38,12 +38,9 @@ def _fields(obj, cls, **extra):
 
 def scene_data_from_numpy(scene) -> sc.SceneData:
     """The JAX package's SceneData (NumPy leaves) as the port's
-    SceneData, its instanced meshes included.  A scene whose world
-    triangles have no cluster tables (BVH-only or brute force) is not
-    ported; one without world triangles is."""
-    if scene.tri_cw is None and scene.n_tris:
-        raise NotImplementedError("triangles without cluster tables are "
-                                  "not yet ported")
+    SceneData, its instanced meshes and its BVH included (the JAX
+    package's native build, which the port's NumPy build equals)."""
+    from arendur_tpu_torch.accel import bvh as bvhmod
     s = scene.spheres
     spheres = _fields(s, sph.SphereSoA, phi_full=bool(s.phi_full))
     lt = scene.lights
@@ -56,6 +53,8 @@ def scene_data_from_numpy(scene) -> sc.SceneData:
         spheres=spheres, materials=materials, lights=lights,
         tri_cw=_np(scene.tri_cw), tri_cbox=_np(scene.tri_cbox),
         tri_remap=_np(scene.tri_remap),
+        bvh=(None if getattr(scene, "bvh", None) is None
+             else _fields(scene.bvh, bvhmod.BVH)),
         inst=tuple(_fields(im, sc.InstancedMesh)
                    for im in getattr(scene, "inst", ())),
         light_distribution=sc.Distribution1D(

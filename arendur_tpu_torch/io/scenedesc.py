@@ -178,7 +178,9 @@ def _material_row(desc, textures: _TextureRegistry) -> dict:
 
 
 def parse_scene(path: str, spp_override: Optional[int] = None,
-                resolution_override=None):
+                resolution_override=None, intersector: str = "cluster"):
+    """(SceneData, CameraData, FilmConfig, RenderConfig, output name) of
+    a JSON scene description; intersector as SceneBuilder.build's."""
     with open(path) as f:
         desc = json.load(f)
     base = os.path.dirname(os.path.abspath(path))
@@ -296,7 +298,7 @@ def parse_scene(path: str, spp_override: Optional[int] = None,
                 load_obj_groups(builder, spec["fname"]),
                 [spec["transform"]] + extra)
 
-    scene = builder.build()
+    scene = builder.build(intersector=intersector)
 
     cam_desc = desc["camera"]
     film_desc = cam_desc["film"]

@@ -6,7 +6,9 @@ render, splats it into a fresh film, takes the masked film MSE against
 a target image, and moves the material parameters one plain SGD step
 along its gradient.  On a CUDA scene the wave's forward runs the
 hand-written kernels K1-K3 and its backward the bounce-shade backward
-kernel K4.
+kernel K4; on a scene only the composed bounce serves (emission
+textures, no cluster tables) the forward runs K1, K2, K8 and K9 and the
+backward is autograd over their plain versions.
 """
 
 from __future__ import annotations

@@ -386,6 +386,7 @@ def trace_wave_bpt(scene: sc.DeviceScene, camera: cam.CameraData, config,
     n, dev = pixel_xy.shape[0], pixel_xy.device
     resolution = film_cfg.resolution
     ws = smp.WaveSampler(base_key, pixel_id, sample_id, kind=config.sampler,
+                         sobol_table=config.sobol_table,
                          sample_dx=config.sample_dx,
                          sample_dy=config.sample_dy)
     wv = _Wave(scene, camera, config, resolution, ws, ops)

@@ -25,8 +25,9 @@ Instanced meshes ride every branch: each scene query adds one [I * N]
 lane launch of K1 / K2 per instanced mesh (scene.closest_hits), and the
 bounce shades read the winning instance's triangle row baked into world
 space.  Scenes the fused and split branches do not serve, those whose
-area lights carry an emission texture and those with no triangle at
-all, take the composed bounce (the JAX package's per-bounce
+area lights carry an emission texture, those with no triangle at all
+and those whose world triangles meet the BVH walk or the brute force
+(no cluster tables), take the composed bounce (the JAX package's per-bounce
 composition, integrator.py:440-547): the full
 closest hit (scene.intersect, K1), the emission through the texture,
 the material's BSDF (materials.compute_scattering), the NEE light
@@ -67,6 +68,7 @@ from arendur_tpu_torch.lighting import nee
 from arendur_tpu_torch.render import cbounce as cb
 from arendur_tpu_torch.render import cmath as cm
 from arendur_tpu_torch.sampling import sampler as smp
+from arendur_tpu_torch.sampling import sobol
 from arendur_tpu_torch.shapes import cluster_intersect as ci
 from arendur_tpu_torch.shapes import sphere as sph
 
@@ -82,7 +84,9 @@ class RenderConfig:
     sample_dy: int = 4
     seed: int = 0
     wave_size: int = 1 << 16    # rays per wavefront launch
-    sampler: str = "strata"     # "strata" | "uniform"
+    sampler: str = "strata"     # "strata" | "sobol" | "uniform"
+    sobol_table: Optional[object] = None  # [spp, D] u32 (host-built,
+                                          # sampling/sobol.py)
     compact: bool = True        # dead-lane compaction per bounce
     defer_final_mis: bool = True  # the closest hit after the loop that
                                   # completes the deferred-MIS branch
@@ -197,13 +201,20 @@ def bounce_draws(config: RenderConfig, keys: torch.Tensor, bounce: int):
     [N,2], u_bsdf [N,2], u_rr)."""
     dim0 = smp.BOUNCE_DIM_BASE + bounce * smp.DIMS_PER_BOUNCE
     grid_ok = config.sample_dx * config.sample_dy == config.spp
+    table = None
+    if config.sampler == "sobol":
+        table = sobol.sobol_tensor(config.sobol_table, keys.device)
 
     def draw1(dim):
+        if table is not None:
+            return sobol.sobol_from_keys(table, keys, dim)
         if config.sampler == "uniform":
             return smp.uniform_1d(keys, dim)
         return smp.stratified_1d(keys, config.spp, dim)
 
     def draw2(dim):
+        if table is not None:
+            return sobol.sobol_2d_from_keys(table, keys, dim)
         if grid_ok and config.sampler != "uniform":
             return smp.stratified_2d(keys, config.sample_dx,
                                      config.sample_dy, dim)
@@ -404,13 +415,19 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
     composed bounce on any scene; a scene whose lights carry emission
     textures, which only the composed bounce reads, takes it always (as
     the JAX package's _mega_eligible decides), as does a scene with no
-    triangle, world or instanced."""
+    triangle, world or instanced, or with no cluster tables for its
+    world triangles (scene.DeviceScene.composed_only)."""
     static = scene.static
     textures = config.textures
     tex_present = None
     composed = composed or scene.composed_only
+    if config.sampler == "sobol":
+        # the table goes to the device once a wave
+        config = dataclasses.replace(config, sobol_table=sobol.sobol_tensor(
+            config.sobol_table, scene.device))
     ws = smp.WaveSampler(base_key, pixel_id, sample_id,
-                         kind=config.sampler, sample_dx=config.sample_dx,
+                         kind=config.sampler, sobol_table=config.sobol_table,
+                         sample_dx=config.sample_dx,
                          sample_dy=config.sample_dy)
     pfilm = pixel_xy + ws.film_jitter()
     plens = ws.u2(2)
@@ -521,48 +538,91 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
     return pfilm, L
 
 
-def render(scene: sc.DeviceScene, camera: cam.CameraData,
-           film_cfg: flm.FilmConfig, config: RenderConfig,
-           ops: WaveOps = KERNEL_OPS, progress: bool = False,
-           composed: bool = False):
-    """Full render on the scene's device: iterate waves over
-    (pixels x spp), splat to the film, finalize.  Returns [H, W, 3].
-    composed: as in trace_wave."""
+def render_wave(scene: sc.DeviceScene, camera: cam.CameraData,
+                film_cfg: flm.FilmConfig, config: RenderConfig, state, i: int,
+                ops: WaveOps = KERNEL_OPS, composed: bool = False):
+    """Trace wave i of a render (the rays i * wave .. of the pixel-major
+    order, wave = min(config.wave_size, W * H * spp)) and splat it into
+    the film state in place.  Returns the wave's count of invalid
+    radiance samples (a device scalar)."""
     dev = scene.device
     w, h = film_cfg.resolution
     spp = config.spp
-    base_key = smp.make_base_key(config.seed)
     total = w * h * spp
     wave = min(config.wave_size, total)
-    # scatter-free splat needs pixel-major waves of whole pixels that
-    # tile the frame exactly; otherwise the scatter splat
-    dense = (wave % spp == 0) and (total % wave == 0)
-    state = flm.film_init(film_cfg, dev, padded=dense)
-    n_waves = (total + wave - 1) // wave
-    for i in range(n_waves):
-        ray_idx = i * wave + torch.arange(wave, dtype=torch.int64,
-                                          device=dev)
-        pixel_id = ray_idx // spp
-        sample_id = ray_idx % spp
-        pixel_xy = torch.stack([(pixel_id % w).to(torch.float32),
-                                (pixel_id // w).to(torch.float32)], -1)
-        valid = ray_idx < total
-        with torch.no_grad():
-            pfilm, L, aux = trace_wave(scene, camera, config, pixel_xy,
-                                       pixel_id, sample_id, base_key,
-                                       ops=ops, return_aux=True,
-                                       composed=composed)
-        if dense:
-            state = flm.film_splat_pixmajor(film_cfg, state,
-                                            pfilm - pixel_xy, L,
-                                            (i * wave) // spp, spp,
-                                            mask=valid)
-        else:
-            state = flm.film_splat(film_cfg, state, pfilm, L, mask=valid)
+    ray_idx = i * wave + torch.arange(wave, dtype=torch.int64, device=dev)
+    pixel_id = ray_idx // spp
+    sample_id = ray_idx % spp
+    pixel_xy = torch.stack([(pixel_id % w).to(torch.float32),
+                            (pixel_id // w).to(torch.float32)], -1)
+    valid = ray_idx < total
+    with torch.no_grad():
+        pfilm, L, aux = trace_wave(scene, camera, config, pixel_xy,
+                                   pixel_id, sample_id,
+                                   smp.make_base_key(config.seed), ops=ops,
+                                   return_aux=True, composed=composed)
+    if state.padded:
+        flm.film_splat_pixmajor(film_cfg, state, pfilm - pixel_xy, L,
+                                (i * wave) // spp, spp, mask=valid)
+    else:
+        flm.film_splat(film_cfg, state, pfilm, L, mask=valid)
+    return aux["n_invalid"]
+
+
+def render_film_init(scene: sc.DeviceScene, film_cfg: flm.FilmConfig,
+                     config: RenderConfig):
+    """The empty film of a render and its wave count: (state, wave,
+    n_waves).  The scatter-free splat needs pixel-major waves of whole
+    pixels that tile the frame exactly; other waves take the scatter
+    splat."""
+    w, h = film_cfg.resolution
+    total = w * h * config.spp
+    wave = min(config.wave_size, total)
+    dense = (wave % config.spp == 0) and (total % wave == 0)
+    return (flm.film_init(film_cfg, scene.device, padded=dense), wave,
+            (total + wave - 1) // wave)
+
+
+def render(scene: sc.DeviceScene, camera: cam.CameraData,
+           film_cfg: flm.FilmConfig, config: RenderConfig,
+           ops: WaveOps = KERNEL_OPS, progress: bool = False,
+           composed: bool = False, checkpoint_path: Optional[str] = None,
+           checkpoint_every: int = 0):
+    """Full render on the scene's device: iterate waves over
+    (pixels x spp), splat to the film, finalize.  Returns [H, W, 3].
+    composed: as in trace_wave.
+
+    checkpoint_path: resume from the file when it exists and holds the
+    same seed, wave size and film shape, and save the film and the ray
+    cursor there every `checkpoint_every` waves and at the end
+    (utils.py).  The counter-based sampler makes the resumed render
+    bit-identical to an uninterrupted one."""
+    from arendur_tpu_torch import utils
+    state, wave, n_waves = render_film_init(scene, film_cfg, config)
+    start_wave = 0
+    if checkpoint_path:
+        ck = utils.load_checkpoint(checkpoint_path, scene.device)
+        if ck is not None:
+            st, next_ray, seed, meta = ck
+            if seed == config.seed and meta.get("wave") == wave \
+                    and st.rgb.shape == state.rgb.shape:
+                state, start_wave = st, next_ray // wave
+                log.info("resumed at wave %d/%d from %s", start_wave,
+                         n_waves, checkpoint_path)
+    for i in range(start_wave, n_waves):
+        n_invalid = render_wave(scene, camera, film_cfg, config, state, i,
+                                ops=ops, composed=composed)
         if progress:
-            ni = int(aux["n_invalid"])
+            ni = int(n_invalid)
             if ni:
                 log.warning("wave %d: dropped %d invalid radiance samples",
                             i, ni)
             log.info("wave %d/%d done", i + 1, n_waves)
+        if checkpoint_path and checkpoint_every \
+                and (i + 1) % checkpoint_every == 0:
+            utils.save_checkpoint(checkpoint_path, state, (i + 1) * wave,
+                                  config.seed, meta={"wave": wave})
+    if checkpoint_path:
+        utils.save_checkpoint(checkpoint_path, state, n_waves * wave,
+                              config.seed, meta={"wave": wave})
     return flm.film_finalize(state, film_cfg)

@@ -182,30 +182,44 @@ class WaveSampler:
     """Per-wave sample-stream facade.
 
     kind "strata": stratified film dims + independent uniforms;
-    kind "uniform": independent uniforms everywhere.  (The Sobol kind
-    is not ported yet.)"""
+    kind "sobol": XOR-scrambled Sobol across all dimensions
+    (sampling/sobol.py; sobol_table [spp, D] u32 from
+    build_sobol_table);
+    kind "uniform": independent uniforms everywhere."""
 
     def __init__(self, base_key, pixel_id, sample_id, kind="strata",
-                 sample_dx=4, sample_dy=4):
-        if kind not in ("strata", "uniform"):
-            raise NotImplementedError(
-                f"sampler kind {kind!r} is not yet ported")
+                 sobol_table=None, sample_dx=4, sample_dy=4):
+        if kind not in ("strata", "sobol", "uniform"):
+            raise ValueError(f"unknown sampler kind {kind!r}")
+        if kind == "sobol" and sobol_table is None:
+            raise ValueError("the sobol sampler needs a sobol_table")
         self.kind = kind
         self.base_key = base_key
         self.pixel_id = pixel_id
         self.sample_id = sample_id
         self.keys = ray_keys(base_key, pixel_id, sample_id)
+        self.sobol_table = None
+        if kind == "sobol":
+            from arendur_tpu_torch.sampling import sobol
+            self.sobol_table = sobol.sobol_tensor(sobol_table,
+                                                  self.keys.device)
         self.dx = sample_dx
         self.dy = sample_dy
 
     def u1(self, dim):
+        if self.kind == "sobol":
+            from arendur_tpu_torch.sampling import sobol
+            return sobol.sobol_from_keys(self.sobol_table, self.keys, dim)
         return uniform_1d(self.keys, dim)
 
     def u2(self, dim):
+        if self.kind == "sobol":
+            from arendur_tpu_torch.sampling import sobol
+            return sobol.sobol_2d_from_keys(self.sobol_table, self.keys, dim)
         return uniform_2d(self.keys, dim)
 
     def film_jitter(self):
-        if self.kind == "uniform":
+        if self.kind in ("sobol", "uniform"):
             return self.u2(0)
         return stratified_film_sample(
             self.keys, self.sample_id, self.dx, self.dy, dim=0)

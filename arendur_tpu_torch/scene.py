@@ -16,8 +16,15 @@ its world pool then holds no cluster.  Primitive ids: [0, T) world
 triangles, [T, T+S) spheres, then each instanced mesh's T_m local
 triangles in order (the winning instance is not part of the id).
 
-The closest hit over the world pool and the spheres is one K1 launch;
-each instanced mesh adds one K1 launch over its [I * N] lanes (the rays
+The world triangles meet one of three intersectors, chosen at build
+(``SceneBuilder.build(intersector=)``, the CLI's ``--intersector``):
+the SAH cluster tables of kernels K1 / K2 (``"cluster"``, the default),
+the per-ray BVH walk (``"bvh"``, accel/bvh.py) or the brute-force test
+(``"naive"``, shapes/triangle.py); the last two are plain PyTorch, as
+the JAX package runs them in XLA, and the spheres of such a scene go
+through K1 / K2 with no cluster.  With the cluster tables the closest
+hit over the world pool and the spheres is one K1 launch; each
+instanced mesh adds one K1 launch over its [I * N] lanes (the rays
 taken into each instance's frame, ``period`` N), bounded by the hit so
 far, and the winning instance per lane (``closest_hits``).  For the
 composed bounce, ``intersect`` returns the full closest-hit record
@@ -129,6 +136,9 @@ class SceneData:
     # instanced meshes (shared local-space geometry, per-instance
     # transforms)
     inst: tuple = ()
+    # the world triangles' BVH (accel/bvh.py): the intersector where no
+    # cluster tables were built (intersector "bvh")
+    bvh: Optional[object] = None
 
     @property
     def n_tris(self):
@@ -431,8 +441,16 @@ class SceneBuilder:
             return lum * np.pi * wr * wr
         return lum
 
-    def build(self) -> SceneData:
+    def build(self, intersector: str = "cluster") -> SceneData:
+        """Freeze the scene.  intersector selects the structure the world
+        triangles are tested with: "cluster" (the SAH cluster tables of
+        K1 / K2, default), "bvh" (the per-ray BVH walk) or "naive" (the
+        brute-force test); only that structure is built.  Instanced
+        meshes always get their cluster tables."""
+        from arendur_tpu_torch.accel import bvh as bvhmod
         from arendur_tpu_torch.accel.clusters import build_clusters
+        if intersector not in ("cluster", "bvh", "naive"):
+            raise ValueError(f"unknown intersector {intersector!r}")
         cat = lambda lst, d: (np.concatenate(lst, 0) if lst
                               else np.zeros((0,) + d, np.float32))
         v0 = cat(self.tv0, (3,))
@@ -517,8 +535,11 @@ class SceneBuilder:
         catf = lambda lst, d, dt=np.float32: (
             np.concatenate(lst, 0).astype(dt) if lst
             else np.zeros((0,) + d, dt))
+        bvh = None
+        if intersector == "bvh" and len(v0) > 0:
+            bvh = bvhmod.build_bvh(v0, v1, v2)
         cw = cbox = remap = None
-        if len(v0) > 0:
+        if intersector == "cluster" and len(v0) > 0:
             tabs = build_clusters(v0, v1, v2)
             cw, cbox, remap = (tabs["w_chunks"], tabs["cbox"],
                                tabs["remap"])
@@ -533,7 +554,8 @@ class SceneBuilder:
                 w2o=np.stack([np.linalg.inv(t) for t in ts]),
                 nrm=np.stack([np.linalg.inv(m).T for m in ts[:, :3, :3]])))
         return SceneData(
-            tri_cw=cw, tri_cbox=cbox, tri_remap=remap, inst=tuple(inst),
+            bvh=bvh, tri_cw=cw, tri_cbox=cbox, tri_remap=remap,
+            inst=tuple(inst),
             tri_v0=v0, tri_v1=v1, tri_v2=v2,
             tri_n0=catf(self.tn0, (3,)),
             tri_n1=catf(self.tn1, (3,)),
@@ -622,6 +644,11 @@ class DeviceScene:
     materials: mats.MaterialTable  # the NumPy rows mtab was packed from
     emission_textured: bool = False  # some light has an emission texture
     inst: tuple = ()        # DeviceInstances, one per instanced mesh
+    intersector: str = "cluster"  # the world triangles' intersector:
+                            # "cluster" (cw / cbox / remap), "bvh" or
+                            # "naive" (then cw holds no cluster)
+    bvh: Optional[object] = None  # accel.bvh.DeviceBVH ("bvh")
+    tri_v: tuple = ()       # (v0, v1, v2) [T,3] world corners ("naive")
 
     @property
     def light_distribution(self) -> Distribution1D:
@@ -634,21 +661,36 @@ class DeviceScene:
     def composed_only(self) -> bool:
         """Whether only the composed bounce serves the scene (twin:
         integrator._mega_eligible): a light carries an emission texture,
-        or the scene has no triangle, world or instanced."""
+        the scene has no triangle, world or instanced, or its world
+        triangles have no cluster tables (the BVH walk or the brute
+        force)."""
         return self.emission_textured or (self.n_tris == 0
-                                          and not self.inst)
+                                          and not self.inst) \
+            or (self.n_tris > 0 and self.intersector != "cluster")
 
     @staticmethod
     def build(scene: SceneData, device) -> "DeviceScene":
-        if scene.tri_cw is None and scene.n_tris:
-            raise NotImplementedError(
-                "triangles without cluster tables are not yet ported")
+        """The scene's tables on `device`.  Its world triangles take
+        the cluster tables where it has them, else its BVH, else the
+        brute-force test (the JAX package's order, scene.py:890-895)."""
         etex = scene.lights.emission_tex
         device = torch.device(device)
         t = lambda a, dt=torch.float32: torch.as_tensor(
             np.ascontiguousarray(a), dtype=dt, device=device)
+        intersector, dbvh, tri_v = "cluster", None, ()
+        if scene.tri_cw is None and scene.n_tris:
+            from arendur_tpu_torch.accel import bvh as bvhmod
+            if scene.bvh is not None:
+                intersector = "bvh"
+                dbvh = bvhmod.device_bvh(scene.bvh, scene.tri_v0,
+                                         scene.tri_v1, scene.tri_v2, device)
+            else:
+                intersector = "naive"
+                tri_v = tuple(t(v) for v in (scene.tri_v0, scene.tri_v1,
+                                             scene.tri_v2))
         if scene.tri_cw is None:
-            # an empty world pool: no cluster, so K1 / K2 test the spheres
+            # no cluster (an empty world pool, or world triangles met by
+            # the BVH walk or the brute force): K1 / K2 test the spheres
             # alone; a slot is never >= 0, so the remap is never read
             cw = np.zeros((0, 16, 4 * 64), np.float32)
             cbox = np.zeros((0, 8), np.float32)
@@ -677,7 +719,8 @@ class DeviceScene:
             static=shade_static(scene), materials=scene.materials,
             emission_textured=bool(etex is not None
                                    and (np.asarray(etex) >= 0).any()),
-            inst=tuple(inst))
+            inst=tuple(inst), intersector=intersector, bvh=dbvh,
+            tri_v=tri_v)
 
 
 # ---------------------------------------------------------------------------
@@ -747,6 +790,10 @@ class Closest:
                             # id [N], instance [N]); a later mesh's
                             # win replaces an earlier one's
     use_sphere: torch.Tensor  # [N] bool: a sphere is the closest hit
+    b0: Optional[torch.Tensor] = None  # [N] the world triangle's
+    b1: Optional[torch.Tensor] = None  # barycentrics, from the BVH walk
+                                       # or the brute force (None: the
+                                       # cluster kernels give none)
 
     @property
     def hit(self):
@@ -759,23 +806,71 @@ class Closest:
                                                  self.t_tri), float("inf"))
 
 
+def _pad_rows(x, n: int, fill):
+    """x [na, ...] padded to n rows with `fill`."""
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, torch.full((n - x.shape[0],) + x.shape[1:], fill,
+                                    dtype=x.dtype, device=x.device)])
+
+
+def world_closest(scene: DeviceScene, o, d, tmax, n_alive=None):
+    """The closest world triangle of N rays by the scene's BVH walk or
+    brute force (twin: the bvh / naive branches of scene.intersect,
+    scene.py:891-895): (t [N], inf on a miss, tri_idx [N] int64 or -1,
+    b0, b1).  Only the first n_alive rays are traced (one host read of
+    the count); the rest miss, as the cluster kernels report them."""
+    from arendur_tpu_torch.accel import bvh as bvhmod
+    from arendur_tpu_torch.shapes import triangle as tri
+    n = o.shape[0]
+    na = n if n_alive is None else int(n_alive)
+    o, d, tmax = o[:na], d[:na], tmax[:na]
+    if scene.intersector == "bvh":
+        t, idx, b0, b1 = bvhmod.intersect_bvh(scene.bvh, o, d, tmax)
+    else:
+        t, idx, b0, b1 = tri.intersect_scene_tris(o, d, tmax, *scene.tri_v)
+    t = torch.where(idx >= 0, t, float("inf"))
+    return (_pad_rows(t, n, float("inf")), _pad_rows(idx, n, -1),
+            _pad_rows(b0, n, 0.0), _pad_rows(b1, n, 0.0))
+
+
+def world_occluded(scene: DeviceScene, o, d, tmax, n_alive=None):
+    """Whether a world triangle blocks each shadow ray within tmax, by
+    the BVH walk (a closest hit, as the JAX package's occluded runs it)
+    or the brute force; rays past n_alive are not blocked."""
+    from arendur_tpu_torch.shapes import triangle as tri
+    if scene.intersector == "bvh":
+        return world_closest(scene, o, d, tmax, n_alive)[1] >= 0
+    n = o.shape[0]
+    na = n if n_alive is None else int(n_alive)
+    return _pad_rows(tri.occluded_tris(o[:na], d[:na], tmax[:na],
+                                       *scene.tri_v), n, False)
+
+
 def closest_hits(scene: DeviceScene, o, d, tmax, n_alive=None,
                  closest_hit=None) -> Closest:
     """The closest hit of N rays o, d [N,3] within tmax [N], in the JAX
     package's order of operations (scene.py:932-1012): the world K1 with
     the sphere table (a sphere hit keeps the triangles' t at inf), then
     each instanced mesh's [I * N]-lane K1 bounded by min(tmax, t_tri),
-    then a sphere wins where its t <= the nearest triangle's.  Ray
-    geometry is detached."""
+    then a sphere wins where its t <= the nearest triangle's.  Where the
+    world triangles have no cluster tables, the BVH walk or the brute
+    force finds the nearest of them and K1 with no cluster tests the
+    spheres.  Ray geometry is detached."""
     from arendur_tpu_torch.shapes import cluster_intersect as ci
     o, d, tmax = o.detach(), d.detach(), tmax.detach()
     t_k, slot = (closest_hit or ci.intersect_clusters)(
         scene.cw, scene.cbox, o, d, tmax, n_alive=n_alive,
         sph_tab=scene.ktab, full_phi=scene.full_phi)
-    tri_hit = slot >= 0
-    t_tri = torch.where(tri_hit, t_k, float("inf"))
-    tri_idx = torch.where(tri_hit,
-                          scene.remap[torch.clamp(slot, min=0).long()], -1)
+    b0 = b1 = None
+    if scene.intersector == "cluster":
+        tri_hit = slot >= 0
+        t_tri = torch.where(tri_hit, t_k, float("inf"))
+        tri_idx = torch.where(
+            tri_hit, scene.remap[torch.clamp(slot, min=0).long()], -1)
+    else:
+        t_tri, tri_idx, b0, b1 = world_closest(scene, o, d, tmax, n_alive)
+        tri_hit = tri_idx >= 0
     wins = []
     for im in scene.inst:
         t_i, li, best = instance_closest(im, o, d, torch.minimum(tmax, t_tri),
@@ -786,7 +881,8 @@ def closest_hits(scene: DeviceScene, o, d, tmax, n_alive=None,
         wins.append((im, hit_i, li, best))
     use_sphere = (slot <= -2) & (t_k <= t_tri)
     return Closest(t_k=t_k, slot=slot, tri_idx=tri_idx, t_tri=t_tri,
-                   tri_hit=tri_hit, wins=tuple(wins), use_sphere=use_sphere)
+                   tri_hit=tri_hit, wins=tuple(wins), use_sphere=use_sphere,
+                   b0=b0, b1=b1)
 
 
 def instance_world_rows(im: DeviceInstances, li, best) -> torch.Tensor:
@@ -916,9 +1012,14 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
     tcol = lambda j: trow[:, j]
     oc = (o[:, 0], o[:, 1], o[:, 2])
     dc = (d[:, 0], d[:, 1], d[:, 2])
-    b0, b1 = cb.bary_from_vertices(oc, dc, (tcol(0), tcol(1), tcol(2)),
-                                   (tcol(3), tcol(4), tcol(5)),
-                                   (tcol(6), tcol(7), tcol(8)))
+    if c.b0 is None:
+        # the cluster kernels give no barycentrics: from the packed
+        # vertices (the JAX package's cluster branch)
+        b0, b1 = cb.bary_from_vertices(oc, dc, (tcol(0), tcol(1), tcol(2)),
+                                       (tcol(3), tcol(4), tcol(5)),
+                                       (tcol(6), tcol(7), tcol(8)))
+    else:
+        b0, b1 = c.b0, c.b1
     pos_t, perr_t, dpdu_t, dpdv_t, ns_raw = cb.tri_shading_from_row(
         tcol, b0, b1)
     b2 = 1.0 - b0 - b1
@@ -972,14 +1073,18 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
 def occluded(scene: "DeviceScene", o, d, tmax, n_alive=None,
              any_hit=None) -> torch.Tensor:
     """Shadow any-hit against the world's triangles and the spheres in
-    one call (K2 on CUDA tensors, or the given `any_hit` entry), ORed
-    with one [I * N]-lane any hit per instanced mesh; the ray geometry
-    is detached (twin: scene.occluded under ARENDUR_SPHERES=kernel)."""
+    one call (K2 on CUDA tensors, or the given `any_hit` entry; where the
+    world has no cluster tables, K2 tests the spheres and world_occluded
+    the triangles), ORed with one [I * N]-lane any hit per instanced
+    mesh; the ray geometry is detached (twin: scene.occluded under
+    ARENDUR_SPHERES=kernel)."""
     from arendur_tpu_torch.shapes import cluster_intersect as ci
     any_hit = any_hit or ci.occluded_clusters
     o, d, tmax = o.detach(), d.detach(), tmax.detach()
     blocked = any_hit(scene.cw, scene.cbox, o, d, tmax, n_alive=n_alive,
                       sph_tab=scene.ktab, full_phi=scene.full_phi)
+    if scene.intersector != "cluster":
+        blocked = blocked | world_occluded(scene, o, d, tmax, n_alive)
     n = o.shape[0]
     for im in scene.inst:
         ni = im.n_instances

@@ -144,7 +144,27 @@ Phases, one line each:
      in either); BPT and Whitted paths/s at 256x256, 16 spp, depth 8
      (BPT's from two timed waves where the whole frame would take more
      than 60 s); one BPT wave's launches, top-level host ops, device
-     busy share and each kernel's launches and device ms.
+     busy share and each kernel's launches and device ms;
+ 17. the paths the port took over last (phase17): on phase 3's recorded
+     cb.json query sets (65,536-lane waves), the BVH walk and the brute
+     force against K1 / K2 without the sphere table, lane by lane (the
+     triangle and t within T_RTOL of max(t, 1), or blocked; a lane whose
+     other hit lies inside K1 / K2's self-hit guard counted apart, every
+     disagreeing lane printed), with each query's ms by CUDA events and
+     the walk's steps; the 64x48, 32 spp, depth-8 cb.json renders with
+     --intersector bvh and naive through the kernels (K1 / K2 with no
+     cluster, K8, K9) against the cluster render, their launches a wave
+     and forward paths/s at 256x256, 16 spp, depth 8 (a whole frame where
+     wave 0 says it takes at most 60 s, else wave 0's rate); a Sobol
+     render (build_sobol_table(spp, 80)) through the kernels against the
+     plain path and its paths/s; a 4-wave render cut after 2 waves and
+     resumed from its checkpoint against the uninterrupted one; the
+     composed train step on cb_etex.json (64x48, 32 spp, depth 8, kd / ks
+     / roughness) and the texel gradient on bench.py's checker scene
+     (64x48, 32 spp, depth 8), kernels against plain, and the composed
+     fwd+bwd paths/s at 256x256 (one 65,536-lane wave after a warm step);
+     each of its paths driven with every count set to 0 just before and
+     read just after.
 In phases 6, 8, 10, 12, 15 and 16 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
@@ -195,6 +215,7 @@ K3_RTOL, K3_ATOL = 1e-4, 1e-5
 MSE_DS4_GATE = 1.7e-3    # golden gate of tests/test_golden.py
 MEAN_GATE = 0.018
 PLAIN_ATOL = 3e-3        # kernel path vs plain path, per pixel
+MEAN_ATOL = 1e-3         # bvh / naive vs cluster render: image mean
 K4_GATE = 0.999          # share of dx entries within rtol 1e-3 / atol 1e-5
 K4_RTOL, K4_ATOL = 1e-3, 1e-5   # summation order differs from autograd's
 TAB_GATE = 1e-3          # ||d - d_plain|| / ||d_plain||, table cotangents
@@ -663,6 +684,412 @@ def _busy_s(prof):
 def _block_mean(a, f):
     h, w, _ = a.shape
     return a.reshape(h // f, f, w // f, f, 3).mean((1, 3))
+
+
+def event_timed(fn):
+    """(fn(), its ms by CUDA events around the one call; no warm-up: the
+    walk's calls are long and the script has run the same ops before)."""
+    import torch
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def frame_rate(render, wave_s, n_frame, wave, limit_s=60.0):
+    """Forward paths/s: a whole timed frame (render()) where wave 0's
+    wall time wave_s says the frame takes at most limit_s, else wave 0's
+    own rate.  (rate, whole)."""
+    import torch
+    if wave_s * n_frame / wave > limit_s:
+        return wave / wave_s, False
+    t0 = time.perf_counter()
+    img = render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not torch.isfinite(img).all():
+        raise AssertionError("a 256x256 render is not finite")
+    return n_frame / dt, True
+
+
+def grad_rel(g, g_plain):
+    return ((g - g_plain).norm() / g_plain.norm().clamp(min=1e-30)).item()
+
+
+def phase17(dev, card, ds, camera, film_cfg, config, wave0):
+    """Phase 17: the BVH walk and the brute force, the Sobol sampler,
+    checkpoint / resume, and the composed and texel gradients.  ds,
+    camera, film_cfg, config: cb.json at 256x256, 16 spp, depth 8 (the
+    cluster scene); wave0: (pxy, pid, sid) of its wave 0.  Returns the
+    measurements; raises where a gate fails."""
+    import tempfile
+    import numpy as np
+    import torch
+    from arendur_tpu_torch import scene as sc
+    from arendur_tpu_torch import utils
+    from arendur_tpu_torch.accel import bvh as bvhmod
+    from arendur_tpu_torch.filming import film as flm
+    from arendur_tpu_torch.io import scenedesc
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.parallel import mesh
+    from arendur_tpu_torch.render import fuzz
+    from arendur_tpu_torch.render import integrator as integ
+    from arendur_tpu_torch.sampling import sampler as smp
+    from arendur_tpu_torch.sampling import sobol
+    from arendur_tpu_torch.shapes import triangle as tri
+
+    cb_json = os.path.join(REPO, "examples/cornellbox/cb.json")
+    etex_json = os.path.join(REPO, "examples/cornellbox/cb_etex.json")
+    pxy, pid, sid = wave0
+    n = pxy.shape[0]
+    n_frame = film_cfg.resolution[0] * film_cfg.resolution[1] * config.spp
+    m = {}
+
+    def parse(path, spp, res, intersector="cluster"):
+        s, cam_, film_, cfg_, _ = scenedesc.parse_scene(
+            path, spp_override=spp, resolution_override=res,
+            intersector=intersector)
+        return s, cam_, film_, dataclasses.replace(cfg_, max_depth=8,
+                                                   wave_size=n)
+
+    def one_wave(cfg_, film_):
+        """cfg_ with one wave for the whole frame."""
+        w_, h_ = film_.resolution
+        return dataclasses.replace(cfg_, wave_size=w_ * h_ * cfg_.spp)
+
+    def launched(fn, need, refuse=()):
+        """fn() with every count set to 0 just before and read just
+        after; every kernel in `need` must have launched, none in
+        `refuse`."""
+        ops.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        lau = ops.counts()
+        if any(lau[k] < 1 for k in need) or any(lau[k] for k in refuse):
+            raise AssertionError(f"phase 17 launches: {lau}")
+        return out, lau
+
+    # (a) the walk and the brute force on phase 3's recorded wave queries,
+    # against K1 / K2 without the sphere table on the same rays.  A lane
+    # agrees where the triangle (blocked) is the same and, on a hit, t is
+    # within T_RTOL of max(t, 1): K1 takes t from plane products in the
+    # scene's absolute coordinates (a few ulp of a coordinate near a
+    # surface), the watertight test from the sheared ray.  K1 / K2 skip
+    # hits closer than their self-hit guard, 1e-5 (1 + max |o|)
+    # (shapes/mxu_intersect.py ray_teps); the watertight test of the JAX
+    # package's walk has none that wide, so a lane whose other hit lies
+    # inside that guard is counted apart ("guard")
+    isecs = {k: sc.DeviceScene.build(parse(cb_json, config.spp,
+                                           film_cfg.resolution, k)[0], dev)
+             for k in ("bvh", "naive")}
+    queries = fuzz.wave_queries(ds, camera, film_cfg, config,
+                                integ.KERNEL_OPS)
+    qrows, split, failed = [], [], []
+    for qi, q in enumerate(queries):
+        na = n if q["n_alive"] is None else int(q["n_alive"])
+        o, d, tm = q["o"][:na], q["d"][:na], q["tmax"][:na]
+        teps = 1e-5 * (1.0 + o.abs().amax(-1))
+        closest = q["kind"] == "closest"
+        row = dict(query=qi, kind=q["kind"], live=na)
+        if closest:
+            t_k, slot = ops.closest_hit(ds.cw, ds.cbox, o, d, tm)
+            idx_k = torch.where(slot >= 0,
+                                ds.remap[torch.clamp(slot, min=0).long()], -1)
+        else:
+            blk_k = ops.any_hit(ds.cw, ds.cbox, o, d, tm)
+        for name, dsx in isecs.items():
+            st = {}
+            if closest and name == "bvh":
+                call = lambda: bvhmod.intersect_bvh(  # noqa: E731
+                    dsx.bvh, o, d, tm, stats=st)
+            elif closest:
+                call = lambda: tri.intersect_scene_tris(  # noqa: E731
+                    o, d, tm, *dsx.tri_v)
+            else:
+                call = lambda: sc.world_occluded(dsx, o, d, tm)  # noqa
+            out, row[name + "_ms"] = event_timed(call)
+            if name == "bvh" and closest:
+                row["bvh_steps"] = st["steps"]
+            if closest:
+                t_x, idx_x = out[0], out[1]
+                rel = (t_x - t_k).abs() / t_k.abs().clamp(min=1.0)
+                hit = idx_k >= 0
+                eq = (idx_x == idx_k) & (~hit | (rel <= T_RTOL))
+                both = (idx_x == idx_k) & hit
+                row[name + "_t_rel_max"] = rel[both].max().item() \
+                    if both.any() else 0.0
+            else:
+                eq = out == blk_k
+                row[name + "_blocked"] = out.float().mean().item()
+                # the other intersector's nearest hit on the split lanes
+                t_x = torch.full_like(tm, float("inf"))
+                bad = torch.nonzero(~eq)[:, 0]
+                if bad.numel():
+                    t_x[bad] = tri.intersect_scene_tris(
+                        o[bad], d[bad], tm[bad], *isecs["naive"].tri_v)[0]
+            guard = ~eq & (t_x <= teps)
+            row[name + "_lanes_equal"] = eq.float().mean().item()
+            row[name + "_guard"] = int(guard.sum())
+            row[name + "_lanes_equal_past_guard"] = (
+                eq | guard).float().mean().item()
+            for lane in torch.nonzero(~eq)[:, 0].tolist():
+                split.append((name, qi, lane, "guard" if guard[lane] else
+                              "other") + ((int(idx_k[lane]), int(idx_x[lane]),
+                                           float(t_k[lane]))
+                                          if closest else
+                                          (bool(blk_k[lane]),
+                                           bool(out[lane])))
+                             + (float(t_x[lane]),))
+            if row[name + "_lanes_equal_past_guard"] < K1_K2_GATE:
+                failed.append(row)
+        qrows.append(row)
+    m["queries"], m["query_splits"] = qrows, split
+    closest = [r for r in qrows if r["kind"] == "closest"]
+    anyq = [r for r in qrows if r["kind"] == "any"]
+    _say("[17] lanes where the walk / the brute force and K1 / K2 disagree "
+         "(intersector, query, lane, inside K1 / K2's self-hit guard or "
+         "not, K1 triangle, its triangle, K1 t, its t; any hit: K2 blocked, "
+         "its blocked, its nearest t): "
+         + ("; ".join(str(s) for s in split) or "none"))
+    mean = lambda rows, k: sum(r[k] for r in rows) / len(rows)  # noqa
+    _say("[17] the BVH walk and the brute force on phase 3's wave queries "
+         f"({len(closest)} closest, {len(anyq)} any; world triangles, K1 / "
+         "K2 without the sphere table): " + "; ".join(
+             f"{nm}: min lanes equal {min(r[nm + '_lanes_equal'] for r in qrows):.6f} "
+             f"({sum(r[nm + '_guard'] for r in qrows)} lanes inside the "
+             f"guard; past it {min(r[nm + '_lanes_equal_past_guard'] for r in qrows):.6f}), "
+             f"closest {mean(closest, nm + '_ms'):.2f} ms / any "
+             f"{mean(anyq, nm + '_ms'):.2f} ms a query (events)"
+             for nm in ("bvh", "naive"))
+         + "; BVH steps per closest query "
+         + ", ".join(str(r["bvh_steps"]) for r in closest)
+         + "; per query live / bvh ms / naive ms: " + ", ".join(
+             f"{r['live']}/{r['bvh_ms']:.2f}/{r['naive_ms']:.2f}"
+             for r in qrows) + f" ({card})")
+    if failed:
+        raise AssertionError(f"bvh / naive queries below {K1_K2_GATE}: "
+                             f"{failed}")
+    mean = lambda rows, k: sum(r[k] for r in rows) / len(rows)  # noqa
+
+    # (b) the bvh and naive renders at 64x48, 32 spp, depth 8 through the
+    # kernels (K1 / K2 with no cluster, K8, K9) against the cluster render
+    # and each other, naive's against the plain path (bvh runs the same
+    # kernels); their launches and wall time a 65,536-lane wave; the
+    # forward rate at 256x256, 16 spp, depth 8
+    s5, cam5, film5, cfg5 = parse(cb_json, 32, (64, 48))
+    cfg5 = one_wave(cfg5, film5)
+    ds5 = sc.DeviceScene.build(s5, dev)
+    img_c = integ.render(ds5, cam5, film5, cfg5)
+    comp_need = ("closest_hit_spheres", "any_hit_spheres", "slot_sample",
+                 "slot_eval_pdf")
+    shades = ("bounce_shade", "hit_shade", "shade_split")
+    imgs = {}
+    for name in ("bvh", "naive"):
+        sx = parse(cb_json, 32, (64, 48), name)[0]
+        dsx = sc.DeviceScene.build(sx, dev)
+        img, lau = launched(lambda: integ.render(dsx, cam5, film5, cfg5),
+                            comp_need, shades)
+        imgs[name] = img
+        if name == "naive":
+            img_p = integ.render(dsx, cam5, film5, cfg5, ops=integ.PLAIN_OPS)
+        dpix = (img - img_c).abs().amax(-1)
+        dfull = isecs[name]
+        wave_args = (dfull, camera, config, pxy, pid, sid,
+                     smp.make_base_key(0))
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            _, wave_lau = launched(lambda: integ.trace_wave(*wave_args),
+                                   comp_need, shades)
+            wave_s = time.perf_counter() - t0
+        rate, whole_f = frame_rate(
+            lambda: integ.render(dfull, camera, film_cfg, config), wave_s,
+            n_frame, n)
+        m[name] = dict(render_launches=lau,
+                       dmax=dpix.max().item(),
+                       pixels_past=int((dpix > PLAIN_ATOL).sum()),
+                       dmean=(img.mean() - img_c.mean()).abs().item(),
+                       wave_launches=wave_lau, paths_per_s=rate,
+                       wave_s=wave_s, whole_frame=whole_f)
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"{name} render is not finite")
+    m["naive"]["dplain"] = (imgs["naive"] - img_p).abs().max().item()
+    m["bvh"]["dnaive"] = (imgs["bvh"] - imgs["naive"]).abs().max().item()
+    _say("[17] renders 64x48 32spp depth 8 through the kernels: " + "; ".join(
+        f"{nm} launches {m[nm]['render_launches']}; against the cluster "
+        f"render max |diff| {m[nm]['dmax']:.3e}, {m[nm]['pixels_past']} of "
+        f"{64 * 48} pixels past {PLAIN_ATOL}, |mean diff| "
+        f"{m[nm]['dmean']:.3e} (gate {MEAN_ATOL})" for nm in ("bvh", "naive"))
+        + f"; naive max |kernel - plain| {m['naive']['dplain']:.3e} (gate "
+        f"{PLAIN_ATOL}); bvh vs naive max |diff| {m['bvh']['dnaive']:.3e}"
+        + " | 256x256 16spp depth 8 forward: " + "; ".join(
+            f"{nm} {m[nm]['paths_per_s']:.0f} paths/s ("
+            + ("whole frame" if m[nm]["whole_frame"] else
+               f"wave 0 alone: the frame would take "
+               f"{m[nm]['wave_s'] * n_frame / n:.0f} s")
+            + f"; wave 0 {m[nm]['wave_s']:.3f} s), launches a wave "
+            + str({k: m[nm]["wave_launches"][k] for k in comp_need})
+            for nm in ("bvh", "naive")) + f" ({card})")
+    if m["naive"]["dplain"] > PLAIN_ATOL or m["bvh"]["dnaive"] > PLAIN_ATOL \
+            or max(m[nm]["dmean"] for nm in ("bvh", "naive")) > MEAN_ATOL:
+        raise AssertionError(f"bvh / naive renders: {m}")
+
+    # (c) Sobol: the 64x48, 32 spp render through the kernels against
+    # the plain path, and its rate at 256x256, 16 spp, depth 8
+    cfg_s = dataclasses.replace(cfg5, sampler="sobol",
+                                sobol_table=sobol.build_sobol_table(
+                                    cfg5.spp, 80))
+    img_sk, lau_s = launched(lambda: integ.render(ds5, cam5, film5, cfg_s),
+                             FORWARD_KERNELS)
+    img_sp = integ.render(ds5, cam5, film5, cfg_s, ops=integ.PLAIN_OPS)
+    ds_sobol = (img_sk - img_sp).abs().max().item()
+    d_strata = (img_sk.mean() - img_c.mean()).abs().item()
+    cfg_s16 = dataclasses.replace(config, sampler="sobol",
+                                  sobol_table=sobol.build_sobol_table(
+                                      config.spp, 80))
+    with torch.no_grad():
+        for _ in range(2):     # a warm wave, then the timed one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            integ.trace_wave(ds, camera, cfg_s16, pxy, pid, sid,
+                             smp.make_base_key(0))
+            torch.cuda.synchronize()
+            wave_s_s = time.perf_counter() - t0
+    rate_s, whole_s = frame_rate(
+        lambda: integ.render(ds, camera, film_cfg, cfg_s16), wave_s_s,
+        n_frame, n)
+    m["sobol"] = dict(launches=lau_s, dplain=ds_sobol, dmean_strata=d_strata,
+                      paths_per_s=rate_s, wave_s=wave_s_s,
+                      whole_frame=whole_s)
+    _say(f"[17] Sobol (table {cfg5.spp}x80) 64x48 32spp depth 8: launches "
+         f"{lau_s}; max |kernel - plain| {ds_sobol:.3e} (gate {PLAIN_ATOL}); "
+         f"|mean - the stratified render's mean| {d_strata:.3e} | 256x256 "
+         f"16spp depth 8: {rate_s:.0f} paths/s ("
+         + ("whole frame" if whole_s else "wave 0 alone")
+         + f"; wave 0 {wave_s_s:.3f} s) ({card})")
+    if not torch.isfinite(img_sk).all() or ds_sobol > PLAIN_ATOL \
+            or d_strata > MEAN_GATE:
+        raise AssertionError(f"Sobol render: {m['sobol']}")
+
+    # (d) resume: 4 waves, cut after 2, resumed from the checkpoint
+    cfg_r = dataclasses.replace(cfg5, wave_size=cfg5.wave_size // 4)
+    ref = integ.render(ds5, cam5, film5, cfg_r)
+    state, wave_r, n_waves = integ.render_film_init(ds5, film5, cfg_r)
+    for i in range(2):
+        integ.render_wave(ds5, cam5, film5, cfg_r, state, i)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "resume.ckpt.npz")
+        utils.save_checkpoint(ckpt, state, 2 * wave_r, cfg_r.seed,
+                              meta={"wave": wave_r})
+        resumed = integ.render(ds5, cam5, film5, cfg_r, checkpoint_path=ckpt,
+                               checkpoint_every=1)
+        next_ray = utils.load_checkpoint(ckpt)[1]
+    dres = (resumed - ref).abs().max().item()
+    m["resume"] = dict(bit_identical=bool(torch.equal(resumed, ref)),
+                       max_diff=dres, waves=n_waves, next_ray=next_ray)
+    _say(f"[17] resume: a 64x48 32spp render of {n_waves} waves cut after 2 "
+         f"and resumed from its checkpoint: bit-identical "
+         f"{m['resume']['bit_identical']}, max |diff| {dres:.3e} (gate 1e-6)"
+         f", final cursor {next_ray}")
+    if dres > 1e-6 or next_ray != n_waves * wave_r:
+        raise AssertionError(f"resume: {m['resume']}")
+
+    # (e) the composed train step on cb_etex.json, 64x48, 32 spp, depth 8,
+    # kernels against plain; fwd+bwd paths/s at 256x256 (one wave after a
+    # warm step)
+    s12, cam12, film12, cfg12 = parse(etex_json, 32, (64, 48))
+    cfg12 = one_wave(cfg12, film12)
+    ds12 = sc.DeviceScene.build(s12, dev)
+    target = integ.render(ds12, cam12, film12, cfg12).reshape(-1, 3) * 0.8
+    p12 = {k: torch.tensor(getattr(s12.materials, k), device=dev)
+           for k in ("kd", "ks", "roughness")}
+    idx12 = torch.arange(cfg12.wave_size, device=dev)
+    grads, losses = {}, {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        step = mesh.train_step_fn(ds12, cam12, film12, cfg12, lr=GRAD_LR,
+                                  ops=wops)
+        (new, loss), lau = launched(
+            lambda: step(dict(p12), target, idx12),
+            COMPOSED_KERNELS if name == "kernels" else (),
+            shades + ("bounce_shade_bwd",))
+        if name == "kernels":
+            comp_lau = lau
+        grads[name] = {k: (p12[k] - new[k]) / GRAD_LR for k in new}
+        losses[name] = loss.item()
+    grel = {k: grad_rel(grads["kernels"][k], grads["plain"][k])
+            for k in p12}
+    finite = all(torch.isfinite(g).all().item()
+                 for gs in grads.values() for g in gs.values())
+    s_e, _, _, cfg_e = parse(etex_json, config.spp, film_cfg.resolution)
+    ds_e = sc.DeviceScene.build(s_e, dev)
+    config_e = dataclasses.replace(config, textures=cfg_e.textures)
+    step = mesh.train_step_fn(ds_e, camera, film_cfg, config_e)
+    kd0 = torch.tensor(s_e.materials.kd, device=dev) * 1.25
+    tgt = torch.full((n_frame // config.spp, 3), 0.2, device=dev)
+    idx0 = torch.arange(n, device=dev)
+    kd, _ = step(kd0, tgt, idx0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(kd, tgt, idx0 + n)
+    torch.cuda.synchronize()
+    comp_fb = n / (time.perf_counter() - t0)
+    m["composed_train"] = dict(launches=comp_lau, grad_rel=grel,
+                               losses=losses, finite=finite,
+                               fwd_bwd_paths_per_s=comp_fb)
+    _say("[17] composed train step (cb_etex.json 64x48 32spp depth 8, kd / "
+         f"ks / roughness): launches {comp_lau}; grad rel "
+         + ", ".join(f"{k} {v:.2e}" for k, v in grel.items())
+         + f" (gate {GRAD_GATE}), finite {finite}; loss kernels "
+         f"{losses['kernels']:.6e} plain {losses['plain']:.6e} | fwd+bwd "
+         f"256x256 16spp depth 8, one wave of {n}: {comp_fb:.0f} paths/s "
+         f"({card})")
+    if not finite or max(grel.values()) > GRAD_GATE:
+        raise AssertionError(f"composed train step: {m['composed_train']}")
+
+    # (f) the texel gradient on bench.py's checker scene, 64x48, 32 spp,
+    # depth 8: the textured split (K1, K2, K5, the lookups, K6) kernels
+    # against plain
+    s_t, atlas = fuzz.checker_textured(s5, dev)
+    ds_t = sc.DeviceScene.build(s_t, dev)
+    w_ = film5.resolution[0]
+    ridx = torch.arange(cfg5.wave_size, device=dev)
+    pid_t, sid_t = ridx // cfg5.spp, ridx % cfg5.spp
+    pxy_t = torch.stack([(pid_t % w_).float(), (pid_t // w_).float()], -1)
+    tgrads = {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        leaf = atlas.texels.clone().requires_grad_(True)
+        cfg_t = dataclasses.replace(
+            cfg5, textures=dataclasses.replace(atlas, texels=leaf))
+
+        def texel_grad():
+            pfilm, L = integ.trace_wave(ds_t, cam5, cfg_t, pxy_t, pid_t,
+                                        sid_t, smp.make_base_key(0),
+                                        ops=wops)
+            st_ = flm.film_splat(film5, flm.film_init(film5, dev), pfilm, L)
+            loss = (flm.film_finalize(st_, film5) ** 2).mean()
+            return torch.autograd.grad(loss, [leaf])[0]
+        tgrads[name], lau = launched(
+            texel_grad, TEXTURED_KERNELS if name == "kernels" else (),
+            ("bounce_shade",))
+        if name == "kernels":
+            tex_lau = lau
+    trel = grad_rel(tgrads["kernels"], tgrads["plain"])
+    tfinite = all(torch.isfinite(g).all().item() for g in tgrads.values())
+    m["texel_grad"] = dict(launches=tex_lau, grad_rel=trel, finite=tfinite,
+                           nonzero=int((tgrads["kernels"] != 0).sum()))
+    _say("[17] texel gradient (bench.py's checker on cb.json, 64x48 32spp "
+         f"depth 8, mean squared image): launches {tex_lau}; grad rel "
+         f"{trel:.2e} (gate {GRAD_GATE}), finite {tfinite}, "
+         f"{m['texel_grad']['nonzero']} of {tgrads['kernels'].numel()} "
+         f"entries nonzero ({card})")
+    if not tfinite or trel > GRAD_GATE or not m["texel_grad"]["nonzero"]:
+        raise AssertionError(f"texel gradient: {m['texel_grad']}")
+    return m
 
 
 def main(argv=None):
@@ -2245,6 +2672,8 @@ def main(argv=None):
              f"{k} ({c}, {t_:.2f})" for k, (c, t_) in sorted(per_k.items()))
          + f" ({card})")
 
+    p17 = phase17(dev, card, ds, camera, film_cfg, config, (pxy, pid, sid))
+
     src = "arendur_tpu_torch/kernels/"
     meta = {
         "closest_hit": (src + "intersect.cu",
@@ -2302,6 +2731,13 @@ def main(argv=None):
                 rows[-1].update(bpt_ms=bpt_kern[k]["ms"],
                                 bpt_plain_ms=bpt_kern[k]["plain_ms"],
                                 bpt_bound_ms=bpt_kern[k]["bound"][0])
+        for isec in ("bvh", "naive"):
+            if p17[isec]["render_launches"].get(k):
+                # the 64x48 render with the world triangles met by the
+                # BVH walk / the brute force, and one 65,536-lane wave
+                rows[-1][isec + "_launches"] = p17[isec]["render_launches"][k]
+                rows[-1][isec + "_wave_launches"] = \
+                    p17[isec]["wave_launches"][k]
         if b_ms > r["ms"]:
             raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
                                  f"{b_ms} ms")
@@ -2363,7 +2799,7 @@ def main(argv=None):
                            whitted_paths_per_s=wh_rate,
                            bpt_wave=[bw_s, bbusy, bnk, host_ops],
                            bpt_wave_launches=bw_launches,
-                           bpt_wave_kernels=per_k),
+                           bpt_wave_kernels=per_k, phase17=p17),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -612,3 +612,69 @@ def test_bpt_wave_sets_kernels_match_plain(card):
     for rec in sets["evals"]:
         ref = sl.bsdf_eval_pdf(rec["b"], rec["wo"], rec["wi"], rec["types"])
         assert all(same(a, b) for a, b in zip(rec["out"], ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("intersector", ["bvh", "naive"])
+def test_world_intersectors_on_the_card(card, cornell, intersector):
+    """The BVH walk and the brute force (plain PyTorch on the card) give
+    on CUDA tensors what they give on the CPU, and agree with K1 on the
+    triangle (past K1's self-hit guard) and within T_RTOL in t."""
+    scene = scenedesc.parse_scene(CB, spp_override=4,
+                                  resolution_override=(24, 16),
+                                  intersector=intersector)[0]
+    ds_x = sc.DeviceScene.build(scene, card)
+    ds_c = sc.DeviceScene.build(scene, "cpu")
+    o, d, tmax = _rays(card)
+    t, idx, b0, b1 = sc.world_closest(ds_x, o, d, tmax)
+    t_c, idx_c, b0_c, b1_c = sc.world_closest(ds_c, o.cpu(), d.cpu(),
+                                              tmax.cpu())
+    assert torch.equal(idx.cpu(), idx_c)
+    hit = idx_c >= 0
+    torch.testing.assert_close(t.cpu()[hit], t_c[hit], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(b0.cpu()[hit], b0_c[hit], rtol=0.0,
+                               atol=1e-6)
+    k1_t, slot = ops.closest_hit(cornell[0].cw, cornell[0].cbox, o, d, tmax)
+    k1_idx = torch.where(slot >= 0, cornell[0].remap[slot.clamp(min=0)
+                                                     .long()], -1)
+    teps = 1e-5 * (1.0 + o.abs().amax(-1))
+    same = (k1_idx == idx) | (t <= teps)
+    assert same.float().mean().item() >= SLOT_GATE
+    both = (k1_idx == idx) & (idx >= 0)
+    rel = (t - k1_t).abs() / k1_t.abs().clamp(min=1.0)
+    assert rel[both].max().item() <= T_RTOL
+    blocked = sc.world_occluded(ds_x, o, d, tmax)
+    assert torch.equal(blocked.cpu(), sc.world_occluded(
+        ds_c, o.cpu(), d.cpu(), tmax.cpu()))
+
+
+@pytest.mark.gpu
+def test_composed_train_step_kernels_match_plain(card):
+    """One train step on cb_etex.json (the composed bounce: K1, K2, K8,
+    K9) through the kernels against the plain path: the gradients of kd,
+    ks and roughness within GRAD_GATE, all finite."""
+    from arendur_tpu_torch.parallel import mesh
+    scene, camera, film, config, _ = scenedesc.parse_scene(
+        os.path.join(REPO, "examples/cornellbox/cb_etex.json"),
+        spp_override=4, resolution_override=(24, 16))
+    config = dataclasses.replace(config, max_depth=4, wave_size=24 * 16 * 4)
+    ds = sc.DeviceScene.build(scene, card)
+    assert ds.composed_only
+    p = {k: torch.tensor(getattr(scene.materials, k), device=card)
+         for k in ("kd", "ks", "roughness")}
+    target = torch.full((24 * 16, 3), 0.2, device=card)
+    idx = torch.arange(24 * 16 * 4, device=card)
+    grads = {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        before = ops.SLOT_SAMPLE.launches
+        step = mesh.train_step_fn(ds, camera, film, config, lr=GRAD_LR,
+                                  ops=wops)
+        new, _ = step(dict(p), target, idx)
+        assert (ops.SLOT_SAMPLE.launches > before) == (name == "kernels")
+        grads[name] = {k: (p[k] - new[k]) / GRAD_LR for k in p}
+    for k in p:
+        g, g_p = grads["kernels"][k], grads["plain"][k]
+        assert torch.isfinite(g).all() and torch.isfinite(g_p).all()
+        assert ((g - g_p).norm() / g_p.norm().clamp(min=1e-30)).item() \
+            <= GRAD_GATE

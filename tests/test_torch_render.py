@@ -93,10 +93,16 @@ def test_cli_renders_png(tmp_path):
                                    ["--bvh"],
                                    ["--intersector", "bvh"],
                                    ["--resume"]])
-def test_cli_unported_paths_exit_with_error(flags, capsys):
-    """The CLI's paths that are not ported refuse (the BPT and Whitted
-    renderers are ported: tests/test_torch_bpt_modules.py renders
-    with both)."""
-    assert cli.main([CB, "--device", "cpu", "--renderer", "bpt"]
-                    + flags) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_unported_paths_exit_with_error(flags, tmp_path, capsys):
+    """The CLI's paths that once refused (the name is theirs) now render:
+    the brute-force and BVH intersectors and checkpoint / resume each
+    write an image and exit 0 (tests/test_torch_intersectors_render.py
+    and tests/test_torch_checkpoint.py hold them against the JAX
+    package)."""
+    out = str(tmp_path / "cb.png")
+    assert cli.main([CB, "--device", "cpu", "--res", "8x6", "--spp", "1",
+                     "--depth", "2", "-o", out] + flags) == 0
+    from PIL import Image
+    assert Image.open(out).size == (8, 6)
+    assert "not yet ported" not in capsys.readouterr().err
+    assert os.path.exists(out + ".ckpt.npz") == (flags == ["--resume"])

@@ -104,6 +104,25 @@ def test_wave_sampler_bitexact(kind):
 
 
 def test_sobol_kind_not_ported():
-    with pytest.raises(NotImplementedError):
+    """The Sobol kind, which once refused (the name is its), equals
+    sampling/sobol.py's uniforms and the JAX package's WaveSampler to
+    the bit (tests/test_torch_sobol.py holds the rest)."""
+    from arendur_tpu.sampling import sobol as jsob
+    from arendur_tpu_torch.sampling import sobol as tsob
+    table = tsob.build_sobol_table(16, 80)
+    pid, sid = _ids(11)
+    sid = sid % 16
+    tw = tsmp.WaveSampler(tsmp.make_base_key(5), torch.tensor(pid),
+                          torch.tensor(sid), kind="sobol", sobol_table=table)
+    jw = jsmp.WaveSampler(jsmp.make_base_key(5), jnp.asarray(pid),
+                          jnp.asarray(sid), kind="sobol", sobol_table=table)
+    assert torch.equal(tw.u1(6), tsob.sobol_uniform(
+        table, tsmp.make_base_key(5), torch.tensor(pid), torch.tensor(sid),
+        6))
+    np.testing.assert_array_equal(np.asarray(jw.film_jitter()),
+                                  tw.film_jitter().numpy())
+    np.testing.assert_array_equal(np.asarray(jw.u1(6)), tw.u1(6).numpy())
+    np.testing.assert_array_equal(np.asarray(jw.u2(2)), tw.u2(2).numpy())
+    with pytest.raises(ValueError):
         tsmp.WaveSampler(tsmp.make_base_key(0), torch.zeros(4),
                          torch.zeros(4), kind="sobol")

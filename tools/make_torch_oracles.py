@@ -1,0 +1,35 @@
+"""Write the JAX oracles of the port's tests (tests/torch_oracles.py)
+into tests/data/torch_oracles/: the results of JAX computations that
+compile for longer than a test file may take.
+
+    JAX_PLATFORMS=cpu python tools/make_torch_oracles.py [name ...]
+
+With no name, every oracle (tests/torch_oracles.py ORACLES) is made.
+Runs the JAX package on the CPU.
+"""
+
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tests"))
+
+
+def main(argv):
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import torch_oracles as orc
+    names = argv or list(orc.ORACLES)
+    for name in names:
+        inputs, run = orc.ORACLES[name]
+        t0 = time.perf_counter()
+        out = run()
+        orc.save(name, inputs(), **out)
+        print(f"{name}: {', '.join(f'{k} {v.shape}' for k, v in out.items())}"
+              f" in {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
