@@ -12,7 +12,11 @@ of the math.
 ``bsdf_sample`` and ``bsdf_eval_pdf`` are the plain versions of the
 slot-sweep kernels (bxdf/slot_shade.py); they keep the JAX return
 contract (f [N,3], wi [N,3], pdf [N], sampled kind [N] int32; f [N,3],
-pdf [N]).
+pdf [N]).  The JAX package's two separate sweeps ``bsdf_evaluate`` and
+``bsdf_pdf`` and the albedo estimators ``rho_hd`` / ``rho_hh`` go
+through the dispatchers of bxdf/slot_shade.py: on CUDA tensors the
+fused evaluate + pdf kernel (K9) and the sample kernel (K8), on CPU
+tensors the plain versions here.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import dataclasses
 
 import torch
 
-from arendur_tpu_torch.bxdf.types import ALL
+from arendur_tpu_torch.bxdf.types import ALL, REFLECTION, TRANSMISSION
 from arendur_tpu_torch.render import cmath as cm
 
 MAX_SLOTS = 3  # glass uses 3 (fresnel + TS-R + TS-T); others fewer
@@ -115,3 +119,70 @@ def bsdf_sample(b: BsdfSlots, wow, u, types: int = ALL):
     f, wi, pdf, kind = cm.bsdf_sample(b.to_c(), _c(wow), (u[:, 0], u[:, 1]),
                                       types)
     return _r(f), _r(wi), pdf, kind.to(torch.int32)
+
+
+def _sweeps():
+    # slot_shade imports this module
+    from arendur_tpu_torch.bxdf import slot_shade
+    return slot_shade
+
+
+def bsdf_evaluate(b: BsdfSlots, wow, wiw, types: int = ALL):
+    """Sum of the slots whose kind matches `types` and the side of wi
+    (ref: bsdf.rs:82-98): (f [N,3], kinds [N] int32, the matching
+    slots' kinds ORed).  f is the fused sweep's (K9 on CUDA tensors)."""
+    f, _ = _sweeps().bsdf_eval_pdf(b, wow, wiw, types)
+    is_refl = (cm.vdot(_c(wow), _c(b.ng)) * cm.vdot(_c(wiw), _c(b.ng))
+               > 0.0)[:, None]
+    kind = b.kind
+    sel = ((kind & types) != 0) & (
+        (is_refl & ((kind & REFLECTION) != 0))
+        | (~is_refl & ((kind & TRANSMISSION) != 0)))
+    picked = torch.where(sel, kind & types, 0)
+    kinds = torch.zeros_like(kind[:, 0])
+    for k in range(b.nslots):
+        if b.present is None or len(b.present[k]):
+            kinds = kinds | picked[:, k]
+    return f, kinds.to(torch.int32)
+
+
+def bsdf_pdf(b: BsdfSlots, wow, wiw, types: int = ALL):
+    """Mean pdf over the slots whose kind matches `types` (ref:
+    bsdf.rs:205-222), [N]: the fused sweep's (K9 on CUDA tensors)."""
+    return _sweeps().bsdf_eval_pdf(b, wow, wiw, types)[1]
+
+
+def _cos_local(b: BsdfSlots, wiw):
+    """|cos theta| of a world direction in the shading frame."""
+    wi = cm.vnormalize(cm.to_local(_c(b.ts), _c(b.bs), _c(b.ns), _c(wiw)))
+    return torch.abs(wi[2])
+
+
+def rho_hd(b: BsdfSlots, wow, samples, types: int = ALL):
+    """Monte-Carlo hemispherical-directional albedo (ref:
+    bxdf/mod.rs:87-99): the mean of f(wo, wi) |cos wi| / pdf over wi
+    drawn by bsdf_sample (K8 on CUDA tensors).  samples: [S, N, 2];
+    returns [N, 3]."""
+    acc = torch.zeros_like(wow)
+    for s in range(samples.shape[0]):
+        f, wiw, pdf, _ = _sweeps().bsdf_sample(b, wow, samples[s], types)
+        term = f * (_cos_local(b, wiw) / torch.clamp(pdf, min=1e-20))[:, None]
+        acc = acc + torch.where((pdf > 0.0)[:, None], term, 0.0)
+    return acc / samples.shape[0]
+
+
+def rho_hh(b: BsdfSlots, samples1, samples2, types: int = ALL):
+    """Monte-Carlo hemispherical-hemispherical albedo (ref:
+    bxdf/mod.rs:101-116): wo uniform over the hemisphere (samples1), wi
+    drawn by bsdf_sample (samples2, K8 on CUDA tensors).  samples1 /
+    samples2: [S, N, 2]; returns [N, 3]."""
+    from arendur_tpu_torch.sampling import warps
+    acc = torch.zeros_like(b.ns)
+    for s in range(samples1.shape[0]):
+        wo = warps.sample_uniform_hemisphere(samples1[s])
+        wow = _r(cm.to_world(_c(b.ts), _c(b.bs), _c(b.ns), _c(wo)))
+        f, wiw, pdf, _ = _sweeps().bsdf_sample(b, wow, samples2[s], types)
+        w = _cos_local(b, wiw) * torch.abs(wo[:, 2]) / torch.clamp(
+            pdf * warps.pdf_uniform_hemisphere(), min=1e-20)
+        acc = acc + torch.where((pdf > 0.0)[:, None], f * w[:, None], 0.0)
+    return acc / (cm.PI * samples1.shape[0])

@@ -538,23 +538,44 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
     return pfilm, L
 
 
-def render_wave(scene: sc.DeviceScene, camera: cam.CameraData,
-                film_cfg: flm.FilmConfig, config: RenderConfig, state, i: int,
-                ops: WaveOps = KERNEL_OPS, composed: bool = False):
-    """Trace wave i of a render (the rays i * wave .. of the pixel-major
-    order, wave = min(config.wave_size, W * H * spp)) and splat it into
-    the film state in place.  Returns the wave's count of invalid
-    radiance samples (a device scalar)."""
-    dev = scene.device
-    w, h = film_cfg.resolution
-    spp = config.spp
-    total = w * h * spp
-    wave = min(config.wave_size, total)
-    ray_idx = i * wave + torch.arange(wave, dtype=torch.int64, device=dev)
+def wave_pixels(ray_idx, w: int, spp: int):
+    """(pixel_xy [N,2], pixel_id, sample_id) of ray indices in the
+    pixel-major order (ray = pixel * spp + sample)."""
     pixel_id = ray_idx // spp
     sample_id = ray_idx % spp
     pixel_xy = torch.stack([(pixel_id % w).to(torch.float32),
                             (pixel_id // w).to(torch.float32)], -1)
+    return pixel_xy, pixel_id, sample_id
+
+
+def _wave(film_cfg: flm.FilmConfig, config: RenderConfig, size: int):
+    """(rays a wave, rays a frame): min(wave_size, frame) rounded up to a
+    multiple of the ray group's size."""
+    w, h = film_cfg.resolution
+    total = w * h * config.spp
+    wave = min(config.wave_size, total)
+    return -(-wave // size) * size, total
+
+
+def render_wave(scene: sc.DeviceScene, camera: cam.CameraData,
+                film_cfg: flm.FilmConfig, config: RenderConfig, state, i: int,
+                ops: WaveOps = KERNEL_OPS, composed: bool = False, mesh=None):
+    """Trace wave i of a render (the rays i * wave .. of the pixel-major
+    order, wave as render_film_init's) and splat it into the film state
+    in place.  With a ray group (parallel/mesh.RayMesh) only this rank's
+    contiguous shard of the wave is traced and splatted: the film is
+    then this rank's share, which the caller sums over the ranks.
+    Returns the count of invalid radiance samples (a device scalar)."""
+    dev = scene.device
+    w, _ = film_cfg.resolution
+    spp = config.spp
+    wave, total = _wave(film_cfg, config, 1 if mesh is None else mesh.size)
+    ray_idx = i * wave + torch.arange(wave, dtype=torch.int64, device=dev)
+    first = i * wave
+    if mesh is not None:
+        ray_idx = mesh.shard(ray_idx)
+        first += mesh.rank * ray_idx.shape[0]
+    pixel_xy, pixel_id, sample_id = wave_pixels(ray_idx, w, spp)
     valid = ray_idx < total
     with torch.no_grad():
         pfilm, L, aux = trace_wave(scene, camera, config, pixel_xy,
@@ -563,22 +584,21 @@ def render_wave(scene: sc.DeviceScene, camera: cam.CameraData,
                                    return_aux=True, composed=composed)
     if state.padded:
         flm.film_splat_pixmajor(film_cfg, state, pfilm - pixel_xy, L,
-                                (i * wave) // spp, spp, mask=valid)
+                                first // spp, spp, mask=valid)
     else:
         flm.film_splat(film_cfg, state, pfilm, L, mask=valid)
     return aux["n_invalid"]
 
 
 def render_film_init(scene: sc.DeviceScene, film_cfg: flm.FilmConfig,
-                     config: RenderConfig):
-    """The empty film of a render and its wave count: (state, wave,
-    n_waves).  The scatter-free splat needs pixel-major waves of whole
-    pixels that tile the frame exactly; other waves take the scatter
+                     config: RenderConfig, size: int = 1):
+    """The empty film of a render over `size` ranks and its wave count:
+    (state, wave, n_waves).  The scatter-free splat needs each rank's
+    shard of a wave to be whole pixels of the pixel-major order and the
+    waves to tile the frame exactly; other waves take the scatter
     splat."""
-    w, h = film_cfg.resolution
-    total = w * h * config.spp
-    wave = min(config.wave_size, total)
-    dense = (wave % config.spp == 0) and (total % wave == 0)
+    wave, total = _wave(film_cfg, config, size)
+    dense = (wave // size) % config.spp == 0 and total % wave == 0
     return (flm.film_init(film_cfg, scene.device, padded=dense), wave,
             (total + wave - 1) // wave)
 
@@ -587,31 +607,48 @@ def render(scene: sc.DeviceScene, camera: cam.CameraData,
            film_cfg: flm.FilmConfig, config: RenderConfig,
            ops: WaveOps = KERNEL_OPS, progress: bool = False,
            composed: bool = False, checkpoint_path: Optional[str] = None,
-           checkpoint_every: int = 0):
+           checkpoint_every: int = 0, mesh=None):
     """Full render on the scene's device: iterate waves over
     (pixels x spp), splat to the film, finalize.  Returns [H, W, 3].
     composed: as in trace_wave.
 
+    mesh: a ray group (parallel/mesh.RayMesh; None renders alone).  The
+    wave is then rounded up to a multiple of the group's size, each rank
+    traces its shard of every wave into its own film, and one sum
+    all-reduce of rgb and weight merges the films before the finalize;
+    every rank returns the same image.
+
     checkpoint_path: resume from the file when it exists and holds the
-    same seed, wave size and film shape, and save the film and the ray
-    cursor there every `checkpoint_every` waves and at the end
-    (utils.py).  The counter-based sampler makes the resumed render
-    bit-identical to an uninterrupted one."""
+    same seed, wave size and film shape (and, in a group of more than one
+    rank, the same rank and size: the file then holds this rank's share
+    of the film, so each rank wants a path of its own), and save the film
+    and the ray cursor there every `checkpoint_every` waves and at the
+    end (utils.py).  The counter-based sampler makes the resumed render
+    bit-identical to an uninterrupted one.
+
+    Each wave runs in the named phase "pt rendering", the ranks' merge in
+    "film all-reduce" and the finalize in "pt add sample"
+    (utils.profile_phase)."""
     from arendur_tpu_torch import utils
-    state, wave, n_waves = render_film_init(scene, film_cfg, config)
+    size = 1 if mesh is None else mesh.size
+    state, wave, n_waves = render_film_init(scene, film_cfg, config, size)
+    meta = {"wave": wave}
+    if size > 1:
+        meta.update(rank=mesh.rank, size=size)
     start_wave = 0
     if checkpoint_path:
         ck = utils.load_checkpoint(checkpoint_path, scene.device)
         if ck is not None:
-            st, next_ray, seed, meta = ck
-            if seed == config.seed and meta.get("wave") == wave \
-                    and st.rgb.shape == state.rgb.shape:
+            st, next_ray, seed, ck_meta = ck
+            if seed == config.seed and st.rgb.shape == state.rgb.shape \
+                    and all(ck_meta.get(k) == v for k, v in meta.items()):
                 state, start_wave = st, next_ray // wave
                 log.info("resumed at wave %d/%d from %s", start_wave,
                          n_waves, checkpoint_path)
     for i in range(start_wave, n_waves):
-        n_invalid = render_wave(scene, camera, film_cfg, config, state, i,
-                                ops=ops, composed=composed)
+        with utils.profile_phase("pt rendering"):
+            n_invalid = render_wave(scene, camera, film_cfg, config, state,
+                                    i, ops=ops, composed=composed, mesh=mesh)
         if progress:
             ni = int(n_invalid)
             if ni:
@@ -621,8 +658,15 @@ def render(scene: sc.DeviceScene, camera: cam.CameraData,
         if checkpoint_path and checkpoint_every \
                 and (i + 1) % checkpoint_every == 0:
             utils.save_checkpoint(checkpoint_path, state, (i + 1) * wave,
-                                  config.seed, meta={"wave": wave})
+                                  config.seed, meta=meta)
     if checkpoint_path:
         utils.save_checkpoint(checkpoint_path, state, n_waves * wave,
-                              config.seed, meta={"wave": wave})
-    return flm.film_finalize(state, film_cfg)
+                              config.seed, meta=meta)
+    if mesh is not None:
+        # the ranks' films summed once (the reference's tile merge): the
+        # film is a plain sum, read only by the finalize
+        with utils.profile_phase("film all-reduce"):
+            mesh.all_reduce_(state.rgb)
+            mesh.all_reduce_(state.weight)
+    with utils.profile_phase("pt add sample"):
+        return flm.film_finalize(state, film_cfg)

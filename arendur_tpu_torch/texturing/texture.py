@@ -14,6 +14,10 @@ Repeat / Black / Clamp wrap modes, trilinear between two levels with a
 lod from the uv footprint, or the line-probe approximation of EWA.
 Texel indices are computed in int32, as in the JAX package, and widened
 to int64 only to index.
+
+``texture_distribution_2d`` builds a 2-D importance distribution over a
+texture's texels (sampling/distribution.py); ``transformed_mapping_3d``
+maps points and their derivatives through a 4x4 transform.
 """
 
 from __future__ import annotations
@@ -477,3 +481,42 @@ def eval_gray(atlas: Optional[TextureAtlas], tex_id, uv, fallback,
     # difference of two such means by a step as small as 5e-4
     mean = (tex[:, 0] + tex[:, 1] + tex[:, 2]) * _THIRD
     return torch.where(tex_id >= 0, mean, fallback)
+
+
+# ---------------------------------------------------------------------------
+# image-texture importance distribution (ref: ImageTexture::distribution,
+# texturing/textures/image.rs:47-55) and 3D transformed mapping
+# (ref: texturing/mappings.rs:34-47)
+# ---------------------------------------------------------------------------
+
+def texture_distribution_2d(atlas: TextureAtlas, tex_id: int, f=None):
+    """A Distribution2D (sampling/distribution.py, host-built) over a
+    texture's level-0 texels, weighted by f(rgb) (default: luminance),
+    the reference's ``ImageTexture::distribution`` (image.rs:47-55).
+    Sampling it (sample_continuous_2d) yields uv with density
+    proportional to the texture, e.g. to importance-sample a textured
+    emitter."""
+    from arendur_tpu_torch.sampling.distribution import build_distribution_2d
+    off = int(atlas.offset[tex_id, 0])
+    w = int(atlas.width[tex_id, 0])
+    h = int(atlas.height[tex_id, 0])
+    tex = atlas.texels[off:off + w * h, :3].cpu().numpy().reshape(h, w, 3)
+    if f is None:
+        weights = (0.212671 * tex[..., 0] + 0.715160 * tex[..., 1]
+                   + 0.072169 * tex[..., 2])
+    else:
+        weights = np.apply_along_axis(f, -1, tex)
+    return build_distribution_2d(np.maximum(weights, 0.0))
+
+
+def transformed_mapping_3d(transform, pos, dpdx=None, dpdy=None):
+    """3D texture mapping through a 4x4 transform (ref:
+    texturing/mappings.rs:34-47 TransformedMapping): (p, dpdx, dpdy),
+    the position [N,3] transformed as a point and the screen-space
+    derivatives as vectors (None stays None).  transform: [4,4] in the
+    row-vector convention (p' = p @ M[:3,:3] + M[3,:3])."""
+    m = torch.as_tensor(np.asarray(transform, np.float32), device=pos.device)
+    p = pos @ m[:3, :3] + m[3, :3]
+    tx = dpdx @ m[:3, :3] if dpdx is not None else None
+    ty = dpdy @ m[:3, :3] if dpdy is not None else None
+    return p, tx, ty

@@ -165,6 +165,21 @@ Phases, one line each:
      fwd+bwd paths/s at 256x256 (one 65,536-lane wave after a warm step);
      each of its paths driven with every count set to 0 just before and
      read just after.
+ 18. several ranks (phase18), cb.json at 256x256, 16 spp, depth 8, waves
+     of 65,536: in a one-rank NCCL group, render_sharded against the
+     one-process render (per pixel rtol 1e-4 / atol 1e-5, the JAX test's
+     gate) and sharded_train_step_fn against train_step_fn on wave 0
+     (kd, ks, roughness: loss and gradients within 1e-5 relative), K1-K4
+     launched, paths/s and the film's all-reduce ms a frame; two worker
+     processes on the one card over gloo (parallel/distributed.py
+     spawn_workers, render_multihost, gloo staging the film through the
+     host) against each other (1e-7) and against the one-process render,
+     their frame rates in turns with rank 0 rendering the frame alone,
+     the all-reduce ms a frame from a separate synchronised render, and
+     one sharded_train_step_fn step with two ranks against train_step_fn
+     (1e-5, K1-K4 launched on each rank); and slots.rho_hd / rho_hh (K8)
+     and bsdf_evaluate / bsdf_pdf (K9) on 65,536 fuzz lanes against the
+     same functions over the plain sweeps, equal to the bit.
 In phases 6, 8, 10, 12, 15 and 16 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
@@ -178,6 +193,8 @@ render, K7 (K3 on the wide tables) in phase 13's render, K1 / K2's
 instanced launches in phase 15's 64x48 render, and for K1 / K2 / K8 /
 K9 also their launches in phase 16's 64x48 BPT render and in one BPT
 wave, and their ms, plain ms and bound on BPT's wave-0 sets (bpt_*);
+K1-K4 also their launches in phase 18's one-rank NCCL render and train
+step (sharded_*);
 its ms and plain_ms, all
 by CUDA events, K4's the mean per call over phase 7's eight train
 bounces, K1's and K2's the mean per launch over phase 3's fused-wave
@@ -1089,6 +1106,279 @@ def phase17(dev, card, ds, camera, film_cfg, config, wave0):
          f"entries nonzero ({card})")
     if not tfinite or trel > GRAD_GATE or not m["texel_grad"]["nonzero"]:
         raise AssertionError(f"texel gradient: {m['texel_grad']}")
+    return m
+
+
+@contextlib.contextmanager
+def plain_sweeps():
+    """While the block runs, the slot-sweep dispatchers of
+    bxdf/slot_shade.py are their plain versions (bxdf/slots.py), so
+    slots.bsdf_evaluate / bsdf_pdf / rho_hd / rho_hh run K8 / K9's plain
+    versions on CUDA tensors."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    saved = ssh.bsdf_sample, ssh.bsdf_eval_pdf
+    ssh.bsdf_sample, ssh.bsdf_eval_pdf = sl.bsdf_sample, sl.bsdf_eval_pdf
+    try:
+        yield
+    finally:
+        ssh.bsdf_sample, ssh.bsdf_eval_pdf = saved
+
+
+def step_rel(p, a, b):
+    """Two train steps' (new_params, loss) from the parameters p: the
+    relative differences of their gradients (read back with GRAD_LR) and
+    losses."""
+    rel = {k: grad_rel((p[k] - a[0][k]) / GRAD_LR, (p[k] - b[0][k]) / GRAD_LR)
+           for k in p}
+    rel["loss"] = abs(a[1].item() - b[1].item()) / abs(b[1].item())
+    return rel
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms for the block (a warning where
+    an op has none): index_add_ then sums in sorted order on the card."""
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def timed(fn):
+    """(fn(), its wall seconds, the card synchronised on both sides)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase18(dev, card, ds, camera, film_cfg, config):
+    """Phase 18: the sharded render and train step (parallel/mesh.py) in
+    a one-rank NCCL group against the one-device paths, two worker
+    processes on the one card over gloo (parallel/distributed.py,
+    render_multihost) against each other and the one-process render,
+    and the leftover API's K8 / K9 calls (slots.rho_hd / rho_hh,
+    bsdf_evaluate / bsdf_pdf) against their plain versions.  ds, camera,
+    film_cfg, config: cb.json at 256x256, 16 spp, depth 8, waves of
+    65,536.  Returns the measurements; raises where a gate fails."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from arendur_tpu_torch.bxdf import slots as sl
+    from arendur_tpu_torch.filming import film as flm
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.parallel import distributed as pdist
+    from arendur_tpu_torch.parallel import mesh
+    from arendur_tpu_torch.render import fuzz
+    from arendur_tpu_torch.render import integrator as integ
+
+    w, h = film_cfg.resolution
+    n_frame = w * h * config.spp
+    wave = config.wave_size
+    m = {}
+
+    def launched(fn, need):
+        """fn() with every count set to 0 just before and read just
+        after; every kernel in `need` must have launched."""
+        ops.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        lau = ops.counts()
+        if any(lau[k] < 1 for k in need):
+            raise AssertionError(f"phase 18 launches: {lau}")
+        return out, lau
+
+    one = lambda: integ.render(ds, camera, film_cfg, config)  # noqa: E731
+    img1, t1 = timed(one)
+
+    # (a) one rank over NCCL: the sharded render and train step against
+    # the one-device render and train_step_fn on the same wave
+    with tempfile.TemporaryDirectory() as tmp:
+        rm = pdist.init_distributed(
+            num_processes=1, process_id=0, device=dev, timeout_s=300,
+            init_method="file://" + os.path.join(tmp, "rendezvous"))
+        try:
+            if dist.get_backend() != "nccl" or rm.size != 1:
+                raise AssertionError(f"not a one-rank NCCL group: "
+                                     f"{dist.get_backend()} {rm}")
+            run = lambda: mesh.render_sharded(  # noqa: E731
+                ds, camera, film_cfg, config, rm)
+            run()
+            # timed in turns with the one-process render: one, sharded,
+            # sharded, one
+            (img_r, t_r), lau_r = launched(lambda: timed(run),
+                                           FORWARD_KERNELS)
+            t_r2 = timed(run)[1]
+            t1b = timed(one)[1]
+            d_r = (img_r - img1).abs().max().item()
+            if not torch.isclose(img_r, img1, rtol=1e-4, atol=1e-5).all():
+                raise AssertionError(f"one-rank NCCL render differs from "
+                                     f"the one-device render: {d_r}")
+            st = flm.film_init(film_cfg, dev, padded=True)
+            ar_ms = time_ms(lambda: (rm.all_reduce_(st.rgb),
+                                     rm.all_reduce_(st.weight)), iters=20)
+            p = {k: torch.tensor(getattr(ds.materials, k), device=dev)
+                 for k in ("kd", "ks", "roughness")}
+            target = img1.reshape(-1, 3) * 0.8
+            idx = torch.arange(wave, device=dev)
+            step_r = mesh.sharded_train_step_fn(ds, camera, film_cfg, config,
+                                                rm, lr=GRAD_LR)
+            step_1 = mesh.train_step_fn(ds, camera, film_cfg, config,
+                                        lr=GRAD_LR)
+            call_r = lambda: step_r(dict(p), target, idx)  # noqa: E731
+            call_1 = lambda: step_1(dict(p), target, idx)  # noqa: E731
+            call_r(), call_1()
+            ((new_r, loss_r), ts_r), lau_t = launched(
+                lambda: timed(call_r), TRAIN_KERNELS)
+            (new_1, loss_1), ts_1 = timed(call_1)
+            # the one-device step against itself: the scatter splat's
+            # index_add_ sums a pixel's taps with atomics, in another
+            # order each run; with PyTorch's deterministic algorithms it
+            # sums them sorted, and the two steps are held against each
+            # other there
+            spread = step_rel(p, call_1(), (new_1, loss_1))
+            with deterministic_algorithms():
+                rel = step_rel(p, call_r(), call_1())
+        finally:
+            dist.destroy_process_group()
+    rate1 = [n_frame / t1, n_frame / t1b]
+    rate_r = [n_frame / t_r, n_frame / t_r2]
+    m.update(one_process_paths_per_s=rate1, nccl_paths_per_s=rate_r,
+             nccl_dmax=d_r,
+             nccl_launches=lau_r, nccl_all_reduce_ms=ar_ms,
+             nccl_step_rel=rel, nccl_step_spread=spread,
+             nccl_step_launches=lau_t,
+             nccl_step_s=ts_r, one_device_step_s=ts_1)
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    _say(f"[18] one rank over NCCL, cb.json {w}x{h} {config.spp}spp depth "
+         f"{config.max_depth}, waves of {wave}: in turns, one-process render "
+         f"{rate1[0]:.0f}, render_sharded {rate_r[0]:.0f} / {rate_r[1]:.0f},"
+         f" one-process {rate1[1]:.0f} paths/s; max |sharded - one-device| "
+         f"{d_r:.3e}"
+         f" (gate rtol 1e-4 / atol 1e-5), launches {nz(lau_r)}; the film's "
+         f"all-reduce (rgb and weight) {ar_ms:.4f} ms a frame | "
+         f"sharded_train_step_fn on wave 0 (kd, ks, roughness, lr "
+         f"{GRAD_LR:g}) against train_step_fn under deterministic "
+         "algorithms: rel "
+         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+         + " (gate 1e-5); train_step_fn against itself (atomic splat): "
+         + ", ".join(f"{k} {v:.2e}" for k, v in spread.items())
+         + f"; {1e3 * ts_r:.1f} / {1e3 * ts_1:.1f} ms a step, launches "
+         f"{nz(lau_t)} ({card})")
+    if max(rel.values()) > 1e-5:
+        raise AssertionError(f"one-rank NCCL step differs: {rel}")
+
+    # (b) two worker processes on the one card over gloo (gloo stages the
+    # film through the host), each rendering half of every wave, in turns
+    # with rank 0 rendering the whole frame alone; then one
+    # sharded_train_step_fn step on wave 0 with two ranks, held against
+    # train_step_fn under deterministic algorithms
+    rounds = 4
+    scene_args = ["--scene", os.path.join(REPO, "examples/cornellbox/cb.json"),
+                  "--res", f"{w}x{h}", "--spp", str(config.spp), "--depth",
+                  str(config.max_depth), "--wave", str(wave)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        imgs, reps, rcs = pdist.spawn_workers(
+            2, tmp, device=str(dev), backend="gloo", scene_args=scene_args,
+            runs=rounds, timeout_s=300, train_lr=GRAD_LR)
+        spawn_s = time.perf_counter() - t0
+    if any(rcs):
+        raise AssertionError(f"a gloo worker failed: {rcs}")
+    steps = [r.pop("step") for r in reps]
+    d_ranks = float(np.abs(imgs[1] - imgs[0]).max())
+    ref = img1.cpu().numpy()
+    d_one = float(np.abs(imgs[0] - ref).max())
+    rate2 = [n_frame / max(r["seconds"][k] for r in reps)
+             for k in range(rounds)]
+    alone = reps[0]["alone_paths_per_s"]
+    gloo_ar = [1e3 * r["phases"]["film all-reduce"] for r in reps]
+    target = torch.tensor(imgs[0], device=dev).reshape(-1, 3) * 0.8
+    with deterministic_algorithms():
+        one_step = mesh.train_step_fn(ds, camera, film_cfg, config,
+                                      lr=GRAD_LR)(dict(p), target, idx)
+    two = [({k: torch.tensor(st[k], device=dev) for k in p},
+            torch.tensor(float(st["loss"]))) for st in steps]
+    rel2 = step_rel(p, two[0], one_step)
+    d_step = max(float(np.abs(steps[1][k] - steps[0][k]).max())
+                 for k in steps[0])
+    m.update(gloo_paths_per_s=rate2, gloo_alone_paths_per_s=alone,
+             gloo_reports=reps, gloo_dranks=d_ranks, gloo_dmax=d_one,
+             gloo_spawn_s=spawn_s, gloo_all_reduce_ms=gloo_ar,
+             gloo_step_rel=rel2, gloo_step_dranks=d_step)
+    _say(f"[18] two processes on {dev} over gloo (render_multihost; "
+         f"after a warm-up round, {rounds} rounds, each a render by the two "
+         "ranks and one by rank 0 alone, in turns, with no synchronisation "
+         "inside them): "
+         + ", ".join(f"{a:.0f}" for a in rate2) + " paths/s for the frame "
+         "by the two, " + ", ".join(f"{a:.0f}" for a in alone)
+         + " by rank 0 alone; the film's all-reduce through the host (a "
+         "synchronised render) " + ", ".join(f"{a:.3f}" for a in gloo_ar)
+         + " ms a frame; launches per rank "
+         + "; ".join(str(nz(r["launches"])) for r in reps)
+         + f"; |rank 1 - rank 0| {d_ranks:.3e} (gate 1e-7), max |two-process"
+         f" - one-process| {d_one:.3e} (gate rtol 1e-4 / atol 1e-5) | "
+         "sharded_train_step_fn with two ranks on wave 0 against "
+         "train_step_fn under deterministic algorithms: rel "
+         + ", ".join(f"{k} {v:.2e}" for k, v in rel2.items())
+         + f" (gate 1e-5), |rank 1 - rank 0| {d_step:.3e} (gate 1e-7), "
+         "launches per rank "
+         + "; ".join(str(nz(r["step_launches"])) for r in reps)
+         + f"; workers {spawn_s:.1f} s from spawn to exit ({card})")
+    if d_ranks > 1e-7:
+        raise AssertionError(f"the gloo ranks' images differ: {d_ranks}")
+    if not np.allclose(imgs[0], ref, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"two-process render differs: {d_one}")
+    if any(min(r["launches"][k] for k in FORWARD_KERNELS) < 1 for r in reps):
+        raise AssertionError("a gloo worker launched no kernel")
+    if any(min(r["step_launches"][k] for k in TRAIN_KERNELS) < 1
+           for r in reps):
+        raise AssertionError("a gloo worker's step launched no kernel")
+    if max(rel2.values()) > 1e-5 or d_step > 1e-7:
+        raise AssertionError(f"two-rank step differs: {rel2}, {d_step}")
+
+    # (c) the leftover API on the card: rho_hd / rho_hh (K8, one launch a
+    # sample) and bsdf_evaluate / bsdf_pdf (K9, one launch each) against
+    # the same functions over the plain sweeps, on 65,536 fuzz lanes (the
+    # five recipes; grazing glass), equal to the bit
+    n = 1 << 16
+    rng = np.random.default_rng(18)
+    cases = {"recipes": dict(), "grazing": dict(grazing=True,
+                                                rows=fuzz.SLOT_ROWS[3:4])}
+    left = {}
+    for case, kw in cases.items():
+        b, wo, _, wi = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(n, 18, **kw),
+                                       dev)
+        s, s1, s2 = (torch.tensor(rng.random((4, n, 2)).astype(np.float32),
+                                  device=dev) for _ in range(3))
+
+        def run():
+            return (sl.rho_hd(b, wo, s), sl.rho_hh(b, s1, s2)) \
+                + sl.bsdf_evaluate(b, wo, wi) + (sl.bsdf_pdf(b, wo, wi),)
+        got, lau = launched(run, ("slot_sample", "slot_eval_pdf"))
+        if (lau["slot_sample"], lau["slot_eval_pdf"]) != (8, 2):
+            raise AssertionError(f"leftover launches: {lau}")
+        with plain_sweeps():
+            ref_, lau_p = launched(run, ())
+        if lau_p["slot_sample"] or lau_p["slot_eval_pdf"]:
+            raise AssertionError(f"the plain sweeps launched: {lau_p}")
+        left[case] = {k: bit_diff(g, r_) for k, g, r_ in zip(
+            ("rho_hd", "rho_hh", "f", "kinds", "pdf"), got, ref_)}
+    m["leftovers"] = left
+    _say("[18] the leftover API on 65,536 fuzz lanes, K8 (rho_hd / rho_hh, "
+         "4 samples each) and K9 (bsdf_evaluate, bsdf_pdf) against the plain "
+         "sweeps, elements that differ: " + "; ".join(
+             f"{c} " + ", ".join(f"{k} {v}" for k, v in d.items())
+             for c, d in left.items()) + f" ({card})")
+    if any(v for d in left.values() for v in d.values()):
+        raise AssertionError(f"leftover K8 / K9 differ: {left}")
     return m
 
 
@@ -2673,6 +2963,7 @@ def main(argv=None):
          + f" ({card})")
 
     p17 = phase17(dev, card, ds, camera, film_cfg, config, (pxy, pid, sid))
+    p18 = phase18(dev, card, ds, camera, film_cfg, config)
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -2731,6 +3022,11 @@ def main(argv=None):
                 rows[-1].update(bpt_ms=bpt_kern[k]["ms"],
                                 bpt_plain_ms=bpt_kern[k]["plain_ms"],
                                 bpt_bound_ms=bpt_kern[k]["bound"][0])
+        if p18["nccl_step_launches"].get(k):
+            # the one-rank NCCL group's sharded render and train step
+            rows[-1]["sharded_launches"] = p18["nccl_launches"][k]
+            rows[-1]["sharded_train_launches"] = \
+                p18["nccl_step_launches"][k]
         for isec in ("bvh", "naive"):
             if p17[isec]["render_launches"].get(k):
                 # the 64x48 render with the world triangles met by the
@@ -2799,7 +3095,8 @@ def main(argv=None):
                            whitted_paths_per_s=wh_rate,
                            bpt_wave=[bw_s, bbusy, bnk, host_ops],
                            bpt_wave_launches=bw_launches,
-                           bpt_wave_kernels=per_k, phase17=p17),
+                           bpt_wave_kernels=per_k, phase17=p17,
+                           phase18=p18),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -678,3 +678,92 @@ def test_composed_train_step_kernels_match_plain(card):
         assert torch.isfinite(g).all() and torch.isfinite(g_p).all()
         assert ((g - g_p).norm() / g_p.norm().clamp(min=1e-30)).item() \
             <= GRAD_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_two_sweeps_run_k9(card, case, monkeypatch):
+    """slots.bsdf_evaluate / bsdf_pdf on CUDA tensors launch K9 (one
+    launch each) and agree with the same sweeps over the plain fused
+    sweep: elements within RTOL / ATOL, kinds equal."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    b, wo, _, wi = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(
+        N, 12, **SLOT_CASES[case]), card)
+    before = ops.SLOT_EVAL_PDF.launches
+    got = sl.bsdf_evaluate(b, wo, wi) + (sl.bsdf_pdf(b, wo, wi),)
+    assert ops.SLOT_EVAL_PDF.launches == before + 2
+    monkeypatch.setattr(ssh, "bsdf_eval_pdf", sl.bsdf_eval_pdf)
+    ref = sl.bsdf_evaluate(b, wo, wi) + (sl.bsdf_pdf(b, wo, wi),)
+    assert ops.SLOT_EVAL_PDF.launches == before + 2
+    assert torch.equal(got[1], ref[1])
+    for g, r in ((got[0], ref[0]), (got[2], ref[2])):
+        close = torch.isclose(g, r, rtol=RTOL, atol=ATOL)
+        assert close.float().mean().item() >= ELEM_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_rho_runs_k8(card, case, monkeypatch):
+    """slots.rho_hd / rho_hh on CUDA tensors launch K8 once a sample and
+    agree with the same estimators over the plain sample sweep."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    b, wo, _, _ = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(
+        N, 13, **SLOT_CASES[case]), card)
+    rng = np.random.default_rng(14)
+    s, s1, s2 = (torch.tensor(rng.random((4, N, 2)).astype(np.float32),
+                              device=card) for _ in range(3))
+    before = ops.SLOT_SAMPLE.launches
+    got = (sl.rho_hd(b, wo, s), sl.rho_hh(b, s1, s2))
+    assert ops.SLOT_SAMPLE.launches == before + 8
+    monkeypatch.setattr(ssh, "bsdf_sample", sl.bsdf_sample)
+    ref = (sl.rho_hd(b, wo, s), sl.rho_hh(b, s1, s2))
+    assert ops.SLOT_SAMPLE.launches == before + 8
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        close = torch.isclose(g, r, rtol=RTOL, atol=ATOL)
+        assert close.float().mean().item() >= ELEM_GATE
+
+
+@pytest.mark.gpu
+def test_sharded_paths_one_rank_on_the_card(card, cornell, tmp_path):
+    """render_sharded and sharded_train_step_fn in a one-rank NCCL group
+    against the one-device render and train_step_fn (K1-K4).  The steps
+    run under PyTorch's deterministic algorithms: the scatter splat's
+    index_add_ otherwise sums with atomics, in another order each run
+    (one-device steps differ by ~2e-5 from each other, chip_smoke.py
+    phase 18)."""
+    import torch.distributed as dist
+    from arendur_tpu_torch.parallel import distributed as pdist
+    from arendur_tpu_torch.parallel import mesh
+    ds, camera, film, config = cornell
+    m = pdist.init_distributed(num_processes=1, process_id=0,
+                               init_method="file://" + str(tmp_path / "rdv"),
+                               device=card, timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl" and m.size == 1
+        img = mesh.render_sharded(ds, camera, film, config, m)
+        ref = integ.render(ds, camera, film, config)
+        torch.testing.assert_close(img, ref, rtol=1e-4, atol=1e-5)
+        w, h = film.resolution
+        p = {k: torch.tensor(getattr(ds.materials, k), device=card)
+             for k in ("kd", "ks", "roughness")}
+        target = torch.full((w * h, 3), 0.2, device=card)
+        idx = torch.arange(w * h * config.spp, device=card)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a, la = mesh.sharded_train_step_fn(
+                ds, camera, film, config, m, lr=GRAD_LR)(dict(p), target,
+                                                         idx)
+            b, lb = mesh.train_step_fn(ds, camera, film, config,
+                                       lr=GRAD_LR)(dict(p), target, idx)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert abs(la.item() - lb.item()) <= 1e-5 * abs(lb.item())
+        for k in p:
+            g, g1 = (p[k] - a[k]) / GRAD_LR, (p[k] - b[k]) / GRAD_LR
+            assert ((g - g1).norm() / g1.norm().clamp(min=1e-30)).item() \
+                <= 1e-5
+    finally:
+        dist.destroy_process_group()

@@ -18,7 +18,17 @@ made from, which the tests check).
   (the XLA composition, that test's reference);
 * ``inst_etex``: a textured scene with an emission-textured sphere light
   and an instanced glass mesh (the composed bounce on instanced hits),
-  rendered at 16x12, 4 spp, depth 4 (tests/test_torch_inst_curvature.py).
+  rendered at 16x12, 4 spp, depth 4 (tests/test_torch_inst_curvature.py);
+* ``par_render_<scene>``: arendur_tpu.parallel.mesh.render_sharded on a
+  2-device CPU mesh and the single-process integrator.render of the same
+  frame, for tests/test_parallel.py's tiny scene (8x8, 8 spp, depth 2:
+  parallel/distributed.py _tiny_setup) and cb.json (32x24, 4 spp, depth
+  3) (tests/test_torch_parallel.py);
+* ``par_train_<scene>``: one sharded_train_step_fn step on a 2-device
+  CPU mesh, the loss and the parameter gradients read back from the new
+  parameters: the tiny scene (8x8, 4 spp, depth 1, a bare kd, lr 1,
+  target 0) and cb.json (32x24, 4 spp, depth 3, kd / ks / roughness,
+  lr 1e3, target uniform(0, 0.5) seed 0).
 """
 
 import dataclasses
@@ -37,6 +47,15 @@ TRAIN_SCENES = {"cb_etex": (CB_ETEX, "cluster"), "cb_bvh": (CB, "bvh")}
 SOBOL_SPP, SOBOL_DIMS = 16, 80
 INST_RES, INST_SPP, INST_DEPTH = (16, 12), 4, 4
 PARAM_KEYS = ("kd", "ks", "roughness")
+# the sharded oracles: a 2-device mesh; per scene the render's and the
+# train step's resolution, spp, stratification grid and depth
+PAR_DEVICES = 2
+PAR_RENDER = {"tiny": dict(res=(8, 8), spp=8, grid=(4, 2), depth=2),
+              "cb": dict(res=(32, 24), spp=4, grid=(2, 2), depth=3)}
+PAR_TRAIN = {"tiny": dict(res=(8, 8), spp=4, grid=(2, 2), depth=1, lr=1.0,
+                          target="zeros", keys=("kd",)),
+             "cb": dict(res=(32, 24), spp=4, grid=(2, 2), depth=3, lr=1e3,
+                        target="uniform(0, 0.5) seed 0", keys=PARAM_KEYS)}
 
 
 def path(name):
@@ -91,10 +110,40 @@ def inst_inputs():
                 depth=INST_DEPTH, seed=0)
 
 
-def train_target():
-    w, h = TRAIN_RES
+def train_target(res=TRAIN_RES, kind="uniform(0, 0.5) seed 0"):
+    w, h = res
+    if kind == "zeros":
+        return np.zeros((w * h, 3), np.float32)
     return np.random.default_rng(0).uniform(
         0.0, 0.5, (w * h, 3)).astype(np.float32)
+
+
+def par_render_inputs(name):
+    return dict(scene=name, devices=PAR_DEVICES, seed=0, **PAR_RENDER[name])
+
+
+def par_train_inputs(name):
+    return dict(scene=name, devices=PAR_DEVICES, **PAR_TRAIN[name])
+
+
+def par_setup(name, what, sc_mod, parse_scene, tiny_setup):
+    """(scene, camera, film_cfg, config) of a sharded oracle for either
+    package: `what` "render" or "train" picks PAR_RENDER / PAR_TRAIN;
+    sc_mod, parse_scene and tiny_setup are that package's scene module,
+    io.scenedesc.parse_scene and parallel.distributed._tiny_setup (the
+    tiny scene of tests/test_parallel.py with its camera and film).  One
+    wave holds the whole frame."""
+    p = (PAR_RENDER if what == "render" else PAR_TRAIN)[name]
+    w, h = p["res"]
+    if name == "tiny":
+        scene, camera, film_cfg, config = tiny_setup()
+    else:
+        scene, camera, film_cfg, config, _ = parse_scene(
+            CB, spp_override=p["spp"], resolution_override=p["res"])
+    config = dataclasses.replace(
+        config, max_depth=p["depth"], spp=p["spp"], sample_dx=p["grid"][0],
+        sample_dy=p["grid"][1], wave_size=w * h * p["spp"])
+    return scene, camera, film_cfg, config
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +335,50 @@ def jax_train_step(name):
                    for k in PARAM_KEYS})
 
 
+def _jax_par(name, what):
+    import jax
+    from jax.sharding import Mesh
+    from arendur_tpu import scene as jsc
+    from arendur_tpu.io import scenedesc as jsd
+    from arendur_tpu.parallel import distributed as jdist
+    from arendur_tpu.parallel import mesh as jmesh
+    mesh = Mesh(np.array(jax.devices()[:PAR_DEVICES]), (jmesh.AXIS,))
+    return par_setup(name, what, jsc, jsd.parse_scene,
+                     jdist._tiny_setup), mesh
+
+
+def jax_par_render(name):
+    from arendur_tpu.parallel import mesh as jmesh
+    from arendur_tpu.render import integrator as jint
+    (scene, camera, film_cfg, config), mesh = _jax_par(name, "render")
+    return dict(
+        sharded=np.asarray(jmesh.render_sharded(scene, camera, film_cfg,
+                                                config, mesh)),
+        single=np.asarray(jint.render(scene, camera, film_cfg, config)))
+
+
+def jax_par_train(name):
+    import jax.numpy as jnp
+    from arendur_tpu.parallel import mesh as jmesh
+    (scene, camera, film_cfg, config), mesh = _jax_par(name, "train")
+    p = PAR_TRAIN[name]
+    w, h = p["res"]
+    n = w * h * p["spp"]
+    params = {k: np.asarray(getattr(scene.materials, k)) for k in p["keys"]}
+    step = jmesh.sharded_train_step_fn(scene, camera, film_cfg, config, mesh,
+                                       lr=p["lr"])
+    arg = {k: jnp.asarray(v) for k, v in params.items()}
+    if p["keys"] == ("kd",):
+        arg = arg["kd"]           # the bare [M,3] form
+    new, loss = step(arg, jnp.asarray(train_target(p["res"], p["target"])),
+                     jnp.arange(n, dtype=jnp.int32))
+    if p["keys"] == ("kd",):
+        new = {"kd": new}
+    return dict(loss=np.asarray(loss),
+                **{k: (params[k] - np.asarray(new[k])) / p["lr"]
+                   for k in p["keys"]})
+
+
 def jax_texel_grad():
     import jax
     import jax.numpy as jnp
@@ -334,3 +427,8 @@ ORACLES = {
     "texel_grad": (texel_inputs, jax_texel_grad),
     "inst_etex": (inst_inputs, jax_inst_etex),
 }
+for _name in PAR_RENDER:
+    ORACLES["par_render_" + _name] = (
+        lambda n=_name: par_render_inputs(n), lambda n=_name: jax_par_render(n))
+    ORACLES["par_train_" + _name] = (
+        lambda n=_name: par_train_inputs(n), lambda n=_name: jax_par_train(n))

@@ -5,7 +5,8 @@ compile for longer than a test file may take.
     JAX_PLATFORMS=cpu python tools/make_torch_oracles.py [name ...]
 
 With no name, every oracle (tests/torch_oracles.py ORACLES) is made.
-Runs the JAX package on the CPU.
+Runs the JAX package on the CPU, with two virtual CPU devices for the
+sharded oracles (par_*) unless XLA_FLAGS sets a device count.
 """
 
 import os
@@ -18,6 +19,10 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 
 def main(argv):
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=2").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
     import torch_oracles as orc
