@@ -133,6 +133,14 @@ def load() -> _Kernels:
             lib.arendur_any_hit.argtypes = [P, P, P, P, P, P, P, I, I, I, I,
                                             I, I, P, P]
             lib.arendur_any_hit.restype = I
+            lib.arendur_closest_hit_instanced.argtypes = [
+                P, P, P, P, P, P, P, I, I, I, I, P, P, P, P]
+            lib.arendur_closest_hit_instanced.restype = I
+            lib.arendur_any_hit_instanced.argtypes = [
+                P, P, P, P, P, P, P, P, I, I, I, I, P, P]
+            lib.arendur_any_hit_instanced.restype = I
+            lib.arendur_isect_inst_occupancy.argtypes = [I, I, P]
+            lib.arendur_isect_inst_occupancy.restype = I
             lib.arendur_max_spheres.argtypes = []
             lib.arendur_max_spheres.restype = I
             lib.arendur_isect_encodes.argtypes = []

@@ -589,7 +589,356 @@ int occupancy(int ns) {
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
+// ---------------------------------------------------------------------------
+// The instanced entries: N world rays against one instanced mesh.
+//
+// They replace the Pallas kernels with `period` (pallas_intersect.py:
+// 161-166, 213-215) and the JAX package's [I * N]-lane batch around them
+// (arendur_tpu/scene.py:780-792, 945-966, 1112-1121: every ray taken
+// into all I frames by a batched product, one lane per (instance, ray)
+// pair, then an argmin over the instances).  Here a block holds 32 world
+// rays, one a thread, shared by its W warps as in cluster_kernel, and
+// walks the instances in ascending order inside the kernel; the ray's
+// best (t, slot, instance) stays in registers across them, so nothing of
+// size [I * N] is written.
+//  - Whole instances are culled: an instance table row (intersect.cuh
+//    ITAB_COLS) holds w2o's 12 affine floats and the instance's padded
+//    world box; each ray slab-tests the box against its running bound
+//    (the any hit: tmax, while not blocked) and the warp votes.  An
+//    instance no ray of the block wants is neither transformed, staged
+//    nor swept.  The first ITAB_STAGED rows are staged in shared memory
+//    beside the ring, the rest are read from global memory.
+//  - The frame transform happens in registers: a wanted instance's
+//    local o, d come from the row by isect::to_instance (scene.affine's
+//    products and sums, each rounded once), then isect::ray_setup.
+//  - The cluster sweep is cluster_kernel's: the ring's items are
+//    (instance, cluster, chunk) in ascending order over the one copy of
+//    the mesh's weights (one descriptor for all instances; the chunks
+//    stay L2-resident after the first instance), the stages' parity and
+//    tags carrying on from one instance to the next.  Warp 0 produces:
+//    the next item is the next cluster some ray wants of the next
+//    instance some ray wants, at warp 0's bounds then (a superset of
+//    what the warps want when they reach it, as in cluster_kernel).
+//  - The closest hit keeps the least t, the lowest slot within an
+//    instance (merge_best per cluster swept) and the lowest instance at
+//    equal t (a later instance replaces the best only when strictly
+//    closer: torch.argmin's first minimum over the old route's [I, N]).
+//  - The any hit starts from the world's blocked flags (those rays cost
+//    nothing), a ray leaves the walk at the first instance that blocks
+//    it, and a warp leaves a cluster once every ray that wanted it is
+//    blocked.
+// Every ray's result is the per-ray loop's (intersect_host.cpp
+// run_inst): the instances in order, each admitted by its world box at
+// the ray's running bound, then cluster_kernel's loop on the local ray.
+// The box is padded (scene.instance_table), so the cull drops no hit
+// and the result is also the plain version's, which culls nothing.
+// Bound: the f32 operations of the (ray, instance, triangle) triples
+// the rays need (128 each), or the rays' bytes where few are needed.
+// ---------------------------------------------------------------------------
+
+using isect::ITAB_COLS;
+// the instance rows a block stages in shared memory (20 KB: three
+// blocks an SM still fit); the rows past them are read from global
+// memory
+constexpr int ITAB_STAGED = 256;
+
+int inst_smem_bytes(int ni) {
+  const int staged = ni < ITAB_STAGED ? ni : ITAB_STAGED;
+  return FIXED_BYTES + RING_BYTES + staged * ITAB_COLS * (int)sizeof(float);
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(32 * W)
+    instanced_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const float* __restrict__ o, const float* __restrict__ d,
+                     const float* __restrict__ bound,
+                     const float* __restrict__ cbox,
+                     const float* __restrict__ itab,
+                     const int* __restrict__ n_alive_p,
+                     const unsigned char* __restrict__ blocked_in, int n,
+                     int C, int K, int I, float* __restrict__ t_out,
+                     int* __restrict__ i_out, int* __restrict__ inst_out,
+                     unsigned char* __restrict__ b_out) {
+  static_assert(R == 1, "one world ray a thread");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  int* tags = reinterpret_cast<int*>(empty + STAGES);
+  float* parts = reinterpret_cast<float*>(tags + STAGES);
+  int* flags = reinterpret_cast<int*>(parts + 2 * PART_FLOATS);
+  float* ring = reinterpret_cast<float*>(smem + FIXED_BYTES);
+  float* tab = ring + STAGES * STAGE_FLOATS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long i = (long)blockIdx.x * 32 + lane;
+  const bool live = i < n && i < *n_alive_p;
+  if (!__any_sync(FULL_MASK, live)) {
+    // a dead tile: misses, nothing loaded or staged
+    if (warp != 0 || i >= n) return;
+    if (ANY) {
+      b_out[i] = 0;
+    } else {
+      t_out[i] = bound[i];
+      i_out[i] = -1;
+      inst_out[i] = 0;
+    }
+    return;
+  }
+  float ow[3] = {0.0f, 0.0f, 0.0f}, dw[3] = {0.0f, 0.0f, 0.0f};
+  float tm[R] = {0.0f};
+  if (i < n) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      ow[a] = o[3 * i + a];
+      dw[a] = d[3 * i + a];
+    }
+    tm[0] = bound[i];
+  }
+  float best[R] = {tm[0]};
+  int bslot[R] = {-1};
+  int binst = 0;
+  bool blocked[R] = {ANY && live && blocked_in && blocked_in[i] != 0};
+  const int staged = I < ITAB_STAGED ? I : ITAB_STAGED;
+  for (int k = threadIdx.x; k < staged * ITAB_COLS / 4; k += 32 * W)
+    reinterpret_cast<float4*>(tab)[k] =
+        __ldg(reinterpret_cast<const float4*>(itab) + k);
+  auto row = [&](int j) -> const float* {
+    return j < ITAB_STAGED ? tab + j * ITAB_COLS : itab + (long)j * ITAB_COLS;
+  };
+  if (warp == 0) flags[lane] = blocked[0];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, W);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // The ray's running bound, its blocked flag as any warp has set it,
+  // and whether its world-box test admits instance j
+  auto bnd = [&]() { return ANY ? tm[0] : best[0]; };
+  auto refresh = [&]() {
+    if (ANY) blocked[0] |= *(volatile int*)(flags + lane) != 0;
+  };
+  auto admits = [&](int j) {
+    refresh();
+    return live && !(ANY && blocked[0]) &&
+           isect::slab_hit(ow, dw, row(j) + isect::ITAB_BOX, bnd());
+  };
+  // The producer (warp 0): instance pj (the rays' local o / d in pol /
+  // pdl, pin its admission), cluster pc, chunk pch, item pi.
+  const int per = K / CHUNK;
+  int pj = -1, pc = C - 1, pch = 0, pi = 0;
+  float pol[3] = {0.0f, 0.0f, 0.0f}, pdl[3] = {0.0f, 0.0f, 0.0f};
+  bool pin = false, pdone = false;
+  // move (pj, pc) to the next pair some ray of the block wants; pj = I
+  // past the last
+  auto next_wanted = [&]() {
+    for (;;) {
+      for (++pc; pc < C; ++pc) {
+        refresh();
+        const bool w = pin && !(ANY && blocked[0]) &&
+                       isect::slab_hit(pol, pdl, cbox + 8 * pc, bnd());
+        if (__any_sync(FULL_MASK, w)) return;
+      }
+      for (++pj; pj < I; ++pj) {
+        pin = admits(pj);
+        if (__any_sync(FULL_MASK, pin)) break;
+      }
+      if (pj >= I) return;
+      isect::to_instance(row(pj), ow, dw, pol, pdl);
+      pc = -1;
+    }
+  };
+  auto produce = [&]() {
+    const int s = pi % STAGES;
+    if (pi >= STAGES) mbar_wait(empty + s, ((pi / STAGES) - 1) & 1);
+    ++pi;
+    if (pj >= I) {
+      if (lane == 0) {
+        tags[s] = -1;
+        mbar_arrive(full + s);
+      }
+      pdone = true;
+      return;
+    }
+    if (lane == 0) {
+      tags[s] = (pj * C + pc) * per + pch;
+      mbar_expect(full + s, STAGE_BYTES);
+      tile_load(ring + s * STAGE_FLOATS, &wmap, pch * CHUNK, pc * 64,
+                full + s);
+    }
+    if (++pch == per) {
+      pch = 0;
+      next_wanted();
+    }
+  };
+  if (warp == 0) {
+    next_wanted();
+    while (pi < STAGES - 1 && !pdone) produce();
+  }
+
+  constexpr int GROUPS = CHUNK / GROUP;
+  const int g0 = warp * (GROUPS / W) * GROUP;
+  isect::Ray ray[R];
+  bool want[R] = {false};
+  bool in = false, warp_wants = false, swept = false;
+  int cj = -1, part = 0;
+  float before = 0.0f;
+  for (int item = 0;; ++item) {
+    if (warp == 0 && !pdone) produce();
+    const int s = item % STAGES;
+    mbar_wait(full + s, (item / STAGES) & 1);
+    const int tag = tags[s];
+    if (tag < 0) break;
+    const int ch = tag % per, jc = tag / per;
+    const int c = jc % C, j = jc / C;
+    if (ch == 0) {
+      if (j != cj) {
+        // the first cluster staged of instance j: the local ray, and
+        // whether the ray's world-box test admits j (a closest hit's
+        // bounds and so this vote are the same in every warp)
+        cj = j;
+        in = admits(j);
+        float ol[3], dl[3];
+        isect::to_instance(row(j), ow, dw, ol, dl);
+        isect::ray_setup(ol, dl, &ray[0]);
+      }
+      before = best[0];
+      refresh();
+      want[0] = in && !(ANY && blocked[0]) &&
+                isect::slab_hit(ray[0], cbox + 8 * c, bnd());
+      swept = warp_wants = __any_sync(FULL_MASK, want[0]);
+    } else if (ANY && warp_wants) {
+      // leave once every ray that wants the cluster is blocked
+      refresh();
+      warp_wants = __any_sync(FULL_MASK, want[0] && !blocked[0]);
+    }
+    if (warp_wants) {
+      const float* stage = ring + s * STAGE_FLOATS;
+      const int slot0 = c * K + ch * CHUNK;
+#pragma unroll 1
+      for (int g = g0; g < g0 + (GROUPS / W) * GROUP; g += GROUP) {
+        float dq[4][GROUP][R];
+        isect::dets4<R>(ray, stage + g, 4 * CHUNK, CHUNK, dq);
+        isect::accept4<ANY, R>(dq, ray, want, tm, slot0 + g, best, bslot,
+                               blocked);
+      }
+      if (ANY && blocked[0]) flags[lane] = 1;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    if (!ANY && swept && ch == per - 1) {
+      merge_best(best, bslot, parts + part * PART_FLOATS, warp, lane);
+      part ^= 1;
+      // a hit in this cluster is strictly closer than the best before it
+      if (best[0] < before) binst = j;
+    }
+  }
+  if (ANY) {
+    __syncthreads();
+    blocked[0] = flags[lane] != 0;
+  }
+  if (warp != 0 || i >= n) return;
+  if (ANY) {
+    b_out[i] = (live && blocked[0]) ? 1 : 0;
+  } else {
+    t_out[i] = bslot[0] == -1 ? tm[0] : best[0];
+    i_out[i] = bslot[0];
+    inst_out[i] = bslot[0] == -1 ? 0 : binst;
+  }
+}
+
+template <bool ANY>
+cudaError_t allow_inst_smem(int smem) {
+  static int opted = 48 * 1024;  // allowed so far
+  if (smem <= opted) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      instanced_kernel<ANY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e == cudaSuccess) opted = smem;
+  return e;
+}
+
+struct InstArgs {
+  CUtensorMap wmap;
+  const float *o, *d, *bound, *w, *cbox, *itab;
+  const int* n_alive;
+  const unsigned char* blocked_in;
+  int n, C, K, I;
+  float* t_out;
+  int *i_out, *inst_out;
+  unsigned char* b_out;
+  void* stream;
+};
+
+template <bool ANY>
+int launch_inst(InstArgs a) {
+  if (a.n <= 0) return 0;
+  // the tags (instance, cluster, chunk) must fit an int; the descriptor
+  // and the table's float4 copies need 16-byte aligned tensors
+  if (a.K <= 0 || a.K % CHUNK != 0 || a.C <= 0 || a.I < 0 ||
+      (long long)a.I * a.C * (a.K / CHUNK) > INT_MAX ||
+      ((uintptr_t)a.w & 15) != 0 || ((uintptr_t)a.itab & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = weight_map(a.w, a.C, a.K, &a.wmap);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = inst_smem_bytes(a.I);
+  e = allow_inst_smem<ANY>(smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((a.n + 31L) / 32L);
+  instanced_kernel<ANY><<<grid, 32 * W, smem, (cudaStream_t)a.stream>>>(
+      a.wmap, a.o, a.d, a.bound, a.cbox, a.itab, a.n_alive, a.blocked_in,
+      a.n, a.C, a.K, a.I, a.t_out, a.i_out, a.inst_out, a.b_out);
+  return (int)cudaGetLastError();
+}
+
+template <bool ANY>
+int inst_occupancy(int ni) {
+  const int smem = inst_smem_bytes(ni);
+  int blocks = 0;
+  cudaError_t e = allow_inst_smem<ANY>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, instanced_kernel<ANY>, 32 * W, smem);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
 }  // namespace
+
+// The instanced entries; return a cudaError_t code (0 = launched).  N
+// world rays, one instanced mesh: its cluster tables (C >= 1 clusters
+// of K) and instance table itab [I, ITAB_COLS].  The closest hit writes
+// t_out (the bound on a miss), slot_out (the local slot, -1 on a miss)
+// and inst_out (0 on a miss); the any hit writes blocked_out (1 where a
+// triangle of some instance lies within tmax or blocked_in, which may
+// be null, is set; 0 past n_alive).
+extern "C" int arendur_closest_hit_instanced(
+    const float* o, const float* d, const float* bound, const float* w,
+    const float* cbox, const float* itab, const int* n_alive, int n, int C,
+    int K, int I, float* t_out, int* slot_out, int* inst_out, void* stream) {
+  return launch_inst<false>(InstArgs{{}, o, d, bound, w, cbox, itab,
+                                     n_alive, nullptr, n, C, K, I, t_out,
+                                     slot_out, inst_out, nullptr, stream});
+}
+
+extern "C" int arendur_any_hit_instanced(
+    const float* o, const float* d, const float* tmax, const float* w,
+    const float* cbox, const float* itab, const int* n_alive,
+    const unsigned char* blocked_in, int n, int C, int K, int I,
+    unsigned char* blocked_out, void* stream) {
+  return launch_inst<true>(InstArgs{{}, o, d, tmax, w, cbox, itab, n_alive,
+                                    blocked_in, n, C, K, I, nullptr, nullptr,
+                                    nullptr, blocked_out, stream});
+}
+
+// What an instanced launch over ni instances holds: the dynamic shared
+// memory of a block (into *smem) and the blocks an SM holds at once
+// (negative: a cudaError).
+extern "C" int arendur_isect_inst_occupancy(int any, int ni, int* smem) {
+  *smem = inst_smem_bytes(ni);
+  return any ? inst_occupancy<true>(ni) : inst_occupancy<false>(ni);
+}
 
 // C interface; returns a cudaError_t code (0 = launched).  sph [ns, 24]
 // may be null with ns = 0 (no spheres).

@@ -46,13 +46,14 @@ IHD void ray_setup(const float* o, const float* d, Ray* r) {
   r->teps = 1e-5f * (1.0f + m);
 }
 
-// ray segment may meet the box within (0, bound); box = cbox row
-// (min xyz, max xyz, pad), conservative (1 + 2 gamma3) widening
-IHD bool slab_hit(const Ray& r, const float* box, float bound) {
+// ray segment o + t d may meet the box within (0, bound); box = min
+// xyz, max xyz; conservative (1 + 2 gamma3) widening
+IHD bool slab_hit(const float* o, const float* d, const float* box,
+                  float bound) {
   float tn = -INFINITY, tf = INFINITY;
   for (int ax = 0; ax < 3; ++ax) {
-    float oa = r.F[ax];
-    float da = r.F[3 + ax];
+    float oa = o[ax];
+    float da = d[ax];
     float inv = fabsf(da) < 1e-30f ? (da < 0.0f ? -1e30f : 1e30f)
                                    : 1.0f / da;
     float t0 = (box[ax] - oa) * inv;
@@ -64,6 +65,50 @@ IHD bool slab_hit(const Ray& r, const float* box, float bound) {
   }
   tf = tf * SLAB_WIDEN;
   return (tn <= tf) && (tf > 0.0f) && (tn < bound);
+}
+
+// the ray's test against a cbox row (min xyz, max xyz, pad)
+IHD bool slab_hit(const Ray& r, const float* box, float bound) {
+  return slab_hit(r.F, r.F + 3, box, bound);
+}
+
+// One row of an instanced mesh's instance table (scene.py
+// instance_table): the rows 0-3 of w2o's x, y and z columns (12
+// floats: the linear part, then the translation), the instance's padded
+// world box (min xyz, max xyz), two zeros.
+constexpr int ITAB_COLS = 20;
+constexpr int ITAB_BOX = 12;
+
+// one product / sum rounded once, never contracted into a multiply-add
+IHD float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+IHD float add_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+
+// A world ray (o, d) in an instance's frame, m its table row: x m[k] +
+// y m[3 + k] + z m[6 + k], then + m[9 + k] for the origin, in
+// scene.affine's order and rounding, so the local ray equals the plain
+// version's to the bit.
+IHD void to_instance(const float* m, const float* o, const float* d,
+                     float* ol, float* dl) {
+  for (int k = 0; k < 3; ++k) {
+    ol[k] = add_rn(add_rn(add_rn(mul_rn(o[0], m[k]), mul_rn(o[1], m[3 + k])),
+                          mul_rn(o[2], m[6 + k])),
+                   m[9 + k]);
+    dl[k] = add_rn(add_rn(mul_rn(d[0], m[k]), mul_rn(d[1], m[3 + k])),
+                   mul_rn(d[2], m[6 + k]));
+  }
 }
 
 // Epsilon accept from the four determinants (pallas_intersect._accept).

@@ -17,6 +17,7 @@ import torch
 
 from arendur_tpu_torch.kernels import build
 from arendur_tpu_torch.render import cbounce as cb
+from arendur_tpu_torch.shapes import cluster_intersect as ci
 from arendur_tpu_torch.shapes import sphere as sph
 
 
@@ -38,8 +39,9 @@ ANY_HIT = Kernel("any_hit")
 # ANY_HIT's launches
 CLOSEST_HIT_SPHERES = Kernel("closest_hit_spheres")
 ANY_HIT_SPHERES = Kernel("any_hit_spheres")
-# K1 / K2 launches over an instanced mesh's [I * N] lanes (period N > 0);
-# each is also one of CLOSEST_HIT's / ANY_HIT's launches
+# the instanced entries of K1 / K2 (N world rays against one instanced
+# mesh, kernels/intersect.cu instanced_kernel); the earlier [I * N]-lane
+# launches with period N count as CLOSEST_HIT's / ANY_HIT's
 CLOSEST_HIT_INSTANCED = Kernel("closest_hit_instanced")
 ANY_HIT_INSTANCED = Kernel("any_hit_instanced")
 BOUNCE_SHADE = Kernel("bounce_shade")
@@ -162,8 +164,6 @@ def closest_hit(w_clusters, cbox, o, d, tmax, n_alive=None,
     CLOSEST_HIT.launched()
     if ns:
         CLOSEST_HIT_SPHERES.launched()
-    if period:
-        CLOSEST_HIT_INSTANCED.launched()
     return t, slot
 
 
@@ -183,9 +183,77 @@ def any_hit(w_clusters, cbox, o, d, tmax, n_alive=None, period: int = 0,
     ANY_HIT.launched()
     if ns:
         ANY_HIT_SPHERES.launched()
-    if period:
-        ANY_HIT_INSTANCED.launched()
     return blocked != 0
+
+
+def _instanced_args(w_clusters, cbox, itab, o, d, bound, n_alive):
+    n, ni = o.shape[0], itab.shape[0]
+    c, f16, k4 = w_clusters.shape
+    if f16 != 16 or k4 % 4 or c < 1:
+        raise ValueError("w_clusters must be [C, 16, 4K] with C >= 1")
+    _check(w_clusters, "w_clusters")
+    _check(itab, "itab", shape=(ni, ci.ITAB_COLS))
+    if w_clusters.data_ptr() % 16 or itab.data_ptr() % 16:
+        raise ValueError("w_clusters and itab must be 16-byte aligned (the "
+                         "kernels stage them by bulk and float4 copies)")
+    _check(cbox, "cbox", shape=(c, 8))
+    _check(o, "o", shape=(n, 3))
+    _check(d, "d", shape=(n, 3))
+    _check(bound, "bound / tmax", shape=(n,))
+    return n, c, k4 // 4, ni, _n_alive_tensor(n_alive, n, o.device)
+
+
+def closest_hit_instanced(w_clusters, cbox, itab, o, d, bound,
+                          n_alive=None):
+    """The instanced K1: N world rays against one instanced mesh's
+    cluster tables and instance table itab [I, 20], each ray's nearest
+    hit over the instances within bound [N]: (t [N] f32, the bound on a
+    miss; local slot [N] int32, -1 on a miss; instance [N] int32, 0 on a
+    miss, the lowest at equal t)."""
+    lib = build.load()
+    n, c, k, ni, na = _instanced_args(w_clusters, cbox, itab, o, d, bound,
+                                      n_alive)
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    slot = torch.empty(n, dtype=torch.int32, device=o.device)
+    inst = torch.empty(n, dtype=torch.int32, device=o.device)
+    code = lib.arendur_closest_hit_instanced(
+        o.data_ptr(), d.data_ptr(), bound.data_ptr(), w_clusters.data_ptr(),
+        cbox.data_ptr(), itab.data_ptr(), na.data_ptr(), n, c, k, ni,
+        t.data_ptr(), slot.data_ptr(), inst.data_ptr(), _stream(o))
+    _raise_on(code, "closest_hit_instanced")
+    CLOSEST_HIT_INSTANCED.launched()
+    return t, slot, inst
+
+
+def any_hit_instanced(w_clusters, cbox, itab, o, d, tmax, n_alive=None,
+                      blocked=None):
+    """The instanced K2: blocked [N] bool, an instance's triangle within
+    tmax ORed with the world's flags `blocked` [N] bool (a ray blocked
+    there tests nothing); rays past n_alive are not blocked."""
+    lib = build.load()
+    n, c, k, ni, na = _instanced_args(w_clusters, cbox, itab, o, d, tmax,
+                                      n_alive)
+    if blocked is not None:
+        _check(blocked, "blocked", dtype=torch.bool, shape=(n,))
+    out = torch.empty(n, dtype=torch.bool, device=o.device)
+    code = lib.arendur_any_hit_instanced(
+        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), w_clusters.data_ptr(),
+        cbox.data_ptr(), itab.data_ptr(), na.data_ptr(),
+        None if blocked is None else blocked.data_ptr(), n, c, k, ni,
+        out.data_ptr(), _stream(o))
+    _raise_on(code, "any_hit_instanced")
+    ANY_HIT_INSTANCED.launched()
+    return out
+
+
+def isect_inst_occupancy(any_hit: bool, ni: int):
+    """What an instanced K1 (any_hit False) or K2 launch over ni
+    instances holds: (dynamic shared memory of a block, blocks an SM
+    holds at once; negative: a cudaError)."""
+    smem = ctypes.c_int()
+    blocks = build.load().arendur_isect_inst_occupancy(
+        int(any_hit), ni, ctypes.byref(smem))
+    return smem.value, blocks
 
 
 _LCOLS = ("ltype", "emission", "pos", "aux", "params", "tri_v0", "tri_v1",

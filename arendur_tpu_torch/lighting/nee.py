@@ -69,7 +69,7 @@ def direct_light_contrib(ls: dict, f_raw, spdf, ns):
 
 
 def _occlusion_query(scene: sc.DeviceScene, hit: sc.Hit, pfrom,
-                     n_alive=None, any_hit=None):
+                     n_alive=None, any_hit=None, any_hit_instanced=None):
     """The shadow ray from the shading point to the light sample, its
     surface end offset and its far end shrunk (twin:
     nee._occlusion_query; ref: lighting/mod.rs:125-133)."""
@@ -80,11 +80,13 @@ def _occlusion_query(scene: sc.DeviceScene, hit: sc.Hit, pfrom,
     seg = pfrom - o
     dist = torch.sqrt(torch.clamp((seg * seg).sum(-1), min=1e-20))
     return sc.occluded(scene, o, seg / dist[:, None], dist * (1.0 - 1e-3),
-                       n_alive, any_hit=any_hit)
+                       n_alive, any_hit=any_hit,
+                       any_hit_instanced=any_hit_instanced)
 
 
 def light_branch(scene: sc.DeviceScene, hit: sc.Hit, bsdf, wo, lidx, ulight,
-                 n_alive=None, textures=None, eval_pdf=None, any_hit=None):
+                 n_alive=None, textures=None, eval_pdf=None, any_hit=None,
+                 any_hit_instanced=None):
     """The light-sampling branch of evaluate_direct (twin:
     nee.light_branch; ref: scene.rs:92-126): radiance [N,3], not yet
     divided by the selection pdf.  eval_pdf: the BSDF's fused evaluate
@@ -96,7 +98,8 @@ def light_branch(scene: sc.DeviceScene, hit: sc.Hit, bsdf, wo, lidx, ulight,
             scene, lidx, ls["uv"], textures)
     f_raw, spdf = (eval_pdf or ssh.bsdf_eval_pdf)(bsdf, wo, ls["wi"], ALL)
     contrib, _ = direct_light_contrib(ls, f_raw, spdf, bsdf.ns)
-    blocked = _occlusion_query(scene, hit, ls["pfrom"], n_alive, any_hit)
+    blocked = _occlusion_query(scene, hit, ls["pfrom"], n_alive, any_hit,
+                               any_hit_instanced)
     return torch.where(blocked[:, None], 0.0, contrib)
 
 
@@ -113,10 +116,11 @@ def path_mis_weight(scene: sc.DeviceScene, lidx, selpdf, pos, wi2, pdf2,
 
 def uniform_sample_one_light(scene: sc.DeviceScene, hit: sc.Hit, bsdf, wo,
                              u_select, ulight, n_alive=None, textures=None,
-                             eval_pdf=None, any_hit=None):
+                             eval_pdf=None, any_hit=None,
+                             any_hit_instanced=None):
     """ref: scene.rs:58-66.  (direct [N,3] divided by the selection pdf,
     lidx, selpdf)."""
     lidx, selpdf = sample_one_light(scene, u_select)
     term = light_branch(scene, hit, bsdf, wo, lidx, ulight, n_alive,
-                        textures, eval_pdf, any_hit)
+                        textures, eval_pdf, any_hit, any_hit_instanced)
     return term / torch.clamp(selpdf, min=1e-20)[:, None], lidx, selpdf

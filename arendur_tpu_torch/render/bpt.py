@@ -119,11 +119,13 @@ class _Wave:
             tex_present=self.tex_present)
 
     def intersect(self, o, d):
-        return sc.intersect(self.scene, o, d,
-                            closest_hit=self.ops.closest_hit)
+        return sc.intersect(
+            self.scene, o, d, closest_hit=self.ops.closest_hit,
+            closest_hit_instanced=self.ops.closest_hit_instanced)
 
     def occluded(self, o, d, tmax):
-        return sc.occluded(self.scene, o, d, tmax, any_hit=self.ops.any_hit)
+        return sc.occluded(self.scene, o, d, tmax, any_hit=self.ops.any_hit,
+                           any_hit_instanced=self.ops.any_hit_instanced)
 
     def eval_pdf(self, v: dict, toward_prev, toward_next):
         """f [N,3] and the solid-angle pdf [N] of scattering at surface
@@ -483,8 +485,9 @@ def trace_wave_bpt(scene: sc.DeviceScene, camera: cam.CameraData, config,
                              ng=pt["ng"], ns=pt["ns"], dpdu=pt["dpdu"],
                              dpdv=pt["dpdv"], uv=pt["uv"],
                              mat_id=pt["mat_id"], light_id=pt["light_id"])
-                blocked = nee._occlusion_query(scene, hit, ls["pfrom"],
-                                               any_hit=ops.any_hit)
+                blocked = nee._occlusion_query(
+                    scene, hit, ls["pfrom"], any_hit=ops.any_hit,
+                    any_hit_instanced=ops.any_hit_instanced)
                 c = pt["beta"] * f_pt * ls["radiance"] * _v3(
                     cos_pt / torch.clamp(ls["pdf"] * l_choice_pdf,
                                          min=1e-20))

@@ -284,6 +284,44 @@ def _query_recorder(queries: list, kind: str, fn):
     return call
 
 
+def _instanced_recorder(queries: list, kind: str, fn):
+    """A closest_hit_instanced / any_hit_instanced entry that calls fn
+    and appends the query to `queries`: kind "closest_instanced" or
+    "any_instanced", the mesh's tables "w", "cbox", "itab", the world
+    rays "o", "d", "tmax" (the bound of a closest hit), "n_alive",
+    "blocked_in" (any hit: the flags it starts from), and the result:
+    "t", "slot" and "inst", or "blocked"."""
+    def call(w_clusters, cbox, itab, o, d, tmax, n_alive=None,
+             blocked=None):
+        args = (w_clusters, cbox, itab, o, d, tmax, n_alive)
+        out = fn(*args) if kind == "closest_instanced" \
+            else fn(*args, blocked)
+        q = dict(kind=kind, w=w_clusters, cbox=cbox, itab=itab,
+                 o=o.detach().clone(), d=d.detach().clone(),
+                 tmax=tmax.detach().clone(),
+                 n_alive=None if n_alive is None else n_alive.clone(),
+                 blocked_in=None if blocked is None else blocked.clone())
+        if kind == "closest_instanced":
+            q.update(t=out[0].clone(), slot=out[1].clone(),
+                     inst=out[2].clone())
+        else:
+            q.update(blocked=out.clone())
+        queries.append(q)
+        return out
+    return call
+
+
+def _recording(ops, queries: list, **more):
+    """ops with its four scene-query entries recording into `queries`."""
+    return dataclasses.replace(
+        ops, closest_hit=_query_recorder(queries, "closest", ops.closest_hit),
+        any_hit=_query_recorder(queries, "any", ops.any_hit),
+        closest_hit_instanced=_instanced_recorder(
+            queries, "closest_instanced", ops.closest_hit_instanced),
+        any_hit_instanced=_instanced_recorder(
+            queries, "any_instanced", ops.any_hit_instanced), **more)
+
+
 def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     """The closest-hit and any-hit queries of wave `wave` of a render
     (render/integrator.py trace_wave, as render() cuts the waves of
@@ -292,12 +330,12 @@ def wave_queries(ds, camera, film_cfg, config, ops, wave: int = 0):
     depth-8 fused wave: 8 closest, 8 any and the final closest), a dict
     of "kind" ("closest" or "any"), the arguments "o", "d", "tmax",
     "n_alive" (a device scalar or None), "period", "sph_tab" and
-    "full_phi", and the result: "t" and "slot", or "blocked"."""
+    "full_phi", and the result: "t" and "slot", or "blocked".  A scene
+    with instanced meshes adds, after each world query, one query per
+    mesh of kind "closest_instanced" / "any_instanced"
+    (_instanced_recorder)."""
     queries = []
-    wops = dataclasses.replace(
-        ops, closest_hit=_query_recorder(queries, "closest", ops.closest_hit),
-        any_hit=_query_recorder(queries, "any", ops.any_hit))
-    _trace(ds, camera, film_cfg, config, wops, wave)
+    _trace(ds, camera, film_cfg, config, _recording(ops, queries), wave)
     return queries
 
 
@@ -309,7 +347,8 @@ def bpt_wave_sets(ds, camera, film_cfg, config, ops, wave: int = 0):
     "light walk i" for the walks' max_depth + 1 and max_depth closest
     hits, "s{s} t{t}" for the shadow rays of the (s >= 1, t >= 2)
     connections in the wave's loop order, then of the t = 1 lens
-    rays; an instanced mesh's launches carry their world query's tag),
+    rays; an instanced mesh's queries, kinds "closest_instanced" and
+    "any_instanced", carry their world query's tag),
     samples: the BSDF samples (K8) of the walks' vertices, evals: the
     fused evaluate + pdf calls (K9): walk reverse densities, connections'
     f, MIS densities; each a dict of the BsdfSlots "b", "wo", "u" or
@@ -329,10 +368,8 @@ def bpt_wave_sets(ds, camera, film_cfg, config, ops, wave: int = 0):
         evals.append(dict(b=b, wo=wo, wi=wi, types=types, out=out))
         return out
 
-    wops = dataclasses.replace(
-        ops, closest_hit=_query_recorder(queries, "closest", ops.closest_hit),
-        any_hit=_query_recorder(queries, "any", ops.any_hit),
-        bsdf_sample=sample, bsdf_eval_pdf=eval_pdf)
+    wops = _recording(ops, queries, bsdf_sample=sample,
+                      bsdf_eval_pdf=eval_pdf)
     w = film_cfg.resolution[0]
     ray_idx = wave * config.wave_size + torch.arange(
         config.wave_size, dtype=torch.int64, device=ds.device)
@@ -352,7 +389,7 @@ def bpt_wave_sets(ds, camera, film_cfg, config, ops, wave: int = 0):
         + [f"s{s} t1" for s in range(2, depth + 2)])
     seen, last = {"closest": 0, "any": 0}, None
     for q in queries:
-        if q["period"]:
+        if q["kind"].endswith("_instanced"):
             q["tag"] = f"{last} instanced"
             continue
         last = q["tag"] = tags[q["kind"]][seen[q["kind"]]]

@@ -21,8 +21,8 @@ lookups run in plain PyTorch (materials.resolve_params); the split
 shade kernel (K6) shades on the resolved material columns.  The
 untextured wave carries no cone and launches neither.
 
-Instanced meshes ride every branch: each scene query adds one [I * N]
-lane launch of K1 / K2 per instanced mesh (scene.closest_hits), and the
+Instanced meshes ride every branch: each scene query adds one launch
+of the instanced K1 / K2 per instanced mesh (scene.closest_hits), and the
 bounce shades read the winning instance's triangle row baked into world
 space.  Scenes the fused and split branches do not serve, those whose
 area lights carry an emission texture, those with no triangle at all
@@ -103,7 +103,8 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class WaveOps:
-    """The kernel entries one bounce calls: bounce_shade on the fused
+    """The kernel entries one bounce calls: the scene queries (the
+    world's and each instanced mesh's), bounce_shade on the fused
     branch, hit_shade and shade_split on the textured split,
     bsdf_sample and bsdf_eval_pdf on the composed bounce."""
     closest_hit: Callable
@@ -113,15 +114,20 @@ class WaveOps:
     shade_split: Callable
     bsdf_sample: Callable
     bsdf_eval_pdf: Callable
+    closest_hit_instanced: Callable
+    any_hit_instanced: Callable
 
 
 KERNEL_OPS = WaveOps(ci.intersect_clusters, ci.occluded_clusters,
                      cb.bounce_shade_t, cb.hit_shade_t, cb.shade_split_t,
-                     ssh.bsdf_sample, ssh.bsdf_eval_pdf)
+                     ssh.bsdf_sample, ssh.bsdf_eval_pdf,
+                     ci.intersect_instanced, ci.occluded_instanced)
 PLAIN_OPS = WaveOps(ci.intersect_clusters_reference,
                     ci.occluded_clusters_reference, cb.cbody_reference,
                     cb.cbody_hit_reference, cb.cbody_shade_reference,
-                    sl.bsdf_sample, sl.bsdf_eval_pdf)
+                    sl.bsdf_sample, sl.bsdf_eval_pdf,
+                    ci.intersect_instanced_reference,
+                    ci.occluded_instanced_reference)
 
 
 def _compact_perm(alive: torch.Tensor):
@@ -144,10 +150,11 @@ def _permute(carry: dict, perm: torch.Tensor) -> dict:
 
 def _closest(scene: sc.DeviceScene, o, d, n_alive, ops: WaveOps):
     """Closest hit over the world's triangles, the spheres (K1 with the
-    scene's sphere table) and the instanced meshes (one [I * N]-lane K1
+    scene's sphere table) and the instanced meshes (one instanced K1
     each): scene.Closest."""
     tmax = torch.full((o.shape[0],), float("inf"), device=o.device)
-    return sc.closest_hits(scene, o, d, tmax, n_alive, ops.closest_hit)
+    return sc.closest_hits(scene, o, d, tmax, n_alive, ops.closest_hit,
+                           ops.closest_hit_instanced)
 
 
 def intersect_raw(scene: sc.DeviceScene, o, d, n_alive=None,
@@ -193,7 +200,8 @@ def occluded(scene: sc.DeviceScene, o, d, tmax, n_alive=None,
              ops: WaveOps = KERNEL_OPS) -> torch.Tensor:
     """Shadow any-hit against triangles and spheres (ray geometry
     detached, as in intersect_raw)."""
-    return sc.occluded(scene, o, d, tmax, n_alive, any_hit=ops.any_hit)
+    return sc.occluded(scene, o, d, tmax, n_alive, any_hit=ops.any_hit,
+                       any_hit_instanced=ops.any_hit_instanced)
 
 
 def bounce_draws(config: RenderConfig, keys: torch.Tensor, bounce: int):
@@ -306,7 +314,8 @@ def composed_bounce(scene: sc.DeviceScene, config: RenderConfig, c: dict,
     the next state."""
     d, beta, L = c["d"], c["beta"], c["L"]
     hit = sc.intersect(scene, c["o"], d, n_alive=n_alive,
-                       closest_hit=ops.closest_hit)
+                       closest_hit=ops.closest_hit,
+                       closest_hit_instanced=ops.closest_hit_instanced)
     lane_active = c["alive"] & hit.hit
 
     # (2) emitted radiance, weight 1 for camera hits and specular
@@ -337,7 +346,8 @@ def composed_bounce(scene: sc.DeviceScene, config: RenderConfig, c: dict,
     u_sel, u_light, u_bsdf, u_rr = bounce_draws(config, c["keys"], bounce)
     direct, lidx, selpdf = nee.uniform_sample_one_light(
         scene, hit, bsdf, wo, u_sel, u_light, n_alive, textures,
-        eval_pdf=ops.bsdf_eval_pdf, any_hit=ops.any_hit)
+        eval_pdf=ops.bsdf_eval_pdf, any_hit=ops.any_hit,
+        any_hit_instanced=ops.any_hit_instanced)
     L = L + torch.where(do_nee[:, None], beta * direct, 0.0)
 
     # (4) the BSDF sample for the continuation, also the MIS BSDF sample
@@ -513,8 +523,10 @@ def trace_wave(scene: sc.DeviceScene, camera: cam.CameraData,
             need = need[perm]
         if composed:
             # the final hit's emission through the light's texture
-            hf = sc.intersect(scene, carry["o"], carry["d"], n_alive=n_need,
-                              closest_hit=ops.closest_hit)
+            hf = sc.intersect(
+                scene, carry["o"], carry["d"], n_alive=n_need,
+                closest_hit=ops.closest_hit,
+                closest_hit_instanced=ops.closest_hit_instanced)
             hit_f, light_f = hf.hit, hf.light_id
             le_f = sc.light_emission(scene, light_f, hf.uv, textures)
         else:

@@ -38,7 +38,8 @@ def whitted_wave(scene: sc.DeviceScene, camera: cam.CameraData, config,
         keys, sample_id, config.sample_dx, config.sample_dy, dim=0)
     o, d = cam.generate_rays(camera, pfilm, smp.uniform_2d(keys, 2))
     n = o.shape[0]
-    hit = sc.intersect(scene, o, d, closest_hit=ops.closest_hit)
+    hit = sc.intersect(scene, o, d, closest_hit=ops.closest_hit,
+                       closest_hit_instanced=ops.closest_hit_instanced)
     wo = -d
     textures = config.textures
     if textures is not None:
@@ -57,8 +58,9 @@ def whitted_wave(scene: sc.DeviceScene, camera: cam.CameraData, config,
         effective = hit.hit & (ls["pdf"] > 0.0) \
             & ~cm.is_black(tuple(ls["radiance"].unbind(-1))) \
             & ~cm.is_black(tuple(f.unbind(-1)))
-        blocked = nee._occlusion_query(scene, hit, ls["pfrom"],
-                                       any_hit=ops.any_hit)
+        blocked = nee._occlusion_query(
+            scene, hit, ls["pfrom"], any_hit=ops.any_hit,
+            any_hit_instanced=ops.any_hit_instanced)
         contrib = f * ls["radiance"] * (
             cm.vdot(tuple(wi.unbind(-1)), ns)
             / torch.clamp(ls["pdf"], min=1e-20))[:, None]

@@ -614,6 +614,8 @@ class DeviceInstances:
     w2o: torch.Tensor       # [I,4,4]
     nrm: torch.Tensor       # [I,3,3]
     prim_base: int          # the primitive id of its local triangle 0
+    itab: torch.Tensor      # [I,20] the instanced kernels' instance rows
+                            # (instance_table)
 
     @property
     def n_instances(self):
@@ -702,7 +704,8 @@ class DeviceScene:
             inst.append(DeviceInstances(
                 cw=t(im.cw), cbox=t(im.cbox), remap=t(im.remap, torch.int64),
                 attr=t(im.attr), o2w=t(im.o2w), w2o=t(im.w2o),
-                nrm=t(im.nrm), prim_base=int(base)))
+                nrm=t(im.nrm), prim_base=int(base),
+                itab=t(instance_table(im.cbox, im.w2o))))
             base += im.attr.shape[0]
         ltab, _, _ = light_pack(scene)
         dist = scene.light_distribution
@@ -741,38 +744,72 @@ def affine(m, p, point: bool = True):
     return out
 
 
+# the world box's margin: a share of its extent and of the magnitude of
+# its coordinates, so that the world-frame cull stays conservative
+# against the local test's other rounding
+BOX_MARGIN = 1e-4
+
+
+def instance_table(cbox, w2o) -> np.ndarray:
+    """[I, 20] one row per instance for the instanced kernels
+    (kernels/intersect.cuh ITAB_COLS): w2o's rows 0-3, columns x, y, z
+    (the linear part, then the translation: the map the rays take), then
+    the instance's world box, min xyz and max xyz, then two zeros.  The
+    box holds the mesh's local box (the union of its cluster boxes)
+    through the inverse of that map (o2w where the transform is affine),
+    its 8 corners in float64, widened by BOX_MARGIN (extent + the
+    largest |coordinate| + 1) on every side and rounded outward; a
+    singular instance gets a box of +-1e30 (never culled)."""
+    cbox = np.asarray(cbox, np.float64)
+    w2o = np.asarray(w2o, np.float32)
+    lo, hi = cbox[:, 0:3].min(0), cbox[:, 3:6].max(0)
+    corners = np.array([[(lo, hi)[(k >> a) & 1][a] for a in range(3)]
+                        for k in range(8)])
+    rows = np.zeros((w2o.shape[0], 20), np.float32)
+    rows[:, 0:12] = w2o[:, :, :3].reshape(-1, 12)
+    for i, m in enumerate(w2o.astype(np.float64)):
+        with np.errstate(all="ignore"):
+            try:
+                world = (corners - m[3, :3]) @ np.linalg.inv(m[:3, :3])
+            except np.linalg.LinAlgError:
+                world = np.full((1, 3), np.nan)
+        if not np.isfinite(world).all():
+            rows[i, 12:18] = (-1e30,) * 3 + (1e30,) * 3
+            continue
+        wlo, whi = world.min(0), world.max(0)
+        pad = BOX_MARGIN * ((whi - wlo).max() + np.abs(world).max() + 1.0)
+        rows[i, 12:15] = np.nextafter((wlo - pad).astype(np.float32),
+                                      np.float32(-np.inf))
+        rows[i, 15:18] = np.nextafter((whi + pad).astype(np.float32),
+                                      np.float32(np.inf))
+    return rows
+
+
 def instance_rays(im: DeviceInstances, o, d):
     """Rays o, d [N,3] in each instance's frame: (o, d) [I * N, 3], lane
     i * N + n ray n in instance i's frame (twin: the ol / dl of
-    scene.intersect, scene.py:952-956), each one batched product over
-    the I linear parts."""
-    n, ni = o.shape[0], im.n_instances
-    lin = im.w2o[:, :3, :3]
-    ol = torch.baddbmm(im.w2o[:, None, 3, :3], o.expand(ni, n, 3), lin)
-    dl = torch.bmm(d.expand(ni, n, 3), lin)
-    return ol.reshape(ni * n, 3), dl.reshape(ni * n, 3)
+    scene.intersect, scene.py:952-956), by scene.affine's products and
+    sums: the instanced kernels' local rays to the bit.  For the
+    [I * N]-lane launches (period N), which no scene query makes."""
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    ol, dl = ci.instance_frame(im.itab[:, None], o[None], d[None])
+    return ol.reshape(-1, 3), dl.reshape(-1, 3)
 
 
 def instance_closest(im: DeviceInstances, o, d, bound, n_alive=None,
-                     closest_hit=None):
+                     closest_hit_instanced=None):
     """The closest hit of N rays o, d [N,3] against every instance of one
-    instanced mesh: one K1 launch over the [I * N] lanes (lane i * N + n
-    is ray n in instance i's frame; period N applies the live count per
-    instance), bounded by `bound` [N], then the instance with the least t
-    per ray (the first at equal t).  Returns (t [N], inf where no
-    instance is hit, local triangle id [N] int64 or -1, instance [N])."""
+    instanced mesh, bounded by `bound` [N]: one launch of the instanced
+    K1 (or the given entry), which takes each ray into the instances'
+    frames and keeps the instance with the least t (the first at equal
+    t).  Returns (t [N], inf where no instance is hit, local triangle id
+    [N] int64 or -1, instance [N] int64, 0 on a miss)."""
     from arendur_tpu_torch.shapes import cluster_intersect as ci
-    n, ni = o.shape[0], im.n_instances
-    ol, dl = instance_rays(im, o, d)
-    t_f, slot_f = (closest_hit or ci.intersect_clusters)(
-        im.cw, im.cbox, ol, dl, bound.repeat(ni), n_alive=n_alive, period=n)
-    li_f = torch.where(slot_f >= 0,
-                       im.remap[torch.clamp(slot_f, min=0).long()], -1)
-    t_im = torch.where(li_f >= 0, t_f, float("inf")).reshape(ni, n)
-    best = torch.argmin(t_im, dim=0)
-    t_i = t_im.gather(0, best[None])[0]
-    li = li_f.reshape(ni, n).gather(0, best[None])[0]
-    return t_i, li, best
+    t, slot, inst = (closest_hit_instanced or ci.intersect_instanced)(
+        im.cw, im.cbox, im.itab, o, d, bound, n_alive)
+    li = torch.where(slot >= 0, im.remap[torch.clamp(slot, min=0).long()],
+                     -1)
+    return torch.where(li >= 0, t, float("inf")), li, inst.long()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -848,11 +885,11 @@ def world_occluded(scene: DeviceScene, o, d, tmax, n_alive=None):
 
 
 def closest_hits(scene: DeviceScene, o, d, tmax, n_alive=None,
-                 closest_hit=None) -> Closest:
+                 closest_hit=None, closest_hit_instanced=None) -> Closest:
     """The closest hit of N rays o, d [N,3] within tmax [N], in the JAX
     package's order of operations (scene.py:932-1012): the world K1 with
     the sphere table (a sphere hit keeps the triangles' t at inf), then
-    each instanced mesh's [I * N]-lane K1 bounded by min(tmax, t_tri),
+    each instanced mesh's instanced K1 bounded by min(tmax, t_tri),
     then a sphere wins where its t <= the nearest triangle's.  Where the
     world triangles have no cluster tables, the BVH walk or the brute
     force finds the nearest of them and K1 with no cluster tests the
@@ -874,7 +911,7 @@ def closest_hits(scene: DeviceScene, o, d, tmax, n_alive=None,
     wins = []
     for im in scene.inst:
         t_i, li, best = instance_closest(im, o, d, torch.minimum(tmax, t_tri),
-                                         n_alive, closest_hit)
+                                         n_alive, closest_hit_instanced)
         hit_i = (li >= 0) & (t_i < t_tri) & torch.isfinite(t_i)
         t_tri = torch.where(hit_i, t_i, t_tri)
         tri_hit = tri_hit | hit_i
@@ -993,12 +1030,13 @@ def _instance_shading(im: DeviceInstances, o, d, li, best):
 
 
 def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
-              closest_hit=None) -> Hit:
+              closest_hit=None, closest_hit_instanced=None) -> Hit:
     """Closest hit of N rays against the scene with full shading info
     (twin: scene.intersect under ARENDUR_SPHERES=kernel): the closest
     hit over the world's triangle clusters and the analytic spheres in
     one call (K1 on CUDA tensors, or the given `closest_hit` entry), one
-    more per instanced mesh (closest_hits), then the hit record, with
+    more per instanced mesh (closest_hits: the instanced K1, or the
+    given `closest_hit_instanced`), then the hit record, with
     benign defaults on miss lanes.  The ray geometry is detached, as in
     the JAX package."""
     from arendur_tpu_torch.render import cbounce as cb
@@ -1007,7 +1045,8 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
     n = o.shape[0]
     if tmax is None:
         tmax = torch.full((n,), float("inf"), device=o.device)
-    c = closest_hits(scene, o, d, tmax, n_alive, closest_hit)
+    c = closest_hits(scene, o, d, tmax, n_alive, closest_hit,
+                     closest_hit_instanced)
     trow = scene.tpack[torch.clamp(c.tri_idx, min=0)]
     tcol = lambda j: trow[:, j]
     oc = (o[:, 0], o[:, 1], o[:, 2])
@@ -1071,27 +1110,26 @@ def intersect(scene: "DeviceScene", o, d, tmax=None, n_alive=None,
 
 
 def occluded(scene: "DeviceScene", o, d, tmax, n_alive=None,
-             any_hit=None) -> torch.Tensor:
+             any_hit=None, any_hit_instanced=None) -> torch.Tensor:
     """Shadow any-hit against the world's triangles and the spheres in
     one call (K2 on CUDA tensors, or the given `any_hit` entry; where the
     world has no cluster tables, K2 tests the spheres and world_occluded
-    the triangles), ORed with one [I * N]-lane any hit per instanced
-    mesh; the ray geometry is detached (twin: scene.occluded under
+    the triangles), then one instanced K2 (or the given
+    `any_hit_instanced` entry) per instanced mesh, which starts from the
+    flags so far: a ray already blocked costs it nothing.  The ray
+    geometry is detached (twin: scene.occluded under
     ARENDUR_SPHERES=kernel)."""
     from arendur_tpu_torch.shapes import cluster_intersect as ci
     any_hit = any_hit or ci.occluded_clusters
+    any_hit_instanced = any_hit_instanced or ci.occluded_instanced
     o, d, tmax = o.detach(), d.detach(), tmax.detach()
     blocked = any_hit(scene.cw, scene.cbox, o, d, tmax, n_alive=n_alive,
                       sph_tab=scene.ktab, full_phi=scene.full_phi)
     if scene.intersector != "cluster":
         blocked = blocked | world_occluded(scene, o, d, tmax, n_alive)
-    n = o.shape[0]
     for im in scene.inst:
-        ni = im.n_instances
-        ol, dl = instance_rays(im, o, d)
-        blk = any_hit(im.cw, im.cbox, ol, dl, tmax.repeat(ni),
-                      n_alive=n_alive, period=n)
-        blocked = blocked | blk.reshape(ni, n).any(0)
+        blocked = any_hit_instanced(im.cw, im.cbox, im.itab, o, d, tmax,
+                                    n_alive, blocked)
     return blocked
 
 

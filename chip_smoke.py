@@ -116,18 +116,27 @@ Phases, one line each:
      bounce's continuation rays (with a live count) and shadow rays, the
      world K1 / K2 with no cluster (the sphere table alone) equal to the
      plain versions on every lane with no descriptor encoded, the
-     instanced K1 / K2 over the 100 x 4,096 lanes (period 4,096) against
-     the plain versions lane by lane (dead lanes miss), and the whole
-     query (scene.closest_hits) kernels against plain; the 64x48, 4 spp,
+     instanced K1 / K2 (one launch over the 4,096 world rays, the any
+     hit from the world's flags) equal to their plain versions on every
+     lane (t, local slot, instance, blocked; dead lanes miss), the
+     earlier route's launches over the 100 x 4,096 lanes (period 4,096)
+     equal to their plain versions and, after the argmin over the
+     instances, to the instanced entries, and the whole query
+     (scene.closest_hits) kernels against plain; the 64x48, 4 spp,
      depth-8 render through the kernels against the plain path; one
      64x48 train step's gradients (the whole frame, one wave) against
-     the plain path's; paths/s at
-     256x256, 16 spp, depth 8 with no sphere test outside K1 / K2, one
-     wave's launches, device busy time and TMA descriptor encodes (also
-     on cb.json with cb_inst's instances beside its world pool), and K1
-     / K2 per instanced query on wave 0 (camera rays, first-bounce
-     shadow rays: 6.55 M lanes) by CUDA events and on the card, against
-     the bound and the plain version;
+     the plain path's; paths/s at 256x256, 16 spp, depth 8 with no
+     sphere test outside K1 / K2, one wave's launches, device busy time
+     by kernel, TMA descriptor encodes, batched products (none) and
+     peak device memory (also the encodes on cb.json with cb_inst's
+     instances beside its world pool), and the instanced K1 / K2 per
+     query on wave 0 (65,536 camera rays, the first bounce's shadow
+     rays) equal to their plain versions on every lane, by CUDA events
+     and on the card, against the bound and the plain version, beside
+     the earlier route's period launch over the 6.55 M (instance, ray)
+     lanes and its whole query (transforms and argmin included) in the
+     same run, with each query's peak device memory, and the instanced
+     entries' ms at each of wave 0's 17 queries beside its live rays;
  16. the Whitted and bidirectional (BPT) renderers on cb.json: on the
      sets of wave 0 of a 256x256, 16 spp, depth-8 BPT render as the
      kernel path ran it (render/fuzz.py bpt_wave_sets: 17 closest-hit
@@ -198,7 +207,8 @@ step (sharded_*);
 its ms and plain_ms, all
 by CUDA events, K4's the mean per call over phase 7's eight train
 bounces, K1's and K2's the mean per launch over phase 3's fused-wave
-queries, the instanced rows' on phase 15's wave-0 queries; and its
+queries, the instanced rows' (the instanced entries') on phase 15's
+wave-0 queries; and its
 bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations this run's inputs need over
 67 TFLOP/s of f32, the H100 SXM's data-sheet peaks (K4's: the bytes of
@@ -206,8 +216,11 @@ its lanes, all columns of a listed lane's input but only the gate
 columns of the others', and of its tables, the mean over the same
 bounces, K1's / K2's the mean over the same queries of the triangles
 of each cluster a live ray enters before its result's t (K2: up to the
-ray's first occluder) and the plain sphere branch's operations); a row whose ms is below its bound fails the run), the
-card line, and the result line.
+ray's first occluder) and the plain sphere branch's operations; the
+instanced rows' the same over each (instance, cluster) in the
+instance's frame, K2 up to the ray's first occluding instance and
+nothing for a ray the world blocked); a row whose ms is below its bound
+fails the run), the card line, and the result line.
 Any failure raises; the exit code is then non-zero and no result line
 is printed.  ``--out DIR`` also writes the measurements
 (chip_smoke.json) and the kernel-path image (.npy) into DIR.
@@ -216,6 +229,7 @@ is printed.  ``--out DIR`` also writes the measurements
 import argparse
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -488,13 +502,18 @@ def any_hit_pairs(cw, cbox, o, d, tmax):
     first occluder, all of every entered cluster where none occludes.
     The occluders are the plain determinant products'
     (shapes/mxu_intersect.py)."""
+    return int(any_hit_need(cw, cbox, o, d, tmax)[0].sum())
+
+
+def any_hit_need(cw, cbox, o, d, tmax):
+    """Per ray, what any_hit_pairs counts: (triangles needed [N], whether
+    a triangle blocks it [N])."""
     import torch
     from arendur_tpu_torch.shapes import mxu_intersect as mxi
     k = cw.shape[2] // 4
     entered = slab_mask(cbox, o, d, tmax)
     feats, teps = mxi.ray_features(o, d), mxi.ray_teps(o)
     lanes = torch.arange(k, device=o.device)
-    # per cluster: the triangles swept up to the first occluder, or K
     upto = torch.empty(entered.shape, dtype=torch.int64, device=o.device)
     for c in range(cw.shape[0]):
         quad = feats @ cw[c]
@@ -502,10 +521,41 @@ def any_hit_pairs(cw, cbox, o, d, tmax):
                           quad[:, 3 * k:], tmax, teps)[0]
         upto[:, c] = torch.where(hit, lanes, k).amin(1) + 1
     stop = entered & (upto <= k)
-    # the clusters before the first entered one that occludes, and that one
     before = (stop.cumsum(1) - stop.long()) == 0
     need = torch.where(stop, upto, k) * (entered & before)
-    return int(need.sum())
+    return need.sum(1), stop.any(1)
+
+
+def instanced_work(im, o, d, bound, result, blocked_in=None):
+    """(bytes, operations) that one instanced query needs (the kernels
+    line's bound): each ray's o, d and bound read, its outputs written,
+    the mesh's tables read; TRI_FLOPS per triangle of each (instance,
+    cluster) whose box the ray enters in the instance's frame before the
+    query's t (closest hit: result (t, slot, instance)), or (any hit:
+    result blocked) per triangle the ray needs up to its first
+    occluder, the instances in order, nothing for a ray the world
+    blocked."""
+    import torch
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    n, ni, kk = o.shape[0], im.n_instances, im.cw.shape[2] // 4
+    closest = isinstance(result, tuple)
+    nbytes = 4 * (7 * n + im.cw.numel() + im.cbox.numel()
+                  + im.itab.numel()) + (12 if closest else 1) * n \
+        + (0 if blocked_in is None else n)
+    if closest:
+        pairs = sum(slab_pairs(im.cbox, *ci.instance_frame(im.itab[i], o, d),
+                               result[0]) for i in range(ni))
+        return nbytes, TRI_FLOPS * kk * pairs
+    free = torch.ones(n, dtype=torch.bool, device=o.device) \
+        if blocked_in is None else ~blocked_in
+    done = torch.zeros(n, dtype=torch.bool, device=o.device)
+    total = 0
+    for i in range(ni):
+        ol, dl = ci.instance_frame(im.itab[i], o, d)
+        need, blk = any_hit_need(im.cw, im.cbox, ol, dl, bound)
+        total += int(need[free & ~done].sum())
+        done |= blk
+    return nbytes, TRI_FLOPS * total
 
 
 def wave_query_work(ds, q, result):
@@ -662,6 +712,13 @@ def plain_backward_shade():
     return shade
 
 
+def batched_products(prof):
+    """The batched matrix products (aten::bmm / aten::baddbmm) a profile
+    ran: the frame transforms of the earlier instanced route."""
+    return sum(1 for e in prof.events()
+               if e.name in ("aten::bmm", "aten::baddbmm"))
+
+
 def wave_profile(fn):
     """A trace of one fn() that holds its device events, for _busy_s."""
     _, prof = profiled(fn)
@@ -681,7 +738,7 @@ def _busy_s(prof):
         for k in ("bounce_shade_bwd", "bounce_shade_kernel",
                   "hit_shade_kernel", "shade_split_kernel",
                   "slot_sample_kernel", "slot_eval_pdf_kernel",
-                  "cluster_kernel"):
+                  "cluster_kernel", "instanced_kernel"):
             if k in e.name:
                 own[k] = own.get(k, 0.0) + 1e-6 * (e.time_range.end
                                                    - e.time_range.start)
@@ -1437,6 +1494,12 @@ def main(argv=None):
         for kind in ("K1", "K2"):
             occ[f"{kind} {ns} spheres"] = ops.isect_occupancy(kind == "K2",
                                                               ns)
+    # the instanced K1 / K2 over 100 instances (cb_inst.json: the table
+    # staged in shared memory) and 1,000 (its first rows staged)
+    for ni in (100, 1000):
+        for kind in ("K1", "K2"):
+            occ[f"{kind} instanced {ni} instances"] = \
+                ops.isect_inst_occupancy(kind == "K2", ni)
     if min(blocks for _, blocks in occ.values()) < 1:
         raise AssertionError(f"K1 / K2: no block fits an SM: {occ}")
     # K3 / K6 with cb.json's tables
@@ -2501,7 +2564,6 @@ def main(argv=None):
     na4 = torch.tensor(n4 - 500, device=dev)
     skw = dict(sph_tab=ds_i.ktab, full_phi=ds_i.full_phi)
     k15 = []
-    k15_err = 0.0
     for nm, o_, d_, tm_, na in (
             ("camera", o4, d4, t4, None),
             ("bounce 1", r4["o"].contiguous(), r4["d"].contiguous(), t4, na4),
@@ -2518,41 +2580,57 @@ def main(argv=None):
         b_p = ci.occluded_clusters_reference(*wa, **skw)
         world_equal = bool(torch.equal(s_k, s_p) and torch.equal(t_k, t_p)
                            and torch.equal(b_k, b_p))
-        # the instanced launches over the 100 x 4,096 lanes (period
-        # 4,096), bounded by tmax (no world triangle), every lane against
-        # the plain versions
+        # the instanced entries (the world rays against the 100
+        # instances, the any hit from the world's flags) against their
+        # plain versions, every lane to the bit
+        ti_k, si_k, ii_k = ci.intersect_instanced(
+            im.cw, im.cbox, im.itab, o_, d_, tm_, na)
+        bi_k = ci.occluded_instanced(im.cw, im.cbox, im.itab, o_, d_, tm_,
+                                     na, b_k)
+        ti_p, si_p, ii_p = ci.intersect_instanced_reference(
+            im.cw, im.cbox, im.itab, o_, d_, tm_, na)
+        bi_p = ci.occluded_instanced_reference(im.cw, im.cbox, im.itab, o_,
+                                               d_, tm_, na, b_p)
+        new_equal = bool(torch.equal(ti_k, ti_p) and torch.equal(si_k, si_p)
+                         and torch.equal(ii_k, ii_p)
+                         and torch.equal(bi_k, bi_p))
+        # the earlier [I * N]-lane launches (period 4,096) against their
+        # plain versions, and their nearest instance against the new
+        # entries' (torch.argmin's first minimum), every lane
         ol, dl = sc.instance_rays(im, o_, d_)
         ia = (im.cw, im.cbox, ol, dl, tm_.repeat(n_inst), na)
-        ti_k, si_k = ci.intersect_clusters(*ia, period=n4)
-        bi_k = ci.occluded_clusters(*ia, period=n4)
-        ti_p, si_p = ci.intersect_clusters_reference(*ia, period=n4)
-        bi_p = ci.occluded_clusters_reference(*ia, period=n4)
-        agree = si_k == si_p
-        hit = agree & (si_k >= 0)
-        trel = ((ti_k - ti_p).abs()[hit] / ti_p.abs()[hit]).max().item() \
-            if hit.any() else 0.0
-        if hit.any():
-            k15_err = max(k15_err, (ti_k - ti_p).abs()[hit].max().item())
-        live = torch.ones(n_inst * n4, dtype=torch.bool, device=dev) \
-            if na is None else (torch.arange(n_inst * n4, device=dev) % n4
-                                < int(na))
-        dead_ok = bool((si_k[~live] == -1).all() and not bi_k[~live].any())
+        to_k, so_k = ci.intersect_clusters(*ia, period=n4)
+        bo_k = ci.occluded_clusters(*ia, period=n4)
+        to_p, so_p = ci.intersect_clusters_reference(*ia, period=n4)
+        bo_p = ci.occluded_clusters_reference(*ia, period=n4)
+        t_im = torch.where(so_k >= 0, to_k, float("inf")).reshape(n_inst, n4)
+        first = torch.argmin(t_im, 0)
+        s_old = so_k.reshape(n_inst, n4).gather(0, first[None])[0]
+        old_equal = bool(
+            torch.equal(so_k, so_p) and torch.equal(to_k, to_p)
+            and torch.equal(bo_k, bo_p) and torch.equal(s_old, si_k)
+            and torch.equal(first.int(), ii_k)
+            and torch.equal(bo_k.reshape(n_inst, n4).any(0) | b_k, bi_k))
+        live = torch.ones(n4, dtype=torch.bool, device=dev) \
+            if na is None else torch.arange(n4, device=dev) < int(na)
+        dead_ok = bool((si_k[~live] == -1).all() and (ii_k[~live] == 0).all()
+                       and not bi_k[~live].any())
         # the whole query, the kernels' against the plain versions'
-        c_k = sc.closest_hits(ds_i, o_, d_, tm_, na, ci.intersect_clusters)
+        c_k = sc.closest_hits(ds_i, o_, d_, tm_, na, ci.intersect_clusters,
+                              ci.intersect_instanced)
         c_p = sc.closest_hits(ds_i, o_, d_, tm_, na,
-                              ci.intersect_clusters_reference)
+                              ci.intersect_clusters_reference,
+                              ci.intersect_instanced_reference)
         q_hit = (c_k.hit == c_p.hit).float().mean().item()
         k15.append(dict(set=nm, world_equal=world_equal,
-                        no_encode=no_encode,
-                        slots_agree=agree.float().mean().item(),
-                        blocked_agree=(bi_k == bi_p).float().mean().item(),
-                        t_rel=trel, dead_lanes_miss=dead_ok,
+                        no_encode=no_encode, instanced_equal=new_equal,
+                        period_equal=old_equal, dead_lanes_miss=dead_ok,
                         inst_hit=(si_k >= 0).float().mean().item(),
+                        inst_blocked=bi_k.float().mean().item(),
                         sphere_lanes=int((s_k <= -2).sum()),
                         query_hit_agree=q_hit))
-        if not (world_equal and no_encode and dead_ok) or trel > T_RTOL \
-                or min(k15[-1]["slots_agree"], k15[-1]["blocked_agree"],
-                       q_hit) < K1_K2_GATE:
+        if not (world_equal and no_encode and new_equal and old_equal
+                and dead_ok) or q_hit < K1_K2_GATE:
             raise AssertionError(f"K1 / K2 on cb_inst, {nm}: {k15[-1]}")
 
     # the cb_inst render at 64x48, 4 spp, depth 8 (waves of 4,096: each
@@ -2615,7 +2693,9 @@ def main(argv=None):
                              f"finite {finite15}, {step15_launches}")
 
     # the full-width render: paths/s with no sphere test outside K1 / K2,
-    # then one wave's launches, device busy time and TMA encodes
+    # then one wave's launches, device busy time by kernel, TMA encodes,
+    # batched products (the frame transforms the instanced kernels took
+    # over: none) and peak device memory
     integ.render(ds_i, cam_i, film_i, dataclasses.replace(
         cfg_i, spp=1, sample_dx=1, sample_dy=1))
     torch.cuda.synchronize()
@@ -2633,14 +2713,20 @@ def main(argv=None):
         torch.cuda.synchronize()
         ops.reset_counts()
         enc0 = ops.isect_encodes()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         integ.trace_wave(*wave_i)
         torch.cuda.synchronize()
         iwave_s = time.perf_counter() - t0
+        iwave_mem = torch.cuda.max_memory_allocated() - mem0
         iwave_launches = ops.counts()
         iwave_encodes = ops.isect_encodes() - enc0
         iprof = wave_profile(lambda: integ.trace_wave(*wave_i))
     ibusy, ink, iown = _busy_s(iprof)
+    ibmm = batched_products(iprof)
+    if ibmm:
+        raise AssertionError(f"a cb_inst wave ran {ibmm} batched products")
     # a world pool and instances together (cb.json's box and spheres
     # beside cb_inst's instanced mesh): the descriptor cache holds both
     # weights, so a wave after the first encodes none
@@ -2660,63 +2746,119 @@ def main(argv=None):
     if iwave_encodes or mix_encodes:
         raise AssertionError(f"TMA descriptors re-encoded in a wave: "
                              f"cb_inst {iwave_encodes}, mixed {mix_encodes}")
-    # K1 / K2 per instanced query on the main path's inputs: wave 0's
-    # camera rays through the 100 instances (6.55 M lanes), and the
-    # shadow rays of its first bounce
+    # the instanced K1 / K2 per query on the main path's inputs: wave 0's
+    # camera rays against the 100 instances, and the shadow rays of its
+    # first bounce from the world K2's flags; every lane equal to the
+    # plain versions; beside them, in the same run, the earlier route on
+    # the same query (the rays into the 100 frames, one launch over the
+    # 6.55 M (instance, ray) lanes with period N, the nearest instance)
     o_w0, d_w0 = cam.generate_rays(cam_i, pxy + ws.film_jitter(), ws.u2(2))
     r_w0 = first_bounce(o_w0, d_w0, ws.keys)
+    sh_w0 = tuple(r_w0[k].contiguous() for k in ("sh_o", "sh_d", "sh_t"))
+    b_w0 = ci.occluded_clusters(ds_i.cw, ds_i.cbox, *sh_w0,
+                                sph_tab=ds_i.ktab, full_phi=ds_i.full_phi)
     iq = {}
-    for kind, o_, d_, tm_ in (
-            ("closest", o_w0, d_w0, tinf),
-            ("any", r_w0["sh_o"].contiguous(), r_w0["sh_d"].contiguous(),
-             r_w0["sh_t"].contiguous())):
+    for kind, o_, d_, tm_, blk in (("closest", o_w0, d_w0, tinf, None),
+                                   ("any",) + sh_w0 + (b_w0,)):
+        closest = kind == "closest"
+        args = (im.cw, im.cbox, im.itab, o_, d_, tm_, None)
         ol, dl = sc.instance_rays(im, o_, d_)
         tb = tm_.repeat(n_inst)
-        fn, plain = ((ops.closest_hit, ci.intersect_clusters_reference)
-                     if kind == "closest" else
-                     (ops.any_hit, ci.occluded_clusters_reference))
-        call = lambda: fn(im.cw, im.cbox, ol, dl, tb, None, n)  # noqa
-        got, ref = results(call()), results(plain(im.cw, im.cbox, ol, dl,
-                                                  tb, None, n))
-        lanes = (got[-1] == ref[-1]).float().mean().item()
-        if lanes < K1_K2_GATE:
-            raise AssertionError(f"instanced {kind} on wave 0: {lanes}")
-        kk = im.cw.shape[2] // 4
-        nbytes = 4 * (ol.shape[0] * (7 + len(got)) + im.cw.numel()
-                      + im.cbox.numel())
-        if kind == "closest":
-            nops = TRI_FLOPS * kk * blocked_sum(
-                lambda a, b, c: slab_pairs(im.cbox, a, b, c), ol, dl, got[0])
+        if closest:
+            call = lambda: ops.closest_hit_instanced(*args)  # noqa: E731
+            plain = lambda: ci.intersect_instanced_reference(*args)  # noqa
+            period = lambda: ops.closest_hit(  # noqa: E731
+                im.cw, im.cbox, ol, dl, tb, None, n)
         else:
-            nops = TRI_FLOPS * blocked_sum(
-                lambda a, b, c: any_hit_pairs(im.cw, im.cbox, a, b, c), ol,
-                dl, tb)
-        dev_ms, q_ms = kernel_ms(call, "cluster_kernel", iters=5)
-        iq[kind] = dict(lanes_equal=lanes, ms=time_ms(call, iters=5),
-                        device_ms=dev_ms, queued_ms=q_ms,
-                        plain_ms=time_ms(lambda: plain(
-                            im.cw, im.cbox, ol, dl, tb, None, n), iters=1),
-                        bound=bound_ms(nbytes, nops), lanes=ol.shape[0],
-                        live_hit=(got[-1] != (0 if kind == "any" else -1))
-                        .float().mean().item())
-    kern_rows["closest_hit_instanced"] = dict(
-        max_abs_err=k15_err, ms=iq["closest"]["ms"],
-        plain_ms=iq["closest"]["plain_ms"], bound=iq["closest"]["bound"])
-    kern_rows["any_hit_instanced"] = dict(
-        max_abs_err=1.0 - min(iq["any"]["lanes_equal"],
-                              min(r["blocked_agree"] for r in k15)),
-        ms=iq["any"]["ms"], plain_ms=iq["any"]["plain_ms"],
-        bound=iq["any"]["bound"])
+            call = lambda: ops.any_hit_instanced(*args, blk)  # noqa: E731
+            plain = lambda: ci.occluded_instanced_reference(  # noqa: E731
+                *args, blk)
+            period = lambda: ops.any_hit(  # noqa: E731
+                im.cw, im.cbox, ol, dl, tb, None, n)
+        got, ref = results(call()), results(plain())
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"instanced {kind} on wave 0 differs from "
+                                 f"its plain version")
+
+        def old_query():
+            """The earlier route, whole: the [I * N] local rays, the
+            period launch, the nearest instance (or the OR)."""
+            ol_, dl_ = sc.instance_rays(im, o_, d_)
+            if not closest:
+                return ops.any_hit(im.cw, im.cbox, ol_, dl_,
+                                   tm_.repeat(n_inst), None,
+                                   n).reshape(n_inst, n).any(0) | blk
+            t_f, s_f = ops.closest_hit(im.cw, im.cbox, ol_, dl_,
+                                       tm_.repeat(n_inst), None, n)
+            t_im = torch.where(s_f >= 0, t_f, float("inf")).reshape(n_inst,
+                                                                    n)
+            first = torch.argmin(t_im, 0)
+            return (t_im.gather(0, first[None])[0],
+                    s_f.reshape(n_inst, n).gather(0, first[None])[0], first)
+
+        old = results(old_query())
+        if not (torch.equal(old[1], got[1]) and torch.equal(old[2].int(),
+                                                            got[2])
+                if closest else torch.equal(old[0], got[0])):
+            raise AssertionError(f"instanced {kind} on wave 0 differs from "
+                                 f"the earlier route")
+        peaks = {}
+        for name, fn in (("old", old_query), ("new", call)):
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - mem0
+        nbytes, nops = instanced_work(im, o_, d_, tm_,
+                                      got if closest else got[0], blk)
+        dev_ms, q_ms = kernel_ms(call, "instanced_kernel", iters=5)
+        pdev_ms, pq_ms = kernel_ms(period, "cluster_kernel", iters=5)
+        iq[kind] = dict(
+            rays=n, ms=time_ms(call, iters=5), device_ms=dev_ms,
+            queued_ms=q_ms, period_ms=time_ms(period, iters=5),
+            period_device_ms=pdev_ms, period_queued_ms=pq_ms,
+            old_query_ms=time_ms(old_query, iters=5),
+            plain_ms=time_ms(plain, iters=1), bound=bound_ms(nbytes, nops),
+            old_query_bytes=peaks["old"], new_query_bytes=peaks["new"],
+            max_abs_err=(((got[0] - ref[0]).abs()[got[1] >= 0].max().item()
+                          if (got[1] >= 0).any() else 0.0) if closest
+                         else (got[0] != ref[0]).float().max().item()),
+            hit=((got[1] >= 0) if closest else got[0]).float().mean().item())
+    # the instanced entries at every query of wave 0 as the kernel path
+    # runs it (render/fuzz.py wave_queries): live rays and ms by events
+    inst_bounces = []
+    for q in fuzz.wave_queries(ds_i, cam_i, film_i, cfg_i,
+                               integ.KERNEL_OPS):
+        if not q["kind"].endswith("_instanced"):
+            continue
+        args = (q["w"], q["cbox"], q["itab"], q["o"], q["d"], q["tmax"],
+                q["n_alive"])
+        if q["kind"] == "closest_instanced":
+            fn = functools.partial(ops.closest_hit_instanced, *args)
+        else:
+            fn = functools.partial(ops.any_hit_instanced, *args,
+                                   q["blocked_in"])
+        inst_bounces.append(dict(
+            kind=q["kind"], ms=time_ms(fn, iters=5),
+            live=n if q["n_alive"] is None else int(q["n_alive"])))
+    for kind, row in (("closest", "closest_hit_instanced"),
+                      ("any", "any_hit_instanced")):
+        kern_rows[row] = dict(
+            max_abs_err=iq[kind]["max_abs_err"], ms=iq[kind]["ms"],
+            plain_ms=iq[kind]["plain_ms"], bound=iq[kind]["bound"])
     _say("[15] cb_inst.json (" f"{n_inst} instances of {im.attr.shape[0]} "
          f"triangles in {im.cw.shape[0]} clusters, "
          f"{ds_i.ktab.shape[0]} spheres, no world triangle): " + "; ".join(
              f"{r['set']}: world K1 / K2 with no cluster equal to plain "
              f"{r['world_equal']} ({r['sphere_lanes']} sphere lanes, no "
-             f"descriptor {r['no_encode']}), instanced {n_inst} x {n4} lanes"
-             f" slots agree {r['slots_agree']:.6f} (hit {r['inst_hit']:.4f}"
-             f"), blocked agree {r['blocked_agree']:.6f}, max t rel "
-             f"{r['t_rel']:.2e}, dead lanes miss {r['dead_lanes_miss']}, "
-             f"query hits agree {r['query_hit_agree']:.6f}" for r in k15)
+             f"descriptor {r['no_encode']}), instanced K1 / K2 on {n4} "
+             f"rays equal to plain {r['instanced_equal']} (hit "
+             f"{r['inst_hit']:.4f}, blocked {r['inst_blocked']:.4f}), "
+             f"{n_inst} x {n4}-lane period launches equal to plain and to "
+             f"the instanced entries {r['period_equal']}, dead lanes miss "
+             f"{r['dead_lanes_miss']}, query hits agree "
+             f"{r['query_hit_agree']:.6f}" for r in k15)
          + f" | 64x48 4spp depth 8: launches {inst_launches}; max |kernel "
          f"- plain| {dinst:.3e} (gate {PLAIN_ATOL}) | train step 64x48: "
          f"loss kernels {losses15['kernels']:.6e} plain "
@@ -2725,20 +2867,31 @@ def main(argv=None):
          + f"; finite {finite15} | 256x256 16spp depth 8: {inst_rate:.0f} "
          f"paths/s (no sphere test outside K1 / K2) | one wave "
          f"{1e3 * iwave_s:.1f} ms, kernel launches {iwave_launches}, TMA "
-         f"encodes {iwave_encodes}, device busy {1e3 * ibusy:.1f} ms in "
+         f"encodes {iwave_encodes}, batched products {ibmm}, peak memory "
+         f"{iwave_mem / 2**20:.1f} MiB, device busy {1e3 * ibusy:.1f} ms in "
          f"{ink} launches (share {ibusy / iwave_s:.2f}), of which "
          + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in iown.items())
          + f" | cb.json plus cb_inst's instances: TMA encodes {mix_first} in"
          f" the first wave, {mix_encodes} in the next "
          f"({mix_launches['closest_hit']} K1 / {mix_launches['any_hit']} K2 "
-         f"launches) | per instanced query on "
-         f"wave 0: " + "; ".join(
-             f"{'K1' if k == 'closest' else 'K2'} {v['lanes']} lanes: equal "
-             f"to plain {v['lanes_equal']:.6f}, hit / blocked "
-             f"{v['live_hit']:.4f}, {v['ms']:.3f} ms by events (device "
-             f"{v['device_ms']:.3f}, queued {v['queued_ms']:.3f}) vs bound "
+         f"+ {mix_launches['closest_hit_instanced']} / "
+         f"{mix_launches['any_hit_instanced']} instanced launches) | per "
+         f"instanced query on wave 0 ({n} rays): " + "; ".join(
+             f"{'K1' if k == 'closest' else 'K2'}: equal to plain, hit / "
+             f"blocked {v['hit']:.4f}, {v['ms']:.4f} ms by events (device "
+             f"{v['device_ms']:.4f}, queued {v['queued_ms']:.4f}) vs bound "
              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}), plain "
-             f"{v['plain_ms']:.1f} ms" for k, v in iq.items())
+             f"{v['plain_ms']:.1f} ms; the period launch over "
+             f"{n_inst * n} lanes {v['period_ms']:.4f} ms (device "
+             f"{v['period_device_ms']:.4f}, queued "
+             f"{v['period_queued_ms']:.4f}), the earlier query whole "
+             f"{v['old_query_ms']:.4f} ms; peak memory of the query "
+             f"{v['old_query_bytes'] / 2**20:.1f} MiB before, "
+             f"{v['new_query_bytes'] / 2**20:.2f} MiB now"
+             for k, v in iq.items())
+         + " | the instanced launches of wave 0 (live rays: ms): " + ", ".join(
+             f"{'K1' if b['kind'] == 'closest_instanced' else 'K2'} "
+             f"{b['live']}: {b['ms']:.4f}" for b in inst_bounces)
          + f" ({card})")
 
     # phase 16: the Whitted and bidirectional (BPT) renderers on cb.json
@@ -3084,6 +3237,9 @@ def main(argv=None):
                            mixed_encodes=[mix_first, mix_encodes],
                            inst_queries={k: dict(v, bound=list(v["bound"]))
                                          for k, v in iq.items()},
+                           inst_bounces=inst_bounces,
+                           inst_wave_batched_products=ibmm,
+                           inst_wave_peak_bytes=iwave_mem,
                            bpt_queries=q16,
                            bpt_kernels={k: dict(v, bound=list(v["bound"]))
                                         for k, v in bpt_kern.items()},

@@ -533,11 +533,72 @@ def test_no_cluster_kernels_match_plain(card, full_phi):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_alive", [None, 3000])
+def test_instanced_entries_match_plain_and_period_route(card, n_alive):
+    """cb_inst.json's instanced mesh (100 instances): the instanced K1 /
+    K2, one launch each over 4,096 world rays started across the grid
+    (half of them bounded), the any hit from random world flags, against
+    their plain versions (slots, instances and flags on >= SLOT_GATE of
+    the lanes, t within T_RTOL where they agree) and against the earlier
+    route (the [I * N]-lane launches with period N, then the nearest
+    instance), which shares their cluster tests, on every lane to the
+    bit."""
+    scene, *_ = scenedesc.parse_scene(
+        os.path.join(REPO, "examples/cornellbox/cb_inst.json"))
+    ds = sc.DeviceScene.build(scene, card)
+    im = ds.inst[0]
+    n, ni = 4096, im.n_instances
+    rng = np.random.default_rng(7)
+    lo = im.itab[:, 12:15].amin(0).cpu().numpy()
+    hi = im.itab[:, 15:18].amax(0).cpu().numpy()
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=card)  # noqa
+    o, d = f(rng.uniform(lo, hi, (n, 3))), f(d)
+    tmax = f(np.where(np.arange(n) % 2 == 0, np.inf,
+                      rng.uniform(0.1, 20.0, n)))
+    world = torch.tensor(rng.uniform(size=n) < 0.3, device=card)
+    na = None if n_alive is None else torch.tensor(n_alive, device=card)
+    live = torch.arange(n, device=card) < (n if n_alive is None
+                                           else n_alive)
+    tabs = (im.cw, im.cbox, im.itab)
+    before = (ops.CLOSEST_HIT_INSTANCED.launches,
+              ops.ANY_HIT_INSTANCED.launches)
+    t, s, i = ci.intersect_instanced(*tabs, o, d, tmax, na)
+    b = ci.occluded_instanced(*tabs, o, d, tmax, na, world)
+    assert (ops.CLOSEST_HIT_INSTANCED.launches,
+            ops.ANY_HIT_INSTANCED.launches) == (before[0] + 1,
+                                                before[1] + 1)
+    t_p, s_p, i_p = ci.intersect_instanced_reference(*tabs, o, d, tmax, na)
+    b_p = ci.occluded_instanced_reference(*tabs, o, d, tmax, na, world)
+    agree = (s == s_p) & (i == i_p)
+    assert agree.float().mean().item() >= SLOT_GATE
+    hit = agree & (s >= 0)
+    torch.testing.assert_close(t[hit], t_p[hit], rtol=T_RTOL, atol=0.0)
+    assert (b == b_p).float().mean().item() >= SLOT_GATE
+    assert (s[~live] == -1).all() and not b[~live].any()
+    assert (s >= 0).float().mean().item() > 0.3
+    # the earlier route, every lane
+    ol, dl = sc.instance_rays(im, o, d)
+    t_f, s_f = ci.intersect_clusters(im.cw, im.cbox, ol, dl,
+                                     tmax.repeat(ni), na, period=n)
+    t_im = torch.where(s_f >= 0, t_f, float("inf")).reshape(ni, n)
+    first = torch.argmin(t_im, 0)
+    assert torch.equal(s_f.reshape(ni, n).gather(0, first[None])[0], s)
+    assert torch.equal(first.int(), i)
+    assert torch.equal(torch.where(s >= 0, t_im.gather(0, first[None])[0],
+                                   tmax), t)
+    b_f = ci.occluded_clusters(im.cw, im.cbox, ol, dl, tmax.repeat(ni), na,
+                               period=n).reshape(ni, n).any(0)
+    assert torch.equal(b_f | (world & live), b)
+
+
+@pytest.mark.gpu
 def test_instanced_render_kernel_path_matches_plain_path(card):
     """cb_inst.json (100 instances of the Cornell box, 200 spheres, an
     empty world pool) at 24x16, 2 spp, depth 3: the kernel path, whose
-    instanced queries are [I * N]-lane K1 / K2 launches, against the
-    plain path."""
+    instanced queries launch the instanced K1 / K2, against the plain
+    path."""
     scene, camera, film, config, _ = scenedesc.parse_scene(
         os.path.join(REPO, "examples/cornellbox/cb_inst.json"),
         spp_override=2, resolution_override=(24, 16))

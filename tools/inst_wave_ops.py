@@ -9,11 +9,12 @@ more (through chip_smoke.py's ``profiled``, which retakes a trace that
 holds no device event) and prints, per kernel name, its launches and
 device ms summed over the wave, the N largest first, beside the wave's
 busy time (the union of its kernel intervals, chip_smoke.py
-``_busy_s``), its wall time and the card's name and power limit.  The
-K1 / K2 launches are split into the world's and the instanced ones by
-their order: each scene query of a scene with one instanced mesh
-launches the world's first, then the mesh's (scene.closest_hits,
-scene.occluded).  Needs one card.  Prints one JSON object.
+``_busy_s``), its wall time, the batched matrix products it ran (the
+frame transforms of the earlier instanced route), its peak device
+memory and the card's name and power limit.  The K1 / K2 launches are
+named by kernel: the world's (cluster_kernel) and the instanced
+entries' (instanced_kernel).  Needs one card.  Prints one JSON
+object.
 """
 
 import argparse
@@ -60,30 +61,28 @@ def main(argv=None):
     with torch.no_grad():
         integ.trace_wave(*wave)
         torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         integ.trace_wave(*wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
         _, prof = cs.profiled(lambda: integ.trace_wave(*wave))
     if prof is None:
         raise SystemExit("inst_wave_ops: no trace held the device events")
     busy, launches, _ = cs._busy_s(prof)
-    if len(ds.inst) != 1:
-        raise SystemExit("inst_wave_ops: the scene must hold one instanced "
-                         "mesh")
-    events = sorted((e for e in prof.events()
-                     if e.device_type.name == "CUDA"
-                     and e.time_range.end > 0),
-                    key=lambda e: e.time_range.start)
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.time_range.end > 0]
     groups = collections.defaultdict(lambda: [0, 0.0])
-    seen = collections.Counter()
     for e in events:
         name = e.name
-        if "cluster_kernel" in name:
-            kind = "K1" if ("<false>" in name or "ILb0E" in name) \
-                else "K2"
-            name = kind + (" instanced" if seen[kind] % 2 else " world")
-            seen[kind] += 1
+        for key, label in (("cluster_kernel", " world"),
+                           ("instanced_kernel", " instanced")):
+            if key in name:
+                kind = "K1" if ("<false>" in name or "ILb0E" in name) \
+                    else "K2"
+                name = kind + label
         g = groups[name[:90]]
         g[0] += 1
         g[1] += 1e-3 * (e.time_range.end - e.time_range.start)
@@ -91,6 +90,7 @@ def main(argv=None):
     print(json.dumps(dict(
         scene=os.path.relpath(args.scene, REPO), wall_ms=1e3 * wall,
         busy_ms=1e3 * busy, launches=launches,
+        batched_products=cs.batched_products(prof), peak_bytes=peak,
         kernels=[dict(name=k, launches=v[0], device_ms=v[1])
                  for k, v in top],
         card=cs.card_line()), indent=1))
