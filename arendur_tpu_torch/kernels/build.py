@@ -162,8 +162,18 @@ def load() -> _Kernels:
             lib.arendur_shade_split.restype = I
             lib.arendur_shade_split_occupancy.argtypes = [I, I, P]
             lib.arendur_shade_split_occupancy.restype = I
-            for name in ("arendur_slot_sample", "arendur_slot_eval_pdf"):
+            fields = [P] * 12   # the BsdfSlots fields (ops.SLOT_FIELDS)
+            lib.arendur_slot_sample.argtypes = fields + [P, P, P, L, I, P,
+                                                         P, P, P, P, P]
+            lib.arendur_slot_eval_pdf.argtypes = fields + [P, P, L, I, P, P,
+                                                           P, P]
+            lib.arendur_slot_order.argtypes = [P, L, P, I, P, P, P]
+            for name in ("arendur_slot_sample_packed",
+                         "arendur_slot_eval_pdf_packed"):
                 getattr(lib, name).argtypes = [P, L, I, P, P, P]
+            for name in ("arendur_slot_sample", "arendur_slot_eval_pdf",
+                         "arendur_slot_order", "arendur_slot_sample_packed",
+                         "arendur_slot_eval_pdf_packed"):
                 getattr(lib, name).restype = I
             _lib = lib
         return _lib

@@ -323,7 +323,11 @@ HDB F path_mis_weight_rows(Row lr, const ShadeCfg& cfg,
 
 // A slot chosen at run time is read through slot_at, whose pick3 (the
 // including namespace's) keeps the forward's slot arrays in registers;
-// the loops over slots that evaluate one are SLOT_LOOPs.
+// the loops over slots that evaluate one are SLOT_LOOPs.  The sweeps
+// (match_count, bsdf_eval_pdf, bsdf_sample) take any B with the frame
+// (ns ts bs ng), the slots' kinds (kind[k]) and a slot_at(b, k): a
+// Slots here, or the slot sweeps' reader of a lane's BSDF in device
+// memory (slot_shade.cuh LaneSlots).
 struct Slots {
   V3 ns, ts, bs, ng;
   int type[MAX_SLOTS], kind[MAX_SLOTS], dist[MAX_SLOTS];
@@ -432,7 +436,8 @@ HDB Slots build_slots(int mtype, V3 kd, V3 ks, F sigma, F rough,
   return b;
 }
 
-HD int match_count(const Slots& b, int types) {
+template <class B>
+HD int match_count(const B& b, int types) {
   int cnt = 0;
 #pragma unroll
   for (int k = 0; k < MAX_SLOTS; ++k) cnt += (b.kind[k] & types) != 0;
@@ -759,7 +764,8 @@ HDB void slot_sample(int stype, V3 c0, V3 c1, F p0, F p1, F p2,
 
 // The slot sweeps over the kinds in `types` (the bounce passes ALL; the
 // slot-sweep kernels K8 / K9 pass their caller's set).
-HDB void bsdf_eval_pdf(const Slots& b, V3 wow, V3 wiw, const ShadeCfg& cfg,
+template <class B>
+HDB void bsdf_eval_pdf(const B& b, V3 wow, V3 wiw, const ShadeCfg& cfg,
                       V3* f_, F* pdf_, int types = ALL) {
   V3 wo = vnormalize(to_local(b.ts, b.bs, b.ns, wow));
   V3 wi = vnormalize(to_local(b.ts, b.bs, b.ns, wiw));
@@ -789,7 +795,8 @@ HDB void bsdf_eval_pdf(const Slots& b, V3 wow, V3 wiw, const ShadeCfg& cfg,
   *f_ = f;
 }
 
-HDB void bsdf_sample(const Slots& b, V3 wow, float ux, float uy,
+template <class B>
+HDB void bsdf_sample(const B& b, V3 wow, float ux, float uy,
                     const ShadeCfg& cfg, V3* f_, V3* wiw_, F* pdf_,
                     int* kind_, int types = ALL) {
   int nmatch = match_count(b, types);

@@ -4,17 +4,21 @@ Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs and scratch, launches its kernel on PyTorch's current stream,
 raises if the launch was refused, and adds one to its ``launches``
 count.  The callers (shapes/cluster_intersect.py, render/cbounce.py,
-bxdf/slot_shade.py) reach these only for CUDA tensors.
+bxdf/slot_shade.py) reach these only for CUDA tensors.  Each
+configuration a kernel takes is packed once and cached (_shade_cfg,
+_slot_cfg); no numpy runs on a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
 
+from arendur_tpu_torch.bxdf import slots as sl
 from arendur_tpu_torch.kernels import build
 from arendur_tpu_torch.render import cbounce as cb
 from arendur_tpu_torch.shapes import cluster_intersect as ci
@@ -50,10 +54,13 @@ HIT_SHADE = Kernel("hit_shade")
 SHADE_SPLIT = Kernel("shade_split")
 SLOT_SAMPLE = Kernel("slot_sample")
 SLOT_EVAL_PDF = Kernel("slot_eval_pdf")
+# the material-recipe order K8 shades its lanes in (one call, two
+# launches, once per BSDF)
+SLOT_ORDER = Kernel("slot_order")
 KERNELS = (CLOSEST_HIT, ANY_HIT, CLOSEST_HIT_SPHERES, ANY_HIT_SPHERES,
            CLOSEST_HIT_INSTANCED, ANY_HIT_INSTANCED, BOUNCE_SHADE,
            BOUNCE_SHADE_BWD, HIT_SHADE, SHADE_SPLIT, SLOT_SAMPLE,
-           SLOT_EVAL_PDF)
+           SLOT_EVAL_PDF, SLOT_ORDER)
 
 
 def reset_counts():
@@ -448,42 +455,171 @@ def shade_split(xt, ltab, static, min_depth: int, rr_threshold: float,
     return out
 
 
-def _slot_sweep(lib_fn, kernel: Kernel, xt, out_rows: int, types: int,
-                present, dists):
+@functools.lru_cache(maxsize=256)
+def _slot_cfg(present, dists):
+    """(a pointer to the slot sweeps' packed ShadeCfg, its number of
+    material-recipe keys), packed once per (present, dists) set (the
+    pointer keeps its array alive).  A column of P present types has P +
+    1 key codes (kernels/slot_shade.cuh recipe_key)."""
+    words = pack_slot_cfg(present, dists)
+    nkeys = 1
+    for w in words[:sl.MAX_SLOTS]:
+        nkeys *= bin(int(w)).count("1") + 1
+    return words.ctypes.data_as(ctypes.c_void_p), nkeys
+
+
+# the BsdfSlots fields the slot sweeps read, in the C entries' order,
+# with their dtypes and their shapes past N
+_K = sl.MAX_SLOTS
+SLOT_FIELDS = (("ns", torch.float32, (3,)), ("ts", torch.float32, (3,)),
+               ("bs", torch.float32, (3,)), ("ng", torch.float32, (3,)),
+               ("type", torch.int32, (_K,)), ("kind", torch.int32, (_K,)),
+               ("dist", torch.int32, (_K,)),
+               ("c0", torch.float32, (_K, 3)), ("c1", torch.float32, (_K, 3)),
+               ("p0", torch.float32, (_K,)), ("p1", torch.float32, (_K,)),
+               ("p2", torch.float32, (_K,)))
+ORDER_TILE = 1024   # lanes a block of the order kernels takes
+
+
+# per BsdfSlots (frozen, eq=False: keyed by identity) the slot sweeps'
+# checked arguments, kept for its later calls and dropped with it
+_SLOT_ARGS = weakref.WeakKeyDictionary()
+
+
+def _slot_args(b):
+    """(the BSDF's field pointers, N, its device, the ShadeCfg pointer,
+    the number of recipe keys): the fields checked and made contiguous
+    (a contiguous field is not copied) once per BsdfSlots and kept in
+    _SLOT_ARGS with the tensors they point into."""
+    got = _SLOT_ARGS.get(b)
+    if got is None:
+        n = b.ns.shape[0]
+        held = []
+        for name, dtype, tail in SLOT_FIELDS:
+            t = getattr(b, name).contiguous()
+            _check(t, name, dtype, (n,) + tail)
+            held.append(t)
+        if any(t.device != held[0].device for t in held):
+            raise ValueError("the BsdfSlots fields lie on several devices")
+        cfg, nkeys = _slot_cfg(b.present, b.dists)
+        got = _SLOT_ARGS[b] = (
+            tuple(t.data_ptr() for t in held), n, held[0].device, cfg,
+            nkeys, held)
+    return got[:5]
+
+
+def _lane_args(dev, n: int, *named):
+    """Pointers of the per-lane inputs (name, tensor, width), checked to
+    lie on dev as contiguous [n, width] f32 (a contiguous input is not
+    copied); the tensors are returned to outlive the launch's
+    enqueue."""
+    held = []
+    for name, t, width in named:
+        t = t.contiguous()
+        _check(t, name, shape=(n, width))
+        if t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, the BSDF on {dev}")
+        held.append(t)
+    return [t.data_ptr() for t in held], held
+
+
+def _order_ptr(order, n: int, dev):
+    _check(order, "order", dtype=torch.int32, shape=(n,))
+    if order.device != dev:
+        raise ValueError(f"order lies on {order.device}, the BSDF on {dev}")
+    return order.data_ptr()
+
+
+def slot_order(b):
+    """The material-recipe order of b's lanes on the card: order [N]
+    int32, a stable sort of the lanes by their slot types' key
+    (kernels/slot_shade.cuh recipe_key; plain twin:
+    bxdf/slot_shade.py lane_order_reference).  One call, two launches
+    (each tile's key counts, then its lanes placed); no host sync."""
+    lib = build.load()
+    ptrs, n, dev, cfg, nkeys = _slot_args(b)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(nkeys * max(1, -(-n // ORDER_TILE)),
+                         dtype=torch.int32, device=dev)
+    code = lib.arendur_slot_order(ptrs[4], n, cfg, nkeys, counts.data_ptr(),
+                                  order.data_ptr(), _stream(order))
+    _raise_on(code, "slot_order")
+    SLOT_ORDER.launched()
+    return order
+
+
+def slot_sample(b, wo, u, types: int, order):
+    """K8: the slot-mixture sample of the BsdfSlots b on the card, read
+    where its fields lie: (f [N,3], wi [N,3], pdf [N], kind [N] int32).
+    order [N] int32, b's recipe order (slot_order): thread i shades lane
+    order[i] (a lane's results do not depend on the order)."""
+    lib = build.load()
+    ptrs, n, dev, cfg, _ = _slot_args(b)
+    ins, _held = _lane_args(dev, n, ("wo", wo, 3), ("u", u, 2))
+    f32 = dict(dtype=torch.float32, device=dev)
+    f, wi = torch.empty(n, 3, **f32), torch.empty(n, 3, **f32)
+    pdf = torch.empty(n, **f32)
+    kind = torch.empty(n, dtype=torch.int32, device=dev)
+    code = lib.arendur_slot_sample(
+        *ptrs, *ins, _order_ptr(order, n, dev), n, int(types), cfg,
+        f.data_ptr(), wi.data_ptr(), pdf.data_ptr(), kind.data_ptr(),
+        _stream(f))
+    _raise_on(code, "slot_sample")
+    SLOT_SAMPLE.launched()
+    return f, wi, pdf, kind
+
+
+def slot_eval_pdf(b, wo, wi, types: int):
+    """K9: the fused evaluate + pdf of the slot mixture of b on the card,
+    read where its fields lie, its lanes in wave order: (f [N,3], pdf
+    [N])."""
+    lib = build.load()
+    ptrs, n, dev, cfg, _ = _slot_args(b)
+    ins, _held = _lane_args(dev, n, ("wo", wo, 3), ("wi", wi, 3))
+    f = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    pdf = torch.empty(n, dtype=torch.float32, device=dev)
+    code = lib.arendur_slot_eval_pdf(
+        *ptrs, *ins, n, int(types), cfg, f.data_ptr(), pdf.data_ptr(),
+        _stream(f))
+    _raise_on(code, "slot_eval_pdf")
+    SLOT_EVAL_PDF.launched()
+    return f, pdf
+
+
+def _slot_sweep_packed(lib_fn, kernel: Kernel, xt, in_rows: int,
+                       out_rows: int, types: int, present, dists):
     xt = xt.detach().contiguous()
-    n = xt.shape[1]
     _check(xt, "xt")
-    cfg = pack_slot_cfg(present, dists)
+    if xt.dim() != 2 or xt.shape[0] != in_rows:
+        raise ValueError(f"xt has shape {tuple(xt.shape)}, expected "
+                         f"({in_rows}, N)")
+    n = xt.shape[1]
+    cfg, _ = _slot_cfg(present, dists)
     out = torch.empty(out_rows, n, dtype=torch.float32, device=xt.device)
-    code = lib_fn(xt.data_ptr(), n, int(types),
-                  cfg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(),
+    code = lib_fn(xt.data_ptr(), n, int(types), cfg, out.data_ptr(),
                   _stream(xt))
     _raise_on(code, kernel.name)
     kernel.launched()
     return out
 
 
-def slot_sample(xt, types: int, present, dists):
-    """K8: the slot-mixture sample over the lane-major BSDF columns
-    (bxdf/slot_shade.py layout), [SLOT_COLS + 5, N] -> f wi pdf kind
-    [8, N] on the card."""
+def slot_sample_packed(xt, types: int, present, dists):
+    """The earlier route of K8, kept to be timed beside the new one (no
+    render launches it): the lane-major pack of bxdf/slot_shade.py
+    pack_slots, [SLOT_COLS + 5, N] -> f wi pdf kind [8, N]."""
     from arendur_tpu_torch.bxdf import slot_shade as ssh
-    if xt.shape[0] != ssh.SAMPLE_IN_COLS:
-        raise ValueError(f"xt has {xt.shape[0]} rows, expected "
-                         f"{ssh.SAMPLE_IN_COLS}")
-    return _slot_sweep(build.load().arendur_slot_sample, SLOT_SAMPLE, xt,
-                       ssh.SAMPLE_OUT_COLS, types, present, dists)
+    return _slot_sweep_packed(build.load().arendur_slot_sample_packed,
+                              SLOT_SAMPLE, xt, ssh.SAMPLE_IN_COLS,
+                              ssh.SAMPLE_OUT_COLS, types, present, dists)
 
 
-def slot_eval_pdf(xt, types: int, present, dists):
-    """K9: the fused evaluate + pdf of the slot mixture,
-    [SLOT_COLS + 6, N] -> f pdf [4, N] on the card."""
+def slot_eval_pdf_packed(xt, types: int, present, dists):
+    """The earlier route of K9 (as slot_sample_packed):
+    [SLOT_COLS + 6, N] -> f pdf [4, N]."""
     from arendur_tpu_torch.bxdf import slot_shade as ssh
-    if xt.shape[0] != ssh.EVAL_IN_COLS:
-        raise ValueError(f"xt has {xt.shape[0]} rows, expected "
-                         f"{ssh.EVAL_IN_COLS}")
-    return _slot_sweep(build.load().arendur_slot_eval_pdf, SLOT_EVAL_PDF,
-                       xt, ssh.EVAL_OUT_COLS, types, present, dists)
+    return _slot_sweep_packed(build.load().arendur_slot_eval_pdf_packed,
+                              SLOT_EVAL_PDF, xt, ssh.EVAL_IN_COLS,
+                              ssh.EVAL_OUT_COLS, types, present, dists)
 
 
 # K4's tape: nodes per lane (a fuzzed lane records up to ~2,300, a

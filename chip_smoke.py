@@ -78,8 +78,14 @@ Phases, one line each:
      box (examples/cornellbox/cb_etex.json) and on 65,536 fuzz lanes
      (the five material recipes with the kind sets ALL and
      ALL_NON_SPECULAR, grazing glass lanes, a pruned single-recipe
-     table), equal to the bit on every lane; their times by CUDA
-     events on inputs rotated past the L2 and their device time from a
+     table), equal to the bit on every lane through the entries (K8 in
+     the BSDF's recipe order, built once, equal to its plain twin; K9
+     in wave order), and K8 in the identity order equal to the bit; on
+     the first bounce, by CUDA events on inputs rotated past the L2,
+     the sweeps as the entries launch them, the order, the earlier
+     route's raw launch on the lane-major pack, and the whole entry
+     calls (BSDF in, outputs out) by the new route and by the earlier
+     one (pack, launch, split), and the sweeps' device time from a
      torch.profiler trace;
  12. the composed main path on cb_etex.json: a 64x48, 32 spp, depth-8
      render through the kernels against the plain path (K1, K2, K8 and
@@ -88,7 +94,8 @@ Phases, one line each:
      paths/s at 256x256, 16 spp, depth 8 on the kernel and the plain
      path and their ratio to phase 6's fused rate; the launches of
      each kernel in one composed wave, and its device busy share from
-     a torch.profiler trace;
+     a torch.profiler trace, with K8 / K9 / the order's launches and
+     device ms in that wave;
  13. the wide tables: the Cornell box with each material row copied 5
      times (45 rows, more than the 32 of the JAX package's fused
      kernel; K7 serves such tables on the TPU): K3 against its plain
@@ -146,14 +153,16 @@ Phases, one line each:
      query, rays started 1e-4 off the sphere lights, reported apart)
      with each query's time by CUDA events, bound and plain time, and
      K8 / K9 equal to their plain versions to the bit on every call,
-     timed on eight calls each (inputs rotated past the L2); the 64x48,
+     one recipe order a BSDF equal to its plain twin, timed on four
+     calls each as in phase 11 (inputs rotated past the L2); the 64x48,
      8 spp, depth-8 BPT render and the 64x48, 32 spp Whitted render
      through the kernels against the plain path (K1, K2, K8, K9 must
      have launched in BPT's, K1, K2, K9 in Whitted's, no bounce shade
      in either); BPT and Whitted paths/s at 256x256, 16 spp, depth 8
      (BPT's from two timed waves where the whole frame would take more
      than 60 s); one BPT wave's launches, top-level host ops, device
-     busy share and each kernel's launches and device ms;
+     busy share and each kernel's launches and device ms, the order's
+     under K8 / K9;
  17. the paths the port took over last (phase17): on phase 3's recorded
      cb.json query sets (65,536-lane waves), the BVH walk and the brute
      force against K1 / K2 without the sphere table, lane by lane (the
@@ -197,8 +206,8 @@ runs outside K1 / K2 there.
 Then the kernels JSON line (each kernel's launches in the run of its
 main path: K1-K4 in the kernel-path train step of phase 8, K1 / K2
 with a sphere table counted apart as well, K5 and K6
-in phase 10's textured render, K8 and K9 in phase 12's composed
-render, K7 (K3 on the wide tables) in phase 13's render, K1 / K2's
+in phase 10's textured render, K8, K9 and their recipe order in phase
+12's composed render, K7 (K3 on the wide tables) in phase 13's render, K1 / K2's
 instanced launches in phase 15's 64x48 render, and for K1 / K2 / K8 /
 K9 also their launches in phase 16's 64x48 BPT render and in one BPT
 wave, and their ms, plain ms and bound on BPT's wave-0 sets (bpt_*);
@@ -262,7 +271,8 @@ TRAIN_KERNELS = FORWARD_KERNELS + ("bounce_shade_bwd",)
 TEXTURED_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
                     "any_hit_spheres", "hit_shade", "shade_split")
 COMPOSED_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
-                    "any_hit_spheres", "slot_sample", "slot_eval_pdf")
+                    "any_hit_spheres", "slot_sample", "slot_eval_pdf",
+                    "slot_order")
 FUSED_ATOL = 2e-3        # forced composed vs fused (tests/test_pallas_shade)
 SPHERE_KERNELS = ("closest_hit_spheres", "any_hit_spheres")
 INSTANCED_KERNELS = FORWARD_KERNELS + ("closest_hit_instanced",
@@ -306,6 +316,30 @@ def rotating(call, x):
               range(2 * L2_BYTES // (x.numel() * x.element_size()) + 2)]
     it = itertools.cycle(copies)
     return lambda: call(next(it))
+
+
+def slot_rotation(b, wo, x):
+    """Copies (b', wo', x') of a BSDF's fields and its per-lane inputs
+    that together hold more than twice the L2 (as rotating's), each b'
+    with its recipe order built and kept (bxdf/slot_shade.py
+    lane_order)."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.kernels import ops
+    names = [k for k, _, _ in ops.SLOT_FIELDS]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in [getattr(b, k) for k in names] + [wo, x])
+    copies = []
+    for _ in range(2 * L2_BYTES // nbytes + 2):
+        bc = b.replace(**{k: getattr(b, k).detach().clone() for k in names})
+        ssh.lane_order(bc)
+        copies.append((bc, wo.detach().clone(), x.detach().clone()))
+    return copies
+
+
+def cycling(fn, copies):
+    """A call of fn(*copy) over the copies in turn."""
+    it = itertools.cycle(copies)
+    return lambda: fn(*next(it))
 
 
 def profiled(fn, key="", tries=3):
@@ -402,6 +436,22 @@ def bit_diff(a, b):
     """The elements of a and b that differ (NaN equals NaN)."""
     import torch
     return int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+
+
+def order_err(b):
+    """The largest |order - plain twin| of the recipe order kept for the
+    BSDF b (bxdf/slot_shade.py ORDERS, lane_order_reference)."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    order = ssh.ORDERS.get(b)
+    if order is None:
+        raise AssertionError("no recipe order is kept for a sampled BSDF")
+    ref = ssh.lane_order_reference(b).to(order.device)
+    return float((order.long() - ref.long()).abs().max().item())
+
+
+def slot_wave_text(got):
+    """slot_wave_ms's (launches, device ms) as text."""
+    return ", ".join(f"{k} ({c}, {t_:.4f})" for k, (c, t_) in got.items())
 
 
 def kernel_ms(fn, key, iters=10):
@@ -674,6 +724,10 @@ def ptxas_report(logs):
                                          "shade_split_kernel",
                                          "slot_sample_kernel",
                                          "slot_eval_pdf_kernel",
+                                         "slot_sample_packed_kernel",
+                                         "slot_eval_pdf_packed_kernel",
+                                         "slot_order_count_kernel",
+                                         "slot_order_scatter_kernel",
                                          "cluster_kernelILb0E",
                                          "cluster_kernelILb1E")
                              if k in line), line.split("'")[1][:40])
@@ -738,7 +792,7 @@ def _busy_s(prof):
         for k in ("bounce_shade_bwd", "bounce_shade_kernel",
                   "hit_shade_kernel", "shade_split_kernel",
                   "slot_sample_kernel", "slot_eval_pdf_kernel",
-                  "cluster_kernel", "instanced_kernel"):
+                  "slot_order", "cluster_kernel", "instanced_kernel"):
             if k in e.name:
                 own[k] = own.get(k, 0.0) + 1e-6 * (e.time_range.end
                                                    - e.time_range.start)
@@ -1180,6 +1234,58 @@ def plain_sweeps():
         yield
     finally:
         ssh.bsdf_sample, ssh.bsdf_eval_pdf = saved
+
+
+def slot_entry_times(b, wo, x, types, sample, iters=10):
+    """ms by CUDA events per call, inputs rotated past the L2, of K8
+    (sample) or K9 on one BSDF: the sweep as the entry launches it (K8
+    in the BSDF's recipe order, K9 in wave order), K8's order alone (two
+    launches), the earlier route's raw launch on the lane-major pack (in
+    wave order), and the whole entry calls, BSDF in and outputs out: the
+    new route on a BSDF seen first (its fields checked, K8's order
+    built) and on one whose checks and order are kept, and the earlier
+    route (pack, launch, split)."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.kernels import ops
+    packed = ops.slot_sample_packed if sample else ops.slot_eval_pdf_packed
+    entry = ssh.bsdf_sample if sample else ssh.bsdf_eval_pdf
+    earlier = ssh.sample_packed if sample else ssh.eval_pdf_packed
+    copies = slot_rotation(b, wo, x)
+    t = lambda fn: time_ms(cycling(fn, copies), iters)  # noqa: E731
+    if sample:
+        out = dict(
+            sweep=t(lambda bb, w, x_: ops.slot_sample(
+                bb, w, x_, types, ssh.lane_order(bb))),
+            order=t(lambda bb, w, x_: ops.slot_order(bb)))
+    else:
+        out = dict(sweep=t(lambda bb, w, x_: ops.slot_eval_pdf(
+            bb, w, x_, types)))
+    out.update(
+        entry_first=t(lambda bb, w, x_: entry(bb.replace(), w, x_, types)),
+        entry_kept=t(lambda bb, w, x_: entry(bb, w, x_, types)),
+        earlier_entry=t(lambda bb, w, x_: earlier(bb, w, x_, types)))
+    del copies
+    xs = ssh.pack_slots(b, wo, x)
+    out["earlier_raw"] = time_ms(rotating(
+        lambda x_: packed(x_, types, b.present, b.dists), xs), iters)
+    return out
+
+
+def slot_wave_ms(prof):
+    """K8's, K9's and the recipe order's device ms and launches in a
+    profile of one wave."""
+    got = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA" or e.time_range.end <= 0:
+            continue
+        k = ("K8" if "slot_sample_kernel" in e.name else
+             "K9" if "slot_eval_pdf_kernel" in e.name else
+             "order" if "slot_order" in e.name else None)
+        if k:
+            c, t_ = got.get(k, (0, 0.0))
+            got[k] = (c + 1, t_ + 1e-3 * (e.time_range.end
+                                          - e.time_range.start))
+    return got
 
 
 def step_rel(p, a, b):
@@ -2181,8 +2287,9 @@ def main(argv=None):
             (a - b).abs()[close].max().item()
 
     k89 = []
-    k8_err = k9_err = 0.0
+    k8_err = k9_err = ord_err = 0.0
     for nm, bx, wox, ux, wix, types in slot_cases:
+        before = ops.SLOT_ORDER.launches
         got = ssh.bsdf_sample(bx, wox, ux, types)
         ref = sl.bsdf_sample(bx, wox, ux, types)
         kinds = (got[3] == ref[3]).float().mean().item()
@@ -2192,27 +2299,48 @@ def main(argv=None):
         s9 = [close_share(got9[j], ref9[j]) for j in range(2)]
         k8_err = max([k8_err] + [v[2] for v in s8])
         k9_err = max([k9_err] + [v[2] for v in s9])
+        # one order for the BSDF's calls, equal to its plain twin; K8 in
+        # the identity (wave) order gives the same bits
+        orders = ops.SLOT_ORDER.launches - before
+        oerr = order_err(bx)
+        ord_err = max(ord_err, oerr)
+        in_wave = ops.slot_sample(bx, wox, ux, types, torch.arange(
+            bx.type.shape[0], dtype=torch.int32, device=dev))
         k89.append(dict(set=nm, types=types, k8_close=min(v[0] for v in s8),
                         k8_diff=sum(bit_diff(got[j], ref[j])
                                     for j in range(3)), k8_kinds=kinds,
                         k9_close=min(v[0] for v in s9),
                         k9_diff=sum(bit_diff(got9[j], ref9[j])
-                                    for j in range(2))))
+                                    for j in range(2)),
+                        orders=orders, order_err=oerr,
+                        wave_diff=sum(bit_diff(a.float(), b_.float())
+                                      for a, b_ in zip(in_wave, got))))
         if min(k89[-1]["k8_close"], k89[-1]["k9_close"], kinds) < K3_GATE \
-                or kinds < 1.0 or k89[-1]["k8_diff"] or k89[-1]["k9_diff"]:
+                or kinds < 1.0 or k89[-1]["k8_diff"] or k89[-1]["k9_diff"] \
+                or orders != 1 or oerr or k89[-1]["wave_diff"]:
             raise AssertionError(f"K8 / K9 {nm}: {k89[-1]}")
-    xs8 = ssh.pack_slots(b_e, -d_cam, u_b)
-    xs9 = ssh.pack_slots(b_e, -d_cam, wi_e)
-    slot_args = (31, b_e.present, b_e.dists)
-    k8_call = rotating(lambda x: ops.slot_sample(x, *slot_args), xs8)
-    k9_call = rotating(lambda x: ops.slot_eval_pdf(x, *slot_args), xs9)
-    k8_ms, k9_ms = time_ms(k8_call), time_ms(k9_call)
+    # the first bounce's calls, inputs rotated past the L2: the sweeps,
+    # the order, the whole entry calls by the new and the earlier route
+    t8 = slot_entry_times(b_e, -d_cam, u_b, 31, True)
+    t9 = slot_entry_times(b_e, -d_cam, wi_e, 31, False)
+    # the entries' launches: K8 in the recipe order, K9 in wave order
+    k8_ms, k9_ms, ord_ms = t8["sweep"], t9["sweep"], t8["order"]
     k8_plain = time_ms(lambda: sl.bsdf_sample(b_e, -d_cam, u_b), iters=3)
     k9_plain = time_ms(lambda: sl.bsdf_eval_pdf(b_e, -d_cam, wi_e), iters=3)
-    k8_dev, k8_q = kernel_ms(k8_call, "slot_sample_kernel")
-    k9_dev, k9_q = kernel_ms(k9_call, "slot_eval_pdf_kernel")
+    ord_plain = time_ms(lambda: ssh.lane_order_reference(b_e), iters=3)
+    c8, c9 = slot_rotation(b_e, -d_cam, u_b), slot_rotation(b_e, -d_cam, wi_e)
+    k8_dev, k8_q = kernel_ms(cycling(lambda bb, w, x: ops.slot_sample(
+        bb, w, x, 31, ssh.lane_order(bb)), c8), "slot_sample_kernel")
+    k9_dev, k9_q = kernel_ms(cycling(lambda bb, w, x: ops.slot_eval_pdf(
+        bb, w, x, 31), c9), "slot_eval_pdf_kernel")
+    ord_q = queued_ms(cycling(lambda bb, w, x: ops.slot_order(bb), c8))
+    del c8, c9
     k8_ops = plain_ops(lambda: sl.bsdf_sample(b_e, -d_cam, u_b))
     k9_ops = plain_ops(lambda: sl.bsdf_eval_pdf(b_e, -d_cam, wi_e))
+    ord_ops = plain_ops(lambda: ssh.lane_order_reference(b_e))
+    # bytes: each field and per-lane input read once, each output written
+    # once (the order's own bytes are the order's row: the types read,
+    # the order written)
     kern_rows["slot_sample"] = dict(
         max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain,
         bound=bound_ms(4 * n * (ssh.SAMPLE_IN_COLS + ssh.SAMPLE_OUT_COLS),
@@ -2221,15 +2349,26 @@ def main(argv=None):
         max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain,
         bound=bound_ms(4 * n * (ssh.EVAL_IN_COLS + ssh.EVAL_OUT_COLS),
                        k9_ops))
+    # its error: the largest |order - plain twin| over this phase's sets
+    # (phase 16 adds BPT's BSDFs)
+    kern_rows["slot_order"] = dict(
+        max_abs_err=ord_err, ms=ord_ms, plain_ms=ord_plain,
+        bound=bound_ms(4 * n * (sl.MAX_SLOTS + 1), ord_ops))
+    fmt = lambda t: ", ".join(f"{k} {v:.4f}" for k, v in t.items())  # noqa
     _say("[11] K8 / K9 " + "; ".join(
         f"{r['set']} (types {r['types']}): K8 close {r['k8_close']:.6f} "
         f"not equal to the bit {r['k8_diff']} kinds {r['k8_kinds']:.6f}, "
-        f"K9 close {r['k9_close']:.6f} not equal {r['k9_diff']}"
+        f"K9 close {r['k9_close']:.6f} not equal {r['k9_diff']}, orders "
+        f"{r['orders']} max |order - plain twin| {r['order_err']}, K8 in "
+        f"the identity order not equal {r['wave_diff']}"
         for r in k89)
-        + f"; first bounce, per launch by events: K8 {k8_ms:.4f} ms vs plain"
-        f" {k8_plain:.3f} ms, K9 {k9_ms:.4f} ms vs plain {k9_plain:.3f} ms; "
-        f"device time by the profiler: K8 {k8_dev:.4f} ms, K9 {k9_dev:.4f} "
-        f"ms; by queued events K8 {k8_q:.4f} ms, K9 {k9_q:.4f} ms; plain operations per lane K8 {k8_ops / n:.0f}, K9 "
+        + f"; first bounce, ms per call by events (rotated): K8 {fmt(t8)}; "
+        f"K9 {fmt(t9)}; plain K8 {k8_plain:.3f}, K9 {k9_plain:.3f}, order "
+        f"{ord_plain:.3f} ms; device time of the entries' sweeps (K8 "
+        f"ordered, K9 in wave order) by the profiler: K8 {k8_dev:.4f} ms, "
+        f"K9 {k9_dev:.4f} ms; by queued "
+        f"events K8 {k8_q:.4f} ms, K9 {k9_q:.4f} ms, the order {ord_q:.4f} "
+        f"ms; plain operations per lane K8 {k8_ops / n:.0f}, K9 "
         f"{k9_ops / n:.0f}")
 
     # phase 12: the composed main path
@@ -2287,6 +2426,7 @@ def main(argv=None):
         cwave_s = time.perf_counter() - t0
         wave_launches = ops.counts()
         prof = wave_profile(lambda: integ.trace_wave(*wave_args))
+        cslots = slot_wave_ms(prof)
     cbusy, cnk, cown = _busy_s(prof)
     _say(f"[12] composed main path (cb_etex.json) 64x48 32spp depth 8: "
          f"launches {comp_launches}; max |kernel - plain| {dcomp:.3e} (gate "
@@ -2300,6 +2440,7 @@ def main(argv=None):
          f"busy {1e3 * cbusy:.1f} ms in {cnk} launches (share "
          f"{cbusy / cwave_s:.2f}), of which "
          + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in cown.items())
+         + "; (launches, device ms) of " + slot_wave_text(cslots)
          + f" ({card})")
 
     # phase 13: K3 on tables of more than 32 rows (K7's function)
@@ -2899,8 +3040,10 @@ def main(argv=None):
     # BPT's own sets: wave 0 of the 256x256, 16 spp, depth-8 render, as
     # the kernel path ran it (render/fuzz.py bpt_wave_sets)
     with torch.no_grad():
+        before = ops.SLOT_ORDER.launches
         sets = fuzz.bpt_wave_sets(ds, camera, film_cfg, config,
                                   integ.KERNEL_OPS)
+        sets_orders = ops.SLOT_ORDER.launches - before
     q16 = {}
     for q in sets["queries"]:
         closest = q["kind"] == "closest"
@@ -2932,13 +3075,20 @@ def main(argv=None):
             raise AssertionError(f"K1 / K2 on BPT's {q['tag']}: "
                                  f"{q16[q['tag']]}")
     # K8 / K9 on every BSDF sample and fused evaluation of the wave,
-    # equal to the bit; their times on eight of the calls each
+    # equal to the bit, each BSDF's recipe order (built once, as the
+    # wave ran) equal to its plain twin; their times on four of the
+    # calls each
+    bsdfs = {id(r["b"]): r["b"] for r in sets["samples"] + sets["evals"]}
+    orders16 = dict(bsdfs=len(bsdfs), built=sets_orders, err=max(
+        order_err(b_) for b_ in bsdfs.values()))
+    if orders16["built"] != orders16["bsdfs"] or orders16["err"]:
+        raise AssertionError(f"BPT's recipe orders: {orders16}")
+    kern_rows["slot_order"]["max_abs_err"] = max(
+        kern_rows["slot_order"]["max_abs_err"], orders16["err"])
     k16_89 = {}
-    for name, recs, plain_fn, raw in (
-            ("slot_sample", sets["samples"], sl.bsdf_sample,
-             ops.slot_sample),
-            ("slot_eval_pdf", sets["evals"], sl.bsdf_eval_pdf,
-             ops.slot_eval_pdf)):
+    for name, recs, plain_fn in (
+            ("slot_sample", sets["samples"], sl.bsdf_sample),
+            ("slot_eval_pdf", sets["evals"], sl.bsdf_eval_pdf)):
         diff = lanes = 0
         for r in recs:
             x2 = r["u"] if name == "slot_sample" else r["wi"]
@@ -2949,14 +3099,12 @@ def main(argv=None):
         if diff:
             raise AssertionError(f"{name} on BPT's calls: {diff} elements "
                                  f"differ from the plain version")
-        pick = recs[::max(1, len(recs) // 8)][:8]
-        ms, pms, nb, nop = [], [], [], []
+        pick = recs[::max(1, len(recs) // 4)][:4]
+        times, pms, nb, nop = [], [], [], []
         for r in pick:
             x2 = r["u"] if name == "slot_sample" else r["wi"]
-            xs = ssh.pack_slots(r["b"], r["wo"], x2)
-            args = (r["types"], r["b"].present, r["b"].dists)
-            ms.append(time_ms(rotating(lambda x: raw(x, *args), xs),
-                              iters=5))
+            times.append(slot_entry_times(r["b"], r["wo"], x2, r["types"],
+                                          name == "slot_sample", iters=5))
             pms.append(time_ms(lambda: plain_fn(r["b"], r["wo"], x2,
                                                 r["types"]), iters=2))
             cols = (ssh.SAMPLE_IN_COLS + ssh.SAMPLE_OUT_COLS
@@ -2965,8 +3113,10 @@ def main(argv=None):
             nb.append(4 * r["wo"].shape[0] * cols)
             nop.append(plain_ops(lambda: plain_fn(r["b"], r["wo"], x2,
                                                   r["types"])))
+        mean_t = {k: sum(t[k] for t in times) / len(times) for k in times[0]}
         k16_89[name] = dict(calls=len(recs), lanes=lanes,
-                            ms=sum(ms) / len(ms), plain_ms=sum(pms) / len(pms),
+                            ms=mean_t["sweep"], times=mean_t,
+                            plain_ms=sum(pms) / len(pms),
                             bound=bound_ms(sum(nb) / len(nb),
                                            sum(nop) / len(nop)))
     del sets
@@ -3056,6 +3206,7 @@ def main(argv=None):
         bw_s = time.perf_counter() - t0
         bw_launches = ops.counts()
         bprof = wave_profile(lambda: bpt.trace_wave_bpt(*wave16))
+        bslots = slot_wave_ms(bprof)
     bbusy, bnk, _ = _busy_s(bprof)
     host_ops = sum(1 for e in bprof.events()
                    if e.device_type.name == "CPU" and e.cpu_parent is None
@@ -3068,7 +3219,8 @@ def main(argv=None):
              "K2" if "cluster_kernel<true" in e.name else
              "K1 / K2" if "cluster_kernel" in e.name else
              "K8" if "slot_sample_kernel" in e.name else
-             "K9" if "slot_eval_pdf_kernel" in e.name else "other")
+             "K9" if "slot_eval_pdf_kernel" in e.name else
+             "K8 / K9 order" if "slot_order" in e.name else "other")
         c, t_ = per_k.get(k, (0, 0.0))
         per_k[k] = (c + 1, t_ + 1e-3 * (e.time_range.end
                                         - e.time_range.start))
@@ -3099,7 +3251,15 @@ def main(argv=None):
              f"({v['bound'][1]}), plain {v['plain_ms']:.3f} ms"
              for k, v in bpt_kern.items())
          + f"; K8 {k16_89['slot_sample']['calls']} calls / K9 "
-         f"{k16_89['slot_eval_pdf']['calls']} calls equal to the bit | "
+         f"{k16_89['slot_eval_pdf']['calls']} calls equal to the bit, "
+         f"{orders16['built']} recipe orders for {orders16['bsdfs']} BSDFs, "
+         f"max |order - plain twin| {orders16['err']}; K8 / K9 ms per "
+         "call by events, the mean of four calls (rotated): " + "; ".join(
+             f"{k} " + ", ".join(f"{t}: {v:.4f}" for t, v in
+                                 k16_89[k]["times"].items())
+             for k in ("slot_sample", "slot_eval_pdf"))
+         + " | one BPT wave's (launches, device ms) of "
+         + slot_wave_text(bslots) + " | "
          f"64x48 BPT 8spp depth 8: launches {bpt_launches}; max |kernel - "
          f"plain| {dbpt:.3e} | 64x48 Whitted 32spp: launches {wh_launches}; "
          f"max |kernel - plain| {dwh:.3e} (gate {PLAIN_ATOL}) | 256x256 16spp "
@@ -3146,12 +3306,17 @@ def main(argv=None):
                         "arendur_tpu/bxdf/pallas_shade.py:139"),
         "slot_eval_pdf": (src + "slot_shade.cu",
                           "arendur_tpu/bxdf/pallas_shade.py:189"),
+        # K8 / K9's lane order: no TPU kernel of its own; it serves the
+        # sweeps that replace the kernels of this pallas_call
+        "slot_order": (src + "slot_shade.cu",
+                       "arendur_tpu/bxdf/pallas_shade.py:117"),
     }
     main_launches = dict(train_launches)
     main_launches.update({k: tex_launches[k]
                           for k in ("hit_shade", "shade_split")})
     main_launches.update({k: comp_launches[k]
-                          for k in ("slot_sample", "slot_eval_pdf")})
+                          for k in ("slot_sample", "slot_eval_pdf",
+                                    "slot_order")})
     main_launches["bounce_shade_wide"] = wide_launches["bounce_shade"]
     main_launches.update({k: inst_launches[k]
                           for k in ("closest_hit_instanced",
@@ -3159,7 +3324,8 @@ def main(argv=None):
     rows = []
     for k in TRAIN_KERNELS + ("hit_shade", "shade_split",
                               "bounce_shade_wide", "slot_sample",
-                              "slot_eval_pdf", "closest_hit_instanced",
+                              "slot_eval_pdf", "slot_order",
+                              "closest_hit_instanced",
                               "any_hit_instanced"):
         r = dict(kern_rows[k])
         b_ms, b_by = r.pop("bound")
@@ -3214,6 +3380,11 @@ def main(argv=None):
                            k8_k9=k89, k8_k9_device_ms=[k8_dev, k9_dev],
                            k8_k9_queued_ms=[k8_q, k9_q],
                            k8_k9_plain_ops=[k8_ops, k9_ops],
+                           k8_k9_first_bounce_ms=dict(k8=t8, k9=t9),
+                           order_queued_ms=ord_q, order_plain_ops=ord_ops,
+                           composed_slot_wave=cslots,
+                           bpt_slot_wave=bslots,
+                           bpt_orders=orders16,
                            composed_launches=comp_launches,
                            composed_dplain=dcomp, forced_vs_fused=dforced,
                            composed_paths_per_s=comp_rates,

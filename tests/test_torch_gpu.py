@@ -392,11 +392,22 @@ def test_wrappers_reject_cpu_tensors(card):
                         torch.zeros(4))
     with pytest.raises(ValueError):
         ops.hit_shade(torch.zeros(cb.HIT_IN_COLS, 4), torch.zeros(1, 24))
-    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    b, wo, u, wi = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(4, 0))
+    order = torch.arange(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        ops.slot_sample(torch.zeros(ssh.SAMPLE_IN_COLS, 4), 31, None, None)
+        ops.slot_sample(b, wo, u, 31, order)
     with pytest.raises(ValueError):
-        ops.slot_eval_pdf(torch.zeros(ssh.EVAL_IN_COLS, 4), 31, None, None)
+        ops.slot_eval_pdf(b, wo, wi, 31)
+    with pytest.raises(ValueError):
+        ops.slot_order(b)
+    bc, woc, uc, _ = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(4, 0), card)
+    orderc = order.to(card)
+    with pytest.raises(ValueError):      # wo on the CPU, the BSDF on the card
+        ops.slot_sample(bc, wo, uc, 31, orderc)
+    with pytest.raises(ValueError):      # int64 slot types
+        ops.slot_sample(bc.replace(type=bc.type.long()), woc, uc, 31, orderc)
+    with pytest.raises(ValueError):      # the order on the CPU
+        ops.slot_sample(bc, woc, uc, 31, order)
 
 
 SLOT_CASES = {"recipes": dict(), "grazing": dict(grazing=True,
@@ -425,6 +436,42 @@ def test_slot_kernels_match_plain(card, case, types):
     for g, r in zip(got[:3] + got[4:], ref[:3] + ref[4:]):
         close = torch.isclose(g, r, rtol=RTOL, atol=ATOL)
         assert close.float().mean().item() >= ELEM_GATE
+
+
+def _bit_equal(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.gpu
+def test_slot_kernels_in_recipe_order_equal_plain(card):
+    """K8 and K9 on a shuffled 65,536-lane mix of the five recipes: the
+    BSDF's recipe order (built on the card by K8's first call) equals
+    its plain twin, and every element equals the plain versions to the
+    bit through the entries (K8 with a fresh order and with the order
+    kept for the BSDF, K9 in wave order) and through K8's launch in the
+    recipe order and in the identity order."""
+    from arendur_tpu_torch.bxdf import slot_shade as ssh
+    from arendur_tpu_torch.bxdf import slots as sl
+    n = 1 << 16
+    inp = fuzz.fuzz_slot_inputs(n, 21)
+    inp["mat_id"] = np.random.RandomState(22).permutation(
+        np.arange(n, dtype=np.int32) % len(fuzz.SLOT_ROWS))
+    b, wo, u, wi = fuzz.fuzz_slots(inp, card)
+    ref = sl.bsdf_sample(b, wo, u) + sl.bsdf_eval_pdf(b, wo, wi)
+    before = ops.SLOT_ORDER.launches
+    fresh = b.replace()
+    got = ssh.bsdf_sample(fresh, wo, u) + ssh.bsdf_eval_pdf(fresh, wo, wi)
+    again = ssh.bsdf_sample(fresh, wo, u) + ssh.bsdf_eval_pdf(fresh, wo, wi)
+    assert ops.SLOT_ORDER.launches == before + 1
+    order = ssh.ORDERS[fresh]
+    assert torch.equal(order, ssh.lane_order_reference(b).to(card))
+    identity = torch.arange(n, dtype=torch.int32, device=card)
+    ordered = ops.slot_sample(b, wo, u, 31, order) \
+        + ops.slot_eval_pdf(b, wo, wi, 31)
+    wave = ops.slot_sample(b, wo, u, 31, identity)
+    for outs in (got, again, ordered, wave):
+        for g, r in zip(outs, ref):
+            assert g.dtype == r.dtype and _bit_equal(g, r)
 
 
 @pytest.mark.gpu

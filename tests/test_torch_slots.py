@@ -7,8 +7,9 @@ tests/test_pallas_shade.py (the five material recipes, grazing wo with
 total internal reflection on glass, a single-recipe table whose slot
 presence prunes the other families; the kind sets ALL and
 ALL_NON_SPECULAR).  Their backward against jax.vjp of slots.*, and the
-entries' autograd.Function (pack, launch, replayed backward) with a
-plain stand-in for the kernel launch.  The CUDA kernels are held
+entries' autograd.Function (the fields and the recipe order handed to
+the launch, its outputs, the replayed backward) with a plain stand-in
+for the kernel launch.  The CUDA kernels are held
 against the plain versions on the card in tests/test_torch_gpu.py."""
 
 import numpy as np
@@ -198,39 +199,34 @@ def test_backward_matches_jax_vjp(which):
     _grad_gate(_port_vjp(tfn, b, wo, tx, ct), ref)
 
 
-def _unpack(xt, b):
-    """The BsdfSlots and extra columns of a pack_slots input (the
-    inverse of its layout)."""
-    k, c = sl.MAX_SLOTS, iter(range(xt.shape[0]))
-    take = lambda w: xt[[next(c) for _ in range(w)]].T
-    ns, ts, bs, ng = take(3), take(3), take(3), take(3)
-    ints = lambda: take(k).to(torch.int32)
-    stype, kind, dist = ints(), ints(), ints()
-    c0, c1 = take(3 * k).reshape(-1, k, 3), take(3 * k).reshape(-1, k, 3)
-    p0, p1, p2 = take(k), take(k), take(k)
-    rest = xt[ssh.SLOT_COLS:].T
-    return b.replace(ns=ns, ts=ts, bs=bs, ng=ng, type=stype, kind=kind,
-                     dist=dist, c0=c0, c1=c1, p0=p0, p1=p1, p2=p2), rest
-
-
 def test_kernel_entries_pack_and_replay(monkeypatch):
     """The autograd.Functions of the CUDA entries on CPU tensors, with
-    a plain stand-in for the launch: the pack round-trips, the outputs
-    equal the plain versions, the sampled direction and kind are
-    detached, and the replayed backward equals autograd over the plain
-    version."""
+    a plain stand-in for the launch: the launch gets the BsdfSlots whose
+    fields it reads where they lie (ops.SLOT_FIELDS, no pack), K8 also
+    the BSDF's recipe order, built once and kept, K9 none; the outputs
+    are the launch's tensors as they are and equal the plain versions,
+    the sampled direction and kind are detached, and the replayed
+    backward equals autograd over the plain version."""
     inp = fuzz.fuzz_slot_inputs(256, 11)
     b, wo, u, wi = fuzz.fuzz_slots(inp)
+    launched = []
 
-    def sample_launch(xt, types, present, dists):
-        bb, rest = _unpack(xt, b)
-        f, w, p, k = sl.bsdf_sample(bb, rest[:, 0:3], rest[:, 3:5], types)
-        return torch.cat([f.T, w.T, p[None], k[None].float()])
+    def check(bb):
+        for name, dtype, tail in ops.SLOT_FIELDS:
+            t = getattr(bb, name)
+            assert t.dtype == dtype and tuple(t.shape) == (256,) + tail
 
-    def eval_launch(xt, types, present, dists):
-        bb, rest = _unpack(xt, b)
-        f, p = sl.bsdf_eval_pdf(bb, rest[:, 0:3], rest[:, 3:6], types)
-        return torch.cat([f.T, p[None]])
+    def sample_launch(bb, w, x, types, order):
+        check(bb)
+        assert torch.equal(order, ssh.lane_order_reference(bb))
+        assert order is ssh.lane_order(bb)
+        launched.append(sl.bsdf_sample(bb, w, x, types))
+        return launched[-1]
+
+    def eval_launch(bb, w, x, types):
+        check(bb)
+        launched.append(sl.bsdf_eval_pdf(bb, w, x, types))
+        return launched[-1]
 
     monkeypatch.setattr(ops, "slot_sample", sample_launch)
     monkeypatch.setattr(ops, "slot_eval_pdf", eval_launch)
@@ -247,8 +243,9 @@ def test_kernel_entries_pack_and_replay(monkeypatch):
             bl = b.replace(**dict(zip(ssh._DIFF, leaves)))
             out = fn.apply(bl, types, wl, x, *leaves)
             ref = plain(bl, wl, x)
-            for a, r in zip(out, ref):
+            for a, r, raw in zip(out, ref, launched[-1]):
                 assert torch.equal(a, r)
+                assert a.data_ptr() == raw.data_ptr()
             if fn is ssh._SampleKernel:
                 assert not out[1].requires_grad and out[0].requires_grad
             pick = (lambda r: (r[0], r[2])) if fn is ssh._SampleKernel \

@@ -6,8 +6,11 @@ Times the arendur_tpu_torch that Python imports (this checkout's, or
 DIR's, so that one call can time two checkouts in turns): for the
 wrappers of K3 (ops.bounce_shade, with a live count where it takes
 one), K5 (hit_shade), K6 (shade_split), K8 (slot_sample) and K9
-(slot_eval_pdf), the host's wall time per call over 200 calls issued
-back to back without a sync (the launch work: checks, allocation,
+(slot_eval_pdf), K8's recipe order (slot_order) where the checkout
+has one, and the whole K8 / K9 entry calls (bxdf/slot_shade.py
+bsdf_sample / bsdf_eval_pdf; with the order, also the earlier route's
+pack, launch and split), the host's wall time per call over 200 calls
+issued back to back without a sync (the launch work: checks, allocation,
 configuration, the ctypes call and the launch), the median of 7 such
 runs after a warm-up.  The inputs are 4,096 fuzz lanes over cb.json's
 tables (render/fuzz.py), so the card keeps up with the host.  Needs one
@@ -67,16 +70,34 @@ def main():
                                      device=dev)
     shade = (ds.static, 4, 0.05)
     bx, wo, u, wi = fuzz.fuzz_slots(fuzz.fuzz_slot_inputs(LANES, 9), dev)
-    x8, x9 = ssh.pack_slots(bx, wo, u), ssh.pack_slots(bx, wo, wi)
-    slot = (31, bx.present, bx.dists)
     calls = {
         "bounce_shade": lambda: ops.bounce_shade(
             xf, ds.ltab, ds.mtab, ds.stab, *shade, **kw),
         "hit_shade": lambda: ops.hit_shade(xh, ds.stab),
         "shade_split": lambda: ops.shade_split(xs, ds.ltab, *shade, **kw),
-        "slot_sample": lambda: ops.slot_sample(x8, *slot),
-        "slot_eval_pdf": lambda: ops.slot_eval_pdf(x9, *slot),
+        # the whole K8 / K9 entry calls, in every checkout
+        "slot_sample_entry": lambda: ssh.bsdf_sample(bx, wo, u),
+        "slot_eval_pdf_entry": lambda: ssh.bsdf_eval_pdf(bx, wo, wi),
     }
+    if hasattr(ops, "slot_order"):
+        # the in-place wrappers as the entries call them (K8 with the
+        # order kept), the order's wrapper, and the earlier route's
+        # whole call (pack, launch, split)
+        order = ssh.lane_order(bx)
+        calls.update({
+            "slot_sample": lambda: ops.slot_sample(bx, wo, u, 31, order),
+            "slot_eval_pdf": lambda: ops.slot_eval_pdf(bx, wo, wi, 31),
+            "slot_order": lambda: ops.slot_order(bx),
+            "slot_sample_earlier_entry": lambda: ssh.sample_packed(bx, wo,
+                                                                   u),
+            "slot_eval_pdf_earlier_entry": lambda: ssh.eval_pdf_packed(
+                bx, wo, wi)})
+    else:
+        x8, x9 = ssh.pack_slots(bx, wo, u), ssh.pack_slots(bx, wo, wi)
+        slot = (31, bx.present, bx.dists)
+        calls.update({
+            "slot_sample": lambda: ops.slot_sample(x8, *slot),
+            "slot_eval_pdf": lambda: ops.slot_eval_pdf(x9, *slot)})
     print(json.dumps(dict(
         card=cs.card_line(), package=os.path.dirname(os.path.abspath(
             arendur_tpu_torch.__file__)),

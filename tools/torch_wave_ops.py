@@ -17,9 +17,11 @@ depend on the wave's width.  The hand-written kernels (K1, K2, K3, K5,
 K6, K8, K9) count as one launch per call: their plain versions run
 here, and their own operations are not counted (K1 / K2 test the
 spheres too; the rebuild of a sphere hit's local point after K1 is the
-stage "p_local rebuild"); the host operations of
-the K8 / K9 entries around their launch (the lane-major pack of the
-BSDF, the output split) are replayed and counted as packing.  Each
+stage "p_local rebuild"); K8's recipe order counts as one call
+(kernel: slot_order) on the first K8 call on each BSDF, and the
+host operations of the K8 / K9 entries around their launch (the
+outputs' and the order's allocations) are replayed and counted as
+"slot entries".  Each
 other operation is put in the stage of the innermost function on the
 Python stack that names one.  Prints one JSON object: the stages,
 their counts, and the total.
@@ -31,6 +33,7 @@ import dataclasses
 import json
 import os
 import sys
+import weakref
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -40,7 +43,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 # (file, function or None for any function of the file) -> stage
 STAGES = (
-    ("torch_wave_ops.py", "_slot_entry_host_ops", "packing"),
+    ("torch_wave_ops.py", "_slot_entry_host_ops", "slot entries"),
     ("scene.py", "intersect", "hit glue"),
     ("scene.py", "sphere_hit_info", "hit glue"),
     ("scene.py", "occluded", "shadow glue"),
@@ -107,19 +110,23 @@ class _Counter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _slot_entry_host_ops(b, w, x, rows):
+def _slot_entry_host_ops(b, w, rows, first):
     """The host operations of a K8 / K9 entry around its launch
-    (bxdf/slot_shade.py): the pack, the output allocation and split."""
+    (bxdf/slot_shade.py, kernels/ops.py): the outputs' allocations and,
+    on K8's first call on a BSDF, its recipe order's (the fields are
+    read where they lie: no pack, no split)."""
     from arendur_tpu_torch.bxdf import slot_shade as ssh
-    ssh.pack_slots(b, w, x)
-    out = torch.empty(rows, w.shape[0])
-    out[0:3].T.contiguous()
+    n = w.shape[0]
+    if first:
+        torch.empty(n, dtype=torch.int32)
+        torch.empty(1, dtype=torch.int32)
+    torch.empty(n, 3)
     if rows == ssh.SAMPLE_OUT_COLS:
-        out[3:6].T.contiguous()
-        out[6].clone()
-        out[7].to(torch.int32)
+        torch.empty(n, 3)
+        torch.empty(n)
+        torch.empty(n, dtype=torch.int32)
     else:
-        out[3].clone()
+        torch.empty(n)
 
 
 def main(argv=None):
@@ -160,11 +167,19 @@ def main(argv=None):
                 counter.muted -= 1
         return call
 
+    ordered = weakref.WeakSet()   # the BSDFs whose order is built
+    order = kernel("slot_order", lambda b: None)
+
     def slot_kernel(name, fn, rows):
         launch = kernel(name, fn)
 
         def call(b, w, x, types):
-            _slot_entry_host_ops(b, w, x, rows)
+            # K8's entry builds the BSDF's order at its first call
+            first = rows == ssh.SAMPLE_OUT_COLS and b not in ordered
+            if first:
+                ordered.add(b)
+                order(b)
+            _slot_entry_host_ops(b, w, rows, first)
             return launch(b, w, x, types)
         return call
 
