@@ -141,26 +141,25 @@ def load() -> _Kernels:
             lib.arendur_any_hit_instanced.restype = I
             lib.arendur_isect_inst_occupancy.argtypes = [I, I, P]
             lib.arendur_isect_inst_occupancy.restype = I
-            lib.arendur_max_spheres.argtypes = []
-            lib.arendur_max_spheres.restype = I
             lib.arendur_isect_encodes.argtypes = []
             lib.arendur_isect_encodes.restype = ctypes.c_longlong
-            lib.arendur_isect_occupancy.argtypes = [I, I, P]
+            lib.arendur_isect_occupancy.argtypes = [I, P]
             lib.arendur_isect_occupancy.restype = I
-            lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, L,
-                                                 P, P, P, P]
+            lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, I,
+                                                 L, P, P, P, P]
             lib.arendur_bounce_shade.restype = I
-            lib.arendur_bounce_shade_occupancy.argtypes = [I, I, I, I, P]
+            lib.arendur_bounce_shade_occupancy.argtypes = [I, I, I, I, I, P]
             lib.arendur_bounce_shade_occupancy.restype = I
             lib.arendur_bounce_shade_bwd.argtypes = [
-                P, P, P, I, I, P, I, P, I, L, P, P, P, L, I, P, P, P, P, P,
-                P, P, P, P, P]
+                P, P, P, I, I, P, I, P, I, I, L, P, P, P, L, I, P, P, P, P,
+                P, P, P, P, P, P]
             lib.arendur_bounce_shade_bwd.restype = I
-            lib.arendur_hit_shade.argtypes = [P, P, I, L, P, P]
+            lib.arendur_hit_shade.argtypes = [P, P, I, I, L, P, P]
             lib.arendur_hit_shade.restype = I
-            lib.arendur_shade_split.argtypes = [P, P, I, I, L, P, P, P, P]
+            lib.arendur_shade_split.argtypes = [P, P, I, I, I, L, P, P, P,
+                                                P]
             lib.arendur_shade_split.restype = I
-            lib.arendur_shade_split_occupancy.argtypes = [I, I, P]
+            lib.arendur_shade_split_occupancy.argtypes = [I, I, I, P]
             lib.arendur_shade_split_occupancy.restype = I
             fields = [P] * 12   # the BsdfSlots fields (ops.SLOT_FIELDS)
             lib.arendur_slot_sample.argtypes = fields + [P, P, P, L, I, P,

@@ -10,7 +10,11 @@
 // neighbouring addresses of every column, so each column load and
 // store is coalesced.  The light, material and sphere tables are staged
 // once per block into shared memory and read by direct row index (no
-// row cap: the tables only have to fit the 227 KB a block may use).
+// row cap).  A table that does not fit the 227 KB a block may use is
+// read in place from global memory instead (kernels/ops.py stage_plan
+// stages the material, sphere and light tables, in that order, while
+// they fit): the body reads its rows through the same pointers, so its
+// outputs do not depend on where a row lies.
 //
 // Bound: per live lane the kernel moves 90 floats (360 B), per lane
 // past the live count 41 (the 9 carried inputs and the 32 outputs), so
@@ -51,14 +55,17 @@ namespace {
 
 constexpr int BLOCK = 128;
 constexpr int MIN_BLOCKS = 4;
-constexpr int MP = cshade::MTAB_PITCH, SP = cshade::STAB_PITCH;
 
+// INPLACE false: every table staged (the launch of every scene whose
+// tables fit); true: the tables `staged` names staged, the others read
+// in place (cbounce.cuh stage_tables)
+template <bool INPLACE>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     bounce_shade_kernel(const float* __restrict__ xt,
                         const float* __restrict__ ltab, int nl, int cl,
                         const float* __restrict__ mtab, int nm,
-                        const float* __restrict__ stab, int ns, long n,
-                        const int* __restrict__ n_alive,
+                        const float* __restrict__ stab, int ns, int staged,
+                        long n, const int* __restrict__ n_alive,
                         cbounce::ShadeCfg cfg, float* __restrict__ out) {
   using namespace cshade;
   const long na = live_count(n_alive, n);
@@ -70,13 +77,8 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     return;
   }
   extern __shared__ float smem[];
-  const int lp = odd_pitch(cl);
-  float* sl = smem;
-  float* sm = sl + nl * lp;
-  float* ss = sm + nm * MP;
-  stage_rows(ltab, nl, cl, lp, sl);
-  stage_rows(mtab, nm, 16, MP, sm);
-  stage_rows(stab, ns, 24, SP, ss);
+  const Tables tb = stage_tables(ltab, nl, cl, mtab, nm, stab, ns,
+                                 INPLACE ? staged : STAGE_ALL, true, smem);
   __syncthreads();
   if (lane >= n) return;
   if (lane >= na) {
@@ -84,13 +86,12 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
                        C_WB_PREV, out + lane);
     return;
   }
-  const Tables tb{sl, nl, cl, sm, nm, ss, ns, lp, MP, SP};
   cbounce::cbody_lane(xt + lane, n, tb, cfg, out + lane);
 }
 
-size_t smem_bytes(int nl, int cl, int nm, int ns) {
-  return sizeof(float) * ((size_t)nl * cshade::odd_pitch(cl) +
-                          (size_t)nm * MP + (size_t)ns * SP);
+const void* kernel_for(int staged) {
+  return staged == cshade::STAGE_ALL ? (const void*)bounce_shade_kernel<false>
+                                     : (const void*)bounce_shade_kernel<true>;
 }
 
 }  // namespace
@@ -98,23 +99,29 @@ size_t smem_bytes(int nl, int cl, int nm, int ns) {
 static_assert(sizeof(cbounce::ShadeCfg) == 42 * 4, "ShadeCfg layout");
 
 // C interface.  cfg_words: the ShadeCfg as 42 little-endian 32-bit words
-// (host memory); n_alive: the live count on the device (int32; null:
-// every lane is live).  Returns a cudaError_t code (0 = launched).
+// (host memory); staged: the cshade::STAGE_* bits of the tables staged
+// in shared memory (kernels/ops.py stage_plan), the others read in
+// place; n_alive: the live count on the device (int32; null: every lane
+// is live).  Returns a cudaError_t code (0 = launched).
 extern "C" int arendur_bounce_shade(const float* xt, const float* ltab,
                                     int nl, int cl, const float* mtab,
                                     int nm, const float* stab, int ns,
-                                    long n, const int* n_alive,
+                                    int staged, long n, const int* n_alive,
                                     const void* cfg_words, float* out,
                                     void* stream) {
   if (n <= 0) return 0;
   cbounce::ShadeCfg cfg;
   memcpy(&cfg, cfg_words, sizeof(cfg));
-  const size_t smem = smem_bytes(nl, cl, nm, ns);
-  int e = cshade::allow_smem((const void*)bounce_shade_kernel, smem);
+  const size_t smem = cshade::staged_bytes(nl, cl, nm, ns, staged, true);
+  int e = cshade::allow_smem(kernel_for(staged), smem);
   if (e) return e;
   unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
-  bounce_shade_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-      xt, ltab, nl, cl, mtab, nm, stab, ns, n, n_alive, cfg, out);
+  if (staged == cshade::STAGE_ALL)
+    bounce_shade_kernel<false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+        xt, ltab, nl, cl, mtab, nm, stab, ns, staged, n, n_alive, cfg, out);
+  else
+    bounce_shade_kernel<true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+        xt, ltab, nl, cl, mtab, nm, stab, ns, staged, n, n_alive, cfg, out);
   return (int)cudaGetLastError();
 }
 
@@ -123,7 +130,8 @@ extern "C" int arendur_bounce_shade(const float* xt, const float* ltab,
 // registers a thread, local memory a thread (B).  Returns a cudaError_t
 // code.
 extern "C" int arendur_bounce_shade_occupancy(int nl, int cl, int nm, int ns,
-                                              int* info) {
-  return cshade::occupancy((const void*)bounce_shade_kernel, BLOCK,
-                           smem_bytes(nl, cl, nm, ns), info);
+                                              int staged, int* info) {
+  return cshade::occupancy(kernel_for(staged), BLOCK,
+                           cshade::staged_bytes(nl, cl, nm, ns, staged, true),
+                           info);
 }

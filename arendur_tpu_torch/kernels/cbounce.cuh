@@ -70,10 +70,11 @@ struct ShadeCfg {
 };
 
 // The scene tables a lane reads: row r of the light table starts at
-// ltab + lp * r, and so on.  A kernel that stages the tables in shared
-// memory may pad each row to an odd pitch (kernels/cbounce.cu), so that
-// lanes reading different rows of a table read different banks; the
-// others read the dense [rows, cols] layout (dense_tables).
+// ltab + lp * r, and so on.  A kernel that stages a table in shared
+// memory may pad each row to an odd pitch (stage_tables), so that lanes
+// reading different rows of a table read different banks; a table read
+// in place, and every table of the host builds, keeps the dense
+// [rows, cols] layout (dense_tables).
 struct Tables {
   const float* ltab;
   int nl, cl;
@@ -90,7 +91,16 @@ HD Tables dense_tables(const float* ltab, int nl, int cl, const float* mtab,
 // the least odd pitch that holds a row of `cols` floats: rows whose
 // indices differ by less than 32 then start in different banks
 HD int odd_pitch(int cols) { return cols | 1; }
-constexpr int MTAB_PITCH = 17, STAB_PITCH = 25;  // odd_pitch(16), (24)
+// The pitch a table of `cols` columns is staged at in shared memory:
+// the odd pitch (K3 / K6) or the dense one (K4 / K5)
+HD int stage_pitch(int cols, bool odd) { return odd ? odd_pitch(cols) : cols; }
+// Which tables a launch stages in shared memory (kernels/ops.py
+// stage_plan; one bit a table): a table whose bit is clear is read in
+// place, from global memory, at its dense pitch.  Scenes whose tables
+// all fit stage all of them; a table past what a block can hold stays
+// where it lies.
+constexpr int STAGE_L = 1, STAGE_M = 2, STAGE_S = 4;
+constexpr int STAGE_ALL = STAGE_L | STAGE_M | STAGE_S;
 
 #ifdef __CUDACC__
 // The live count a kernel reads on the device: *n_alive clamped into
@@ -107,10 +117,55 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            int rows, int cols, int pitch,
                                            float* dst) {
   const int total = rows * cols;
+  if (pitch == cols) {
+    for (int i = threadIdx.x; i < total; i += blockDim.x) dst[i] = src[i];
+    return;
+  }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int r = i / cols;
     dst[r * pitch + (i - r * cols)] = src[i];
   }
+}
+
+// The tables of a block: those `staged` names copied into smem in the
+// order lights, materials, spheres, each row at stage_pitch, the others
+// read in place at their dense pitches.  The block's threads stride over
+// the staged elements; the caller then waits at a barrier.  With
+// `staged` the constant STAGE_ALL this is the copy of every table and
+// the pointers all lie in shared memory.
+__device__ __forceinline__ Tables stage_tables(
+    const float* __restrict__ ltab, int nl, int cl,
+    const float* __restrict__ mtab, int nm, const float* __restrict__ stab,
+    int ns, int staged, bool odd, float* smem) {
+  Tables tb = dense_tables(ltab, nl, cl, mtab, nm, stab, ns);
+  float* p = smem;
+  if (staged & STAGE_L) {
+    tb.lp = stage_pitch(cl, odd);
+    stage_rows(ltab, nl, cl, tb.lp, p);
+    tb.ltab = p;
+    p += nl * tb.lp;
+  }
+  if (staged & STAGE_M) {
+    tb.mp = stage_pitch(16, odd);
+    stage_rows(mtab, nm, 16, tb.mp, p);
+    tb.mtab = p;
+    p += nm * tb.mp;
+  }
+  if (staged & STAGE_S) {
+    tb.sp = stage_pitch(24, odd);
+    stage_rows(stab, ns, 24, tb.sp, p);
+    tb.stab = p;
+  }
+  return tb;
+}
+
+// Bytes of shared memory stage_tables takes
+inline size_t staged_bytes(int nl, int cl, int nm, int ns, int staged,
+                           bool odd) {
+  return sizeof(float) *
+         (((staged & STAGE_L) ? (size_t)nl * stage_pitch(cl, odd) : 0) +
+          ((staged & STAGE_M) ? (size_t)nm * stage_pitch(16, odd) : 0) +
+          ((staged & STAGE_S) ? (size_t)ns * stage_pitch(24, odd) : 0));
 }
 
 // Let `kernel` take `smem` bytes of dynamic shared memory (above 48 KB

@@ -25,9 +25,11 @@
 //      (cbounce_body.cuh on the taped scalar of ad.cuh) on its own tape
 //      in device memory, then sweeps the tape backwards
 //      (cbounce_ad.cuh cbody_lane_bwd).  The tables stay in shared
-//      memory, as in the forward kernel; each table element the lane
-//      reads is a tape leaf whose adjoint goes to the lane's share of
-//      that table row (row i of lane_tab for list position i);
+//      memory, as in the forward kernel (those that do not fit a block
+//      are read in place: kernels/ops.py stage_plan); each table
+//      element the lane reads is a tape leaf whose adjoint goes to the
+//      lane's share of that table row (row i of lane_tab for list
+//      position i);
 //   4-5. the table cotangents: blocks run concurrently, where the TPU
 //      sums by += across its sequential grid, so the sum over lanes is
 //      taken in a fixed order and without atomics shared by threads: a
@@ -137,12 +139,17 @@ __global__ void __launch_bounds__(LIST_THREADS)
   }
 }
 
+// INPLACE false: every table staged (the launch of every scene whose
+// tables fit); true: the tables `staged` names (cshade::STAGE_*) staged,
+// the others read in place from global memory at the same dense pitch
+template <bool INPLACE>
 __global__ void __launch_bounds__(BLOCK)
     bounce_shade_bwd_kernel(const float* __restrict__ xt,
                             const float* __restrict__ ct,
                             const float* __restrict__ ltab, int nl, int cl,
                             const float* __restrict__ mtab, int nm,
-                            const float* __restrict__ stab, int ns, long n,
+                            const float* __restrict__ stab, int ns,
+                            int staged, long n,
                             const int* __restrict__ list,
                             const int* __restrict__ count,
                             cshade::ShadeCfg cfg, ad::Tape tape,
@@ -153,16 +160,11 @@ __global__ void __launch_bounds__(BLOCK)
   const long m = *count;
   if ((long)blockIdx.x * blockDim.x >= m) return;  // the whole block idles
   extern __shared__ float smem[];
-  const int nlt = nl * cl, nmt = nm * 16, nst = ns * 24;
-  float* sl = smem;
-  float* sm = sl + nlt;
-  float* ss = sm + nmt;
-  for (int i = threadIdx.x; i < nlt; i += blockDim.x) sl[i] = ltab[i];
-  for (int i = threadIdx.x; i < nmt; i += blockDim.x) sm[i] = mtab[i];
-  for (int i = threadIdx.x; i < nst; i += blockDim.x) ss[i] = stab[i];
+  const cshade::Tables tb = cshade::stage_tables(
+      ltab, nl, cl, mtab, nm, stab, ns,
+      INPLACE ? staged : cshade::STAGE_ALL, false, smem);
   if (threadIdx.x == 0) ad::s_tape = tape;
   __syncthreads();
-  const cshade::Tables tb = cshade::dense_tables(sl, nl, cl, sm, nm, ss, ns);
   TabLayout lay(nl, cl, nm, ns);
   const int p = lay.base[4];
   const long step = (long)gridDim.x * blockDim.x;
@@ -258,10 +260,12 @@ __global__ void bounce_shade_bwd_reduce_kernel(
 // the most tape nodes a listed lane used, their sum over the listed
 // lanes and the number of listed lanes), where p = 16 + 2 cl + 24 and
 // E = 16 nm + 2 nl cl + 24 ns.  tape_threads must be a multiple of
-// 128.  Returns a cudaError_t code (0 = launched).
+// 128.  staged: the cshade::STAGE_* bits of the tables the tape kernel
+// stages in shared memory (kernels/ops.py stage_plan), the others read
+// in place.  Returns a cudaError_t code (0 = launched).
 extern "C" int arendur_bounce_shade_bwd(
     const float* xt, const float* ct, const float* ltab, int nl, int cl,
-    const float* mtab, int nm, const float* stab, int ns, long n,
+    const float* mtab, int nm, const float* stab, int ns, int staged, long n,
     const int* n_alive, const void* cfg_words, void* tape_nodes,
     long tape_threads, int cap,
     int* lists, float* dx, float* lane_tab, int* lane_rows, float* partials,
@@ -287,13 +291,14 @@ extern "C" int arendur_bounce_shade_bwd(
   int* need = lists;
   int* list = lists + n;
   int* count = lists + 2 * n;
-  size_t smem = sizeof(float) * ((size_t)nl * cl + (size_t)nm * 16 +
-                                 (size_t)ns * 24);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bounce_shade_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const bool all = staged == cshade::STAGE_ALL;
+  const size_t smem = cshade::staged_bytes(nl, cl, nm, ns, staged, false);
+  {
+    const int e = cshade::allow_smem(
+        all ? (const void*)bounce_shade_bwd_kernel<false>
+            : (const void*)bounce_shade_bwd_kernel<true>,
+        smem);
+    if (e) return e;
   }
   const unsigned cgrid =
       (unsigned)((n + CLASSIFY_THREADS - 1) / CLASSIFY_THREADS);
@@ -306,9 +311,14 @@ extern "C" int arendur_bounce_shade_bwd(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(tape_threads / BLOCK);
-  bounce_shade_bwd_kernel<<<grid, BLOCK, smem, st>>>(
-      xt, ct, ltab, nl, cl, mtab, nm, stab, ns, n, list, count, cfg, tape,
-      dx, lane_tab, lane_rows, node_stats);
+  if (all)
+    bounce_shade_bwd_kernel<false><<<grid, BLOCK, smem, st>>>(
+        xt, ct, ltab, nl, cl, mtab, nm, stab, ns, staged, n, list, count,
+        cfg, tape, dx, lane_tab, lane_rows, node_stats);
+  else
+    bounce_shade_bwd_kernel<true><<<grid, BLOCK, smem, st>>>(
+        xt, ct, ltab, nl, cl, mtab, nm, stab, ns, staged, n, list, count,
+        cfg, tape, dx, lane_tab, lane_rows, node_stats);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int nblk = (int)((n + RED_LANES - 1) / RED_LANES);

@@ -8,7 +8,9 @@
 //
 // Both kernels run one thread per lane over a lane-transposed wave, so
 // every column load and store is coalesced, with one table staged per
-// block in shared memory: K5 reads [HIT_IN_COLS=41, N] and the sphere
+// block in shared memory (read in place from global memory instead
+// where it does not fit the 227 KB a block may use: kernels/ops.py
+// stage_plan): K5 reads [HIT_IN_COLS=41, N] and the sphere
 // table and writes [HIT_OUT_COLS=28, N]; K6 reads [SHADE_IN_COLS=50, N]
 // and the light table and writes [OUT_COLS=32, N].  Their bodies are the
 // two halves of the fused bounce K3 runs (cbounce_body.cuh hit_info and
@@ -34,21 +36,25 @@ constexpr int BLOCK = 128;
 constexpr int SPLIT_BLOCK = 128;
 constexpr int SPLIT_MIN_BLOCKS = 4;
 
+// INPLACE (K5, K6): the kernel's table read in place from global memory
+// where it does not fit a block's shared memory (kernels/ops.py
+// stage_plan), else staged as below
+template <bool INPLACE>
 __global__ void __launch_bounds__(BLOCK)
     hit_shade_kernel(const float* __restrict__ xt,
                      const float* __restrict__ stab, int ns, long n,
                      float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int nst = ns * 24;
-  for (int i = threadIdx.x; i < nst; i += blockDim.x) smem[i] = stab[i];
-  __syncthreads();
+  const cshade::Tables tb =
+      cshade::stage_tables(nullptr, 0, 0, nullptr, 0, stab, ns,
+                           INPLACE ? 0 : cshade::STAGE_S, false, smem);
+  if (!INPLACE) __syncthreads();
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const cshade::Tables tb =
-      cshade::dense_tables(nullptr, 0, 0, nullptr, 0, smem, ns);
   cbounce::hit_lane(xt + lane, n, tb, out + lane);
 }
 
+template <bool INPLACE>
 __global__ void __launch_bounds__(SPLIT_BLOCK, SPLIT_MIN_BLOCKS)
     shade_split_kernel(const float* __restrict__ xt,
                        const float* __restrict__ ltab, int nl, int cl,
@@ -64,35 +70,47 @@ __global__ void __launch_bounds__(SPLIT_BLOCK, SPLIT_MIN_BLOCKS)
     return;
   }
   extern __shared__ float smem[];
-  const int lp = odd_pitch(cl);
-  stage_rows(ltab, nl, cl, lp, smem);
-  __syncthreads();
+  const Tables tb = stage_tables(ltab, nl, cl, nullptr, 0, nullptr, 0,
+                                 INPLACE ? 0 : STAGE_L, true, smem);
+  if (!INPLACE) __syncthreads();
   if (lane >= n) return;
   if (lane >= na) {
     cbounce::dead_lane(xt + lane, n, S_BETA, S_L, S_SPECULAR, S_SEL_PREV,
                        S_WB_PREV, out + lane);
     return;
   }
-  const Tables tb{smem, nl, cl, nullptr, 0, nullptr, 0, lp, 0, 0};
   cbounce::shade_split_lane(xt + lane, n, tb, cfg, out + lane);
 }
 
-size_t split_smem(int nl, int cl) {
-  return sizeof(float) * (size_t)nl * cshade::odd_pitch(cl);
+const void* split_kernel_for(int staged) {
+  return (staged & cshade::STAGE_L) ? (const void*)shade_split_kernel<false>
+                                    : (const void*)shade_split_kernel<true>;
 }
 
 }  // namespace
 
-// C interface.  Each returns a cudaError_t code (0 = launched).
+// C interface.  Each returns a cudaError_t code (0 = launched).  staged:
+// the cshade::STAGE_* bit of the kernel's table (K5 STAGE_S, K6
+// STAGE_L) where it is staged in shared memory, else it is read in
+// place (kernels/ops.py stage_plan).
 extern "C" int arendur_hit_shade(const float* xt, const float* stab, int ns,
-                                 long n, float* out, void* stream) {
+                                 int staged, long n, float* out,
+                                 void* stream) {
   if (n <= 0) return 0;
-  size_t smem = sizeof(float) * (size_t)ns * 24;
-  int e = cshade::allow_smem((const void*)hit_shade_kernel, smem);
+  const bool st = (staged & cshade::STAGE_S) != 0;
+  const size_t smem =
+      cshade::staged_bytes(0, 0, 0, ns, staged & cshade::STAGE_S, false);
+  const void* k = st ? (const void*)hit_shade_kernel<false>
+                     : (const void*)hit_shade_kernel<true>;
+  int e = cshade::allow_smem(k, smem);
   if (e) return e;
   unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
-  hit_shade_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(xt, stab, ns,
-                                                                 n, out);
+  if (st)
+    hit_shade_kernel<false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+        xt, stab, ns, n, out);
+  else
+    hit_shade_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        xt, stab, ns, n, out);
   return (int)cudaGetLastError();
 }
 
@@ -100,25 +118,34 @@ extern "C" int arendur_hit_shade(const float* xt, const float* stab, int ns,
 // memory); n_alive: the live count on the device (int32; null: every
 // lane is live)
 extern "C" int arendur_shade_split(const float* xt, const float* ltab,
-                                   int nl, int cl, long n,
+                                   int nl, int cl, int staged, long n,
                                    const int* n_alive,
                                    const void* cfg_words, float* out,
                                    void* stream) {
   if (n <= 0) return 0;
   cbounce::ShadeCfg cfg;
   memcpy(&cfg, cfg_words, sizeof(cfg));
-  const size_t smem = split_smem(nl, cl);
-  int e = cshade::allow_smem((const void*)shade_split_kernel, smem);
+  staged &= cshade::STAGE_L;
+  const size_t smem = cshade::staged_bytes(nl, cl, 0, 0, staged, true);
+  int e = cshade::allow_smem(split_kernel_for(staged), smem);
   if (e) return e;
   unsigned grid = (unsigned)((n + SPLIT_BLOCK - 1) / SPLIT_BLOCK);
-  shade_split_kernel<<<grid, SPLIT_BLOCK, smem, (cudaStream_t)stream>>>(
-      xt, ltab, nl, cl, n, n_alive, cfg, out);
+  if (staged)
+    shade_split_kernel<false>
+        <<<grid, SPLIT_BLOCK, smem, (cudaStream_t)stream>>>(
+            xt, ltab, nl, cl, n, n_alive, cfg, out);
+  else
+    shade_split_kernel<true>
+        <<<grid, SPLIT_BLOCK, smem, (cudaStream_t)stream>>>(
+            xt, ltab, nl, cl, n, n_alive, cfg, out);
   return (int)cudaGetLastError();
 }
 
 // What a K6 launch over a light table of nl rows of cl floats holds
 // (cshade::occupancy: smem, blocks an SM, registers, local memory).
-extern "C" int arendur_shade_split_occupancy(int nl, int cl, int* info) {
-  return cshade::occupancy((const void*)shade_split_kernel, SPLIT_BLOCK,
-                           split_smem(nl, cl), info);
+extern "C" int arendur_shade_split_occupancy(int nl, int cl, int staged,
+                                             int* info) {
+  staged &= cshade::STAGE_L;
+  return cshade::occupancy(split_kernel_for(staged), SPLIT_BLOCK,
+                           cshade::staged_bytes(nl, cl, 0, 0, staged, true), info);
 }

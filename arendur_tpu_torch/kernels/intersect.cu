@@ -85,10 +85,12 @@
 // once this loop spends its time in FMAs, is 3xTF32 (ROADMAP Queue 2b).
 //
 // Shared memory: the sphere table (S rows of 96 B) is staged and tested
-// first (warp v the spheres v, v + W, ...); its space then holds the
-// ring, so the ring does not shrink with the table.  At most
-// MAX_SPHERES rows (2,250: what fits beside the first version's 16 KB
-// chunk in the 227 KB a block can hold); a larger table is refused.
+// first, in consecutive chunks of at most SPH_CHUNK = 512 rows (the
+// ring's 48 KB) with a barrier between chunks (warp v the spheres v,
+// v + W, ... of each); its space then holds the ring.  So a block takes
+// the same 53,504 B whatever the table's size, and a table of any size
+// is taken (the JAX package's _sphere_best unrolls over any count).  A
+// table of up to 512 rows is one chunk.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -111,8 +113,10 @@ constexpr int STAGE_FLOATS = 16 * 4 * CHUNK;
 constexpr int STAGE_BYTES = STAGE_FLOATS * (int)sizeof(float);
 constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 constexpr int BLOCK_SMEM = 232448;  // the most shared memory of a block
-constexpr int MAX_SPHERES =
-    (BLOCK_SMEM - 16 * 1024) / (SPH_COLS * (int)sizeof(float));
+// the sphere rows the ring's space holds: the sphere pass stages and
+// tests a table in chunks of this many
+constexpr int SPH_CHUNK = RING_BYTES / (SPH_COLS * (int)sizeof(float));
+static_assert(SPH_CHUNK % W == 0, "a chunk starts at a multiple of W");
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -220,9 +224,8 @@ constexpr int PART_FLOATS = 2 * W * 32 * R;  // t and codes
 constexpr int FIXED_BYTES =
     (2 * STAGES * 8 + STAGES * 4 + 2 * PART_FLOATS * 4 + 32 * R * 4 + 127) /
     128 * 128;
-static_assert(FIXED_BYTES + MAX_SPHERES * SPH_COLS * (int)sizeof(float) <=
-                  BLOCK_SMEM,
-              "a table of MAX_SPHERES rows fits beside the fixed part");
+static_assert(FIXED_BYTES + RING_BYTES <= BLOCK_SMEM,
+              "the ring fits beside the fixed part");
 
 template <bool ANY>
 __global__ void __launch_bounds__(32 * W)
@@ -292,17 +295,25 @@ __global__ void __launch_bounds__(32 * W)
   }
   int part = 0;  // the partials buffer of the next merge
   if (ns > 0) {
-    for (int k = threadIdx.x; k < ns * SPH_COLS; k += 32 * W)
-      ring[k] = sph[k];
-    __syncthreads();
-    // warp v tests the spheres v, v + W, ...; the merge keeps the least
-    // t and the lowest index at equal t, as the one-ray loop does
+    // the table in chunks of at most SPH_CHUNK rows, each staged into the
+    // ring's space once the warps are done with the one before; warp v
+    // tests the spheres v, v + W, ... (SPH_CHUNK is a multiple of W, so
+    // each warp meets its spheres in ascending order across the chunks);
+    // the merge keeps the least t and the lowest index at equal t, as
+    // the one-ray loop does
+    for (int s0 = 0; s0 < ns; s0 += SPH_CHUNK) {
+      const int s1 = ns - s0 < SPH_CHUNK ? ns : s0 + SPH_CHUNK;
+      if (s0 > 0) __syncthreads();
+      for (int k = threadIdx.x; k < (s1 - s0) * SPH_COLS; k += 32 * W)
+        ring[k] = sph[(long)s0 * SPH_COLS + k];
+      __syncthreads();
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (live[r])
-        for (int s = warp; s < ns; s += W)
-          isect::sphere_pass(ray[r], tm[r], ring + s * SPH_COLS, 1,
-                             full_phi != 0, &best[r], &bslot[r], s);
+      for (int r = 0; r < R; ++r)
+        if (live[r])
+          for (int s = s0 + warp; s < s1; s += W)
+            isect::sphere_pass(ray[r], tm[r], ring + (s - s0) * SPH_COLS, 1,
+                               full_phi != 0, &best[r], &bslot[r], s);
+    }
     merge_best(best, bslot, parts, warp, lane);
     part = 1;
 #pragma unroll
@@ -455,12 +466,10 @@ __global__ void __launch_bounds__(32 * W)
   }
 }
 
-// the dynamic shared memory of a block: the fixed part, then the sphere
-// table or the ring in the same space
-int smem_bytes(int ns) {
-  const int table = ns * SPH_COLS * (int)sizeof(float);
-  return FIXED_BYTES + (RING_BYTES > table ? RING_BYTES : table);
-}
+// the dynamic shared memory of a block: the fixed part, then the ring,
+// whose space first holds the sphere table's chunks (whatever the
+// table's size)
+constexpr int SMEM_BYTES = FIXED_BYTES + RING_BYTES;
 
 // allow the kernel `smem` bytes of dynamic shared memory
 template <bool ANY>
@@ -554,38 +563,34 @@ cudaError_t weight_map(const float* w, int C, int K, CUtensorMap* map) {
 template <bool ANY>
 int launch(Args a) {
   if (a.n <= 0) return 0;
-  // a sphere table is refused past the shared memory and with batched
-  // instancing (the JAX package never passes one there); the TMA
-  // descriptor needs 16-byte aligned weights.  No clusters (C = 0, an
-  // empty world pool) is the sphere branch alone: the ring stages
-  // nothing, so no descriptor is encoded
+  // a sphere table is refused with batched instancing (the JAX package
+  // never passes one there); the TMA descriptor needs 16-byte aligned
+  // weights.  No clusters (C = 0, an empty world pool) is the sphere
+  // branch alone: the ring stages nothing, so no descriptor is encoded
   if (a.K <= 0 || a.K % CHUNK != 0 || a.C < 0 || a.ns < 0 ||
-      a.ns > MAX_SPHERES || (a.ns > 0 && a.period > 0) ||
-      (a.C > 0 && ((uintptr_t)a.w & 15) != 0))
+      (a.ns > 0 && a.period > 0) || (a.C > 0 && ((uintptr_t)a.w & 15) != 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (a.C > 0) {
     e = weight_map(a.w, a.C, a.K, &a.wmap);
     if (e != cudaSuccess) return (int)e;
   }
-  const int smem = smem_bytes(a.ns);
-  e = allow_smem<ANY>(smem);
+  e = allow_smem<ANY>(SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((a.n + 32L * R - 1) / (32L * R));
-  cluster_kernel<ANY><<<grid, 32 * W, smem, (cudaStream_t)a.stream>>>(
+  cluster_kernel<ANY><<<grid, 32 * W, SMEM_BYTES, (cudaStream_t)a.stream>>>(
       a.wmap, a.o, a.d, a.tmax, a.cbox, a.n_alive, a.sph, a.ns, a.full_phi,
       a.n, a.C, a.K, a.period, a.t_out, a.i_out);
   return (int)cudaGetLastError();
 }
 
 template <bool ANY>
-int occupancy(int ns) {
-  const int smem = smem_bytes(ns);
+int occupancy() {
   int blocks = 0;
-  cudaError_t e = allow_smem<ANY>(smem);
+  cudaError_t e = allow_smem<ANY>(SMEM_BYTES);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, cluster_kernel<ANY>, 32 * W, smem);
+        &blocks, cluster_kernel<ANY>, 32 * W, SMEM_BYTES);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
@@ -965,17 +970,15 @@ extern "C" int arendur_any_hit(const float* o, const float* d,
                            stream});
 }
 
-extern "C" int arendur_max_spheres() { return MAX_SPHERES; }
-
 // The TMA descriptors encoded since the library was loaded (the launches
 // that found theirs in the cache encode none).
 extern "C" long long arendur_isect_encodes() { return encodes; }
 
 // What a launch holds, for the build report: the dynamic shared memory
-// of a block with a table of ns spheres (into *smem), and the blocks an
-// SM holds at once (negative: a cudaError) for the closest (any = 0) or
-// the any hit.
-extern "C" int arendur_isect_occupancy(int any, int ns, int* smem) {
-  *smem = smem_bytes(ns);
-  return any ? occupancy<true>(ns) : occupancy<false>(ns);
+// of a block (into *smem; the same for a sphere table of any size), and
+// the blocks an SM holds at once (negative: a cudaError) for the
+// closest (any = 0) or the any hit.
+extern "C" int arendur_isect_occupancy(int any, int* smem) {
+  *smem = SMEM_BYTES;
+  return any ? occupancy<true>() : occupancy<false>();
 }

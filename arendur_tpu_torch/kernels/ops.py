@@ -12,6 +12,7 @@ _slot_cfg); no numpy runs on a launch.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import weakref
 
@@ -102,12 +103,6 @@ def _n_alive_tensor(n_alive, n: int, device) -> torch.Tensor:
     return n_alive.to(device=device, dtype=torch.int32).reshape(())
 
 
-# the largest sphere table K1 / K2 take: S rows of 96 B in the 227 KB
-# of shared memory a block can hold, 16 KB to spare (kernels/intersect.cu
-# MAX_SPHERES)
-MAX_SPHERES = (232448 - 16 * 1024) // 96
-
-
 def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
     n = o.shape[0]
     c, f16, k4 = w_clusters.shape
@@ -126,9 +121,6 @@ def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
     if sph_tab is not None:
         ns = sph_tab.shape[0]
         _check(sph_tab, "sph_tab", shape=(ns, 24))
-        if ns > MAX_SPHERES:
-            raise ValueError(f"{ns} spheres: the intersect kernels hold at "
-                             f"most {MAX_SPHERES} in shared memory")
         if ns and period:
             raise ValueError("a sphere table with batched instancing "
                              "(period > 0) is not supported")
@@ -136,12 +128,12 @@ def _cluster_args(w_clusters, cbox, o, d, tmax, n_alive, sph_tab, period):
     return n, c, k4 // 4, na, sph, ns
 
 
-def isect_occupancy(any_hit: bool, ns: int):
+def isect_occupancy(any_hit: bool):
     """What a K1 (any_hit False) or K2 launch holds: (dynamic shared
-    memory of a block with a table of ns spheres, blocks an SM holds at
-    once; negative: a cudaError)."""
+    memory of a block, the same for a sphere table of any size, blocks
+    an SM holds at once; negative: a cudaError)."""
     smem = ctypes.c_int()
-    blocks = build.load().arendur_isect_occupancy(int(any_hit), ns,
+    blocks = build.load().arendur_isect_occupancy(int(any_hit),
                                                   ctypes.byref(smem))
     return smem.value, blocks
 
@@ -322,17 +314,52 @@ def pack_slot_cfg(present, dists) -> np.ndarray:
     return _cfg(ints, [0.0, 0.0, 0.0])
 
 
-def _check_smem(smem: int):
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"scene tables take {smem} B, more than the "
-                         f"{SMEM_LIMIT} B of shared memory a block has")
-
-
 def shade_smem(nl: int, cl: int, nm: int = 0, ns: int = 0) -> int:
-    """Bytes of shared memory K3 (K6: nm = ns = 0) stages its tables in:
-    each row at the least odd pitch that holds it (kernels/cbounce.cuh
-    odd_pitch)."""
+    """Bytes of shared memory K3 (K6: nm = ns = 0) takes to stage all
+    its tables: each row at the least odd pitch that holds it
+    (kernels/cbounce.cuh odd_pitch)."""
     return 4 * (nl * (cl | 1) + nm * 17 + ns * 25)
+
+
+# the tables K3-K6 stage in shared memory, one bit a table
+# (kernels/cbounce.cuh STAGE_*)
+STAGE_L, STAGE_M, STAGE_S = 1, 2, 4
+STAGE_ALL = STAGE_L | STAGE_M | STAGE_S
+# K4's tape kernel also holds a static tape handle in shared memory
+# (ptxas: 544 B), which its dynamic part must leave room for
+K4_STATIC_SMEM = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    staged: int  # STAGE_* bits of the tables staged in shared memory
+    smem: int    # dynamic shared memory of a block (B)
+
+
+@functools.lru_cache(maxsize=256)
+def stage_plan(kernel: str, nl: int = 0, cl: int = 0, nm: int = 0,
+               ns: int = 0) -> StagePlan:
+    """Which of its tables a launch of `kernel` ("K3", "K4", "K5" or
+    "K6") stages in shared memory, and the bytes a block then takes:
+    the material, sphere and light tables, those the kernel reads, each
+    staged whole, in that order, while it fits beside the ones before in
+    SMEM_LIMIT; a table that does not fit is read in place from global
+    memory at its dense pitch.  K3 / K6 pad each staged row to an odd
+    pitch, K4 / K5 keep the dense rows.  Where every table fits this is
+    the launch the kernels always made (K3: shade_smem)."""
+    odd = kernel in ("K3", "K6")
+    sizes = {STAGE_M: 4 * nm * (17 if odd else 16),
+             STAGE_S: 4 * ns * (25 if odd else 24),
+             STAGE_L: 4 * nl * ((cl | 1) if odd else cl)}
+    reads = {"K3": STAGE_ALL, "K4": STAGE_ALL, "K5": STAGE_S,
+             "K6": STAGE_L}[kernel]
+    limit = SMEM_LIMIT - (K4_STATIC_SMEM if kernel == "K4" else 0)
+    staged, smem = 0, 0
+    for bit in (STAGE_M, STAGE_S, STAGE_L):
+        if reads & bit and smem + sizes[bit] <= limit:
+            staged |= bit
+            smem += sizes[bit]
+    return StagePlan(staged=staged, smem=smem)
 
 
 @functools.lru_cache(maxsize=256)
@@ -366,8 +393,6 @@ def _shade_args(xt, ltab, mtab, stab):
     _check(ltab, "ltab")
     _check(mtab, "mtab", shape=(mtab.shape[0], 16))
     _check(stab, "stab", shape=(stab.shape[0], 24))
-    _check_smem(shade_smem(ltab.shape[0], ltab.shape[1], mtab.shape[0],
-                           stab.shape[0]))
     return xt, ltab, mtab, stab
 
 
@@ -382,11 +407,13 @@ def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
     na, _live = _n_alive_ptr(n_alive, xt.device)
     n = xt.shape[1]
     nl, cl = ltab.shape
+    nm, ns = mtab.shape[0], stab.shape[0]
+    plan = stage_plan("K3", nl, cl, nm, ns)
     out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
     code = lib.arendur_bounce_shade(
-        xt.data_ptr(), ltab.data_ptr(), nl, cl, mtab.data_ptr(),
-        mtab.shape[0], stab.data_ptr(), stab.shape[0], n, na, cfg,
-        out.data_ptr(), _stream(xt))
+        xt.data_ptr(), ltab.data_ptr(), nl, cl, mtab.data_ptr(), nm,
+        stab.data_ptr(), ns, plan.staged, n, na, cfg, out.data_ptr(),
+        _stream(xt))
     _raise_on(code, "bounce_shade")
     BOUNCE_SHADE.launched()
     return out
@@ -394,19 +421,22 @@ def bounce_shade(xt, ltab, mtab, stab, static, min_depth: int,
 
 def shade_occupancy(ltab, mtab=None, stab=None) -> dict:
     """What a K3 launch over these tables holds (K6's, where mtab and
-    stab are None): dynamic shared memory of a block (B), blocks an SM
-    holds at once, registers and local memory (B) a thread."""
+    stab are None), under its stage_plan: dynamic shared memory of a
+    block (B), blocks an SM holds at once, registers and local memory
+    (B) a thread, and the plan's staged bits."""
     lib = build.load()
     info = (ctypes.c_int * 4)()
     nl, cl = ltab.shape
     if mtab is None:
-        code = lib.arendur_shade_split_occupancy(nl, cl, info)
+        plan = stage_plan("K6", nl, cl)
+        code = lib.arendur_shade_split_occupancy(nl, cl, plan.staged, info)
     else:
-        code = lib.arendur_bounce_shade_occupancy(nl, cl, mtab.shape[0],
-                                                  stab.shape[0], info)
+        plan = stage_plan("K3", nl, cl, mtab.shape[0], stab.shape[0])
+        code = lib.arendur_bounce_shade_occupancy(
+            nl, cl, mtab.shape[0], stab.shape[0], plan.staged, info)
     _raise_on(code, "shade occupancy")
     return dict(zip(("smem", "blocks_per_sm", "registers", "local_bytes"),
-                    info))
+                    info), staged=plan.staged)
 
 
 def hit_shade(xt, stab):
@@ -417,12 +447,12 @@ def hit_shade(xt, stab):
     n = xt.shape[1]
     _check(xt, "xt", shape=(cb.HIT_IN_COLS, n))
     _check(stab, "stab", shape=(stab.shape[0], 24))
-    _check_smem(4 * stab.numel())
+    ns = stab.shape[0]
     out = torch.empty(cb.HIT_OUT_COLS, n, dtype=torch.float32,
                       device=xt.device)
-    code = lib.arendur_hit_shade(xt.data_ptr(), stab.data_ptr(),
-                                 stab.shape[0], n, out.data_ptr(),
-                                 _stream(xt))
+    code = lib.arendur_hit_shade(xt.data_ptr(), stab.data_ptr(), ns,
+                                 stage_plan("K5", ns=ns).staged, n,
+                                 out.data_ptr(), _stream(xt))
     _raise_on(code, "hit_shade")
     HIT_SHADE.launched()
     return out
@@ -441,14 +471,14 @@ def shade_split(xt, ltab, static, min_depth: int, rr_threshold: float,
                          f"({cb.SHADE_IN_COLS}, N)")
     _check(ltab, "ltab")
     nl, cl = ltab.shape
-    _check_smem(shade_smem(nl, cl))
     cfg = _shade_cfg(static, min_depth, rr_threshold,
                      sph.THETA_UNIFORM_COMPAT)
     na, _live = _n_alive_ptr(n_alive, xt.device)
     n = xt.shape[1]
     out = torch.empty(cb.OUT_COLS, n, dtype=torch.float32, device=xt.device)
     code = lib.arendur_shade_split(
-        xt.data_ptr(), ltab.data_ptr(), nl, cl, n, na, cfg, out.data_ptr(),
+        xt.data_ptr(), ltab.data_ptr(), nl, cl,
+        stage_plan("K6", nl, cl).staged, n, na, cfg, out.data_ptr(),
         _stream(xt))
     _raise_on(code, "shade_split")
     SHADE_SPLIT.launched()
@@ -671,7 +701,8 @@ def bounce_shade_bwd(xt, ltab, mtab, stab, ct, static, min_depth: int,
     nodes = torch.empty(3, dtype=torch.int64, device=dev)
     code = lib.arendur_bounce_shade_bwd(
         xt.data_ptr(), ct.data_ptr(), ltab.data_ptr(), nl, cl,
-        mtab.data_ptr(), nm, stab.data_ptr(), ns, n, na, cfg,
+        mtab.data_ptr(), nm, stab.data_ptr(), ns,
+        stage_plan("K4", nl, cl, nm, ns).staged, n, na, cfg,
         tape.data_ptr(), threads,
         TAPE_CAP, lists.data_ptr(), dx.data_ptr(), lane_tab.data_ptr(),
         lane_rows.data_ptr(), partials.data_ptr(), dlt.data_ptr(),

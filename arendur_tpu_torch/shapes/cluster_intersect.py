@@ -16,8 +16,12 @@ do under ARENDUR_SPHERES=kernel (their ``_sphere_best`` branch): a
 sphere hit seeds the closest hit's best t with the code -(2+s) and the
 triangles replace it only when strictly closer (the sphere wins ties);
 for the any hit a sphere hit blocks the ray.  ``full_phi`` skips the
-phi clip (every sphere full, ``SphereSoA.phi_full``).  A sphere table
-with batched instancing (``period > 0``) is refused.  Cluster tables of
+phi clip (every sphere full, ``SphereSoA.phi_full``).  A table of any
+size is taken: the kernels stage it into shared memory and test it in
+consecutive chunks of at most 512 rows, a block's shared memory the
+same whatever S (kernels/intersect.cu SPH_CHUNK), as the Pallas
+kernels' ``_sphere_best`` unrolls over any count.  A sphere table with batched instancing (``period > 0``) is
+refused.  Cluster tables of
 no cluster (C = 0: a scene whose world pool is empty) leave the spheres
 alone to test.
 

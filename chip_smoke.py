@@ -5,9 +5,11 @@
 Phases, one line each:
   1. the card (nvidia-smi name and power limit) and the CUDA version;
   2. the build of the hand-written kernels, from the sources here, with
-     ptxas's registers, stack, spills and shared memory per kernel, and
-     K1 / K2's dynamic shared memory and blocks per SM with cb.json's
-     sphere table, K3's and K6's with cb.json's tables (with their
+     ptxas's registers, stack, spills and shared memory per kernel (K3-K6
+     twice: every table staged, and a table read in place), and K1 /
+     K2's dynamic shared memory and blocks per SM (the same with a
+     sphere table of any size), K3's and K6's with cb.json's tables and
+     K3's with the 45-row box's, every table staged (with their
      registers and local memory a thread);
   3. closest hit (K1) and shadow any hit (K2) against their plain
      PyTorch versions on a 65,536-ray Cornell camera wave, random
@@ -112,11 +114,13 @@ Phases, one line each:
      (a partial sphere), each with the phi clip and without; their
      times on the main path's inputs (the camera wave, its shadow rays)
      by CUDA events on inputs rotated past the L2 and on the card by
-     the profiler; the C entry refusing a table past the shared memory;
-     the tie set (render/fuzz.py tie_set: equal t across slots,
-     clusters and spheres, rays past n_alive, period > 0 without
-     spheres) against the plain versions on every lane, its winners
-     asserted;
+     the profiler; K1 / K2 with a table of 2,251 spheres (cb.json with
+     2,249 small ones, tools/make_cb_big_tables.py: past the 2,250 the
+     kernels once held whole, five chunks now) against their plain
+     versions on the same kind of rays; the tie set (render/fuzz.py
+     tie_set: equal t across slots, clusters and spheres, rays past
+     n_alive, period > 0 without spheres) against the plain versions on
+     every lane, its winners asserted;
  15. instanced meshes on examples/cornellbox/cb_inst.json (the Cornell
      box placed 100 times by one instanced mesh, 200 spheres, no world
      triangle): on 4,096 camera rays over the frame, their first
@@ -198,6 +202,25 @@ Phases, one line each:
      (1e-5, K1-K4 launched on each rank); and slots.rho_hd / rho_hh (K8)
      and bsdf_evaluate / bsdf_pdf (K9) on 65,536 fuzz lanes against the
      same functions over the plain sweeps, equal to the bit.
+ 19. tables past the caps (phase19; tools/make_cb_big_tables.py): cb.json
+     with 2,500 small sphere lights over 48 new materials (ltab [2502,
+     53], mtab [57, 16], ktab [2502, 24]), past what K1 / K2 held and K3 /
+     K4 / K5 / K6 stage whole: each kernel's staging plan
+     (kernels/ops.py stage_plan) beside the C entries' shared
+     memory and blocks per SM; K1 / K2 at 65,536 sphere rays with a live
+     count against their plain versions (K1_K2_GATE); K3, K5 (bench.py's
+     checker kd) and K6 equal to their plain versions to the bit on every
+     lane of wave 0's first bounce and its compacted bounce 3 (256x256, 16
+     spp, depth 8), and K4 on the same sets under phase 7's rules; each
+     kernel's ms by CUDA events and on the card and its bound, beside the
+     same on cb.json in the same run; the 64x48, 4 spp, depth-8 render and
+     one 64x48 train step, kernels against plain; Whitted (the same
+     spheres unlit, 64x48, 4 spp) and BPT (BIG_BPT) against plain; and
+     cb_inst's box on a 17 x 17 grid (289 instances, past the 256 rows the
+     instanced kernel stages): the world and instanced K1 / K2 on 4,096
+     camera rays and their shadow rays equal to their plain versions on
+     every lane, and its render (BIG_GRID) against plain; each path
+     driven with every count set to 0 just before and read just after.
 In phases 6, 8, 10, 12, 15 and 16 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
@@ -212,7 +235,9 @@ instanced launches in phase 15's 64x48 render, and for K1 / K2 / K8 /
 K9 also their launches in phase 16's 64x48 BPT render and in one BPT
 wave, and their ms, plain ms and bound on BPT's wave-0 sets (bpt_*);
 K1-K4 also their launches in phase 18's one-rank NCCL render and train
-step (sharded_*);
+step (sharded_*), and K1-K6 their launches past the caps (phase 19's
+train step, K5 / K6 its textured wave) with their ms, device ms and
+bound there (past_cap_*);
 its ms and plain_ms, all
 by CUDA events, K4's the mean per call over phase 7's eight train
 bounces, K1's and K2's the mean per launch over phase 3's fused-wave
@@ -244,6 +269,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -275,6 +301,11 @@ COMPOSED_KERNELS = ("closest_hit", "any_hit", "closest_hit_spheres",
                     "slot_order")
 FUSED_ATOL = 2e-3        # forced composed vs fused (tests/test_pallas_shade)
 SPHERE_KERNELS = ("closest_hit_spheres", "any_hit_spheres")
+# phase 19's BPT render and the 289-instance grid's render: (resolution,
+# spp, depth), cut to what the plain versions afford in the phase (the
+# plain instanced query loops over the 289 instances, ~3 s a query)
+BIG_BPT = ((64, 48), 2, 8)
+BIG_GRID = ((32, 24), 1, 2)
 INSTANCED_KERNELS = FORWARD_KERNELS + ("closest_hit_instanced",
                                        "any_hit_instanced")
 
@@ -521,6 +552,32 @@ def plain_ops(fn):
     return c.n
 
 
+def sphere_ops(ktab, o, d, tmax, full_phi):
+    """Operations of the plain sphere branch on the rays o, d, tmax,
+    counted as the one-sphere-at-a-time loop of K1 / K2 makes them: S
+    times one row's test (shapes/sphere.py intersect_local), its compare
+    with the best t and the two selects.  sphere_best takes the rows in
+    batches, with reductions the loop does not need, so its own count
+    would depend on how it batches them."""
+    import torch
+    from arendur_tpu_torch.render import cmath as cm
+    from arendur_tpu_torch.shapes import sphere as sph
+    if ktab is None or ktab.shape[0] == 0:
+        return 0
+    m = ktab[0].unbind()
+    oc, dc = o.unbind(-1), d.unbind(-1)
+    code = torch.full(tmax.shape, -1, dtype=torch.int32, device=o.device)
+
+    def one_row():
+        hit, t, _ = sph.intersect_local(
+            cm.tp16(m, oc), cm.tv16(m, dc), tmax, m[16], m[17], m[18],
+            m[19], skip_phi_clip=full_phi)
+        better = hit & (t < tmax)
+        torch.where(better, t, tmax)
+        torch.where(better, -2, code)
+    return ktab.shape[0] * plain_ops(one_row)
+
+
 def bound_ms(nbytes, nops):
     """The least time for this work on the card, and what bounds it."""
     tb, to = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
@@ -614,8 +671,8 @@ def wave_query_work(ds, q, result):
     read, the outputs written, the tables read; TRI_FLOPS per triangle
     of each cluster a live ray enters before its result's t (closest
     hit), or per triangle up to the ray's first occluder (any hit:
-    any_hit_pairs; none for rays a sphere blocks), and the plain sphere
-    branch's operations on the live rays."""
+    any_hit_pairs; none for rays a sphere blocks), and the sphere
+    branch's operations on the live rays (sphere_ops)."""
     import torch
     from arendur_tpu_torch.shapes import sphere as sph
     n = q["o"].shape[0]
@@ -626,7 +683,7 @@ def wave_query_work(ds, q, result):
                   + ds.cw.numel() + ds.cbox.numel()
                   + (0 if tab is None else tab.numel()))
     sphere = lambda: sph.sphere_best(tab, o, d, tm, q["full_phi"])  # noqa
-    nops = 0 if tab is None else plain_ops(sphere)
+    nops = sphere_ops(tab, o, d, tm, q["full_phi"])
     if q["kind"] == "closest":
         return nbytes, nops + TRI_FLOPS * (ds.cw.shape[2] // 4) * slab_pairs(
             ds.cbox, o, d, result[0][:na])
@@ -704,6 +761,14 @@ def wave_query_rows(ds, queries):
     return rows, outs
 
 
+# the kernels instantiated twice (kernels/cbounce*.cu INPLACE): every
+# table staged, or a table past the shared memory read in place
+PTXAS_NAMES = {f"{k}ILb{b}E": k + (" in place" if b else "")
+               for k in ("bounce_shade_bwd_kernel", "bounce_shade_kernel",
+                         "hit_shade_kernel", "shade_split_kernel")
+               for b in (0, 1)}
+
+
 def ptxas_report(logs):
     """Registers, stack and spills of each kernel entry, from nvcc's
     -Xptxas -v output."""
@@ -714,14 +779,19 @@ def ptxas_report(logs):
             if "Compiling entry function" in line:
                 if name:
                     out[name] = out[name].strip("; ")
-                name = next((k for k in ("bounce_shade_bwd_kernel",
+                name = next((PTXAS_NAMES.get(k, k) for k in (
+                                         "bounce_shade_bwd_kernelILb0E",
+                                         "bounce_shade_bwd_kernelILb1E",
                                          "bounce_shade_bwd_classify_kernel",
                                          "bounce_shade_bwd_list_kernel",
                                          "bounce_shade_bwd_partials_kernel",
                                          "bounce_shade_bwd_reduce_kernel",
-                                         "bounce_shade_kernel",
-                                         "hit_shade_kernel",
-                                         "shade_split_kernel",
+                                         "bounce_shade_kernelILb0E",
+                                         "bounce_shade_kernelILb1E",
+                                         "hit_shade_kernelILb0E",
+                                         "hit_shade_kernelILb1E",
+                                         "shade_split_kernelILb0E",
+                                         "shade_split_kernelILb1E",
                                          "slot_sample_kernel",
                                          "slot_eval_pdf_kernel",
                                          "slot_sample_packed_kernel",
@@ -739,6 +809,55 @@ def ptxas_report(logs):
                 if "Used" in line:
                     name = None
     return {k: v.strip("; ") for k, v in out.items()}
+
+
+def k4_compare(xt, tabs, ct, shade_cfg):
+    """K4 on one input set against its plain version (autograd over the
+    plain body), phase 7's measures: dx agreement on the lanes taped,
+    dx equal to the pass-through on the others and, on the lanes past
+    the live count, to the plain VJP (the dead-lane contract's
+    identity), the table cotangents' relative error, a second launch
+    bit-identical, the tape nodes and the lanes taped beside the plain
+    twin's count (bwd_needs_body), and the largest |dx - dx_plain|
+    where they agree ("err")."""
+    import torch
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.render import cbounce as cb
+    na = shade_cfg[-1]
+    stats = {}
+    g_k = ops.bounce_shade_bwd(xt, *tabs, ct, *shade_cfg, stats=stats)
+    g_k2 = ops.bounce_shade_bwd(xt, *tabs, ct, *shade_cfg)
+    g_p = cb.cbody_vjp_reference(xt, *tabs, ct, *shade_cfg)
+    need = cb.bwd_needs_body(xt, ct, tabs[2], na)
+    dead = cb.dead_lanes(na, xt.shape[1], xt.device)
+    dead_vjp = dead is None or torch.equal(g_k[0][:, dead], g_p[0][:, dead])
+    dx, dxp = g_k[0][:, need], g_p[0][:, need]
+    close = torch.isclose(dx, dxp, rtol=K4_RTOL, atol=K4_ATOL) \
+        | (torch.isnan(dx) & torch.isnan(dxp))
+    most, total, listed = stats["nodes"].tolist()
+    return dict(
+        dx_close=close.float().mean().item() if need.any() else 1.0,
+        pass_through_exact=torch.equal(g_k[0][:, ~need],
+                                       cb.bwd_pass_through(ct[:, ~need])),
+        dead_lanes=0 if dead is None else int(dead.sum()),
+        dead_vjp_exact=dead_vjp,
+        table_rel=[((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                   for a, b in zip(g_k[1:], g_p[1:])],
+        bit_identical=all(torch.equal(a, b) for a, b in zip(g_k, g_k2)),
+        nodes_max=most, nodes_total=total, listed=listed,
+        listed_plain=int(need.sum()),
+        # lanes let through whose plain VJP is not finite (ROADMAP Queue 3)
+        skip_nonfinite=int((~need & ~torch.isfinite(g_p[0]).all(0)).sum()),
+        err=(dx - dxp).abs()[close].max().item() if need.any() else 0.0)
+
+
+def k4_ok(r):
+    """Whether a k4_compare row meets phase 7's gates."""
+    from arendur_tpu_torch.kernels import ops
+    return (r["dx_close"] >= K4_GATE and r["pass_through_exact"]
+            and max(r["table_rel"]) <= TAB_GATE and r["bit_identical"]
+            and r["nodes_max"] <= ops.TAPE_CAP
+            and r["listed"] == r["listed_plain"] and r["dead_vjp_exact"])
 
 
 def plain_backward_shade():
@@ -1545,6 +1664,440 @@ def phase18(dev, card, ds, camera, film_cfg, config):
     return m
 
 
+def phase19(dev, card, big_tables, scratch):
+    """Phase 19: scenes past the shared memory the kernels once staged
+    whole (tools/make_cb_big_tables.py): cb.json with 2,500 small sphere
+    lights over 48 new materials (ltab [2502, 53], mtab [57, 16], ktab
+    [2502, 24]), the same spheres unlit, and cb_inst's box on a 17 x 17
+    grid (289 instances, 578 sphere lights).  Returns the measurements;
+    raises where a gate fails."""
+    import numpy as np
+    import torch
+    from arendur_tpu_torch import scene as sc
+    from arendur_tpu_torch.filming import camera as cam
+    from arendur_tpu_torch.io import scenedesc
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.lighting import nee
+    from arendur_tpu_torch.parallel import mesh
+    from arendur_tpu_torch.render import bpt, whitted
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.render import fuzz
+    from arendur_tpu_torch.render import integrator as integ
+    from arendur_tpu_torch.sampling import sampler as smp
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    from arendur_tpu_torch.shapes import sphere as sph
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the last lap, kept under `name`."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    n = 1 << 16
+    paths = {name: big_tables.write(os.path.join(scratch, name + ".json"),
+                                    desc)
+             for name, desc in (("lights", big_tables.lights_desc()),
+                                ("unlit", big_tables.lights_desc(lights=0)),
+                                ("grid", big_tables.grid_desc(17)))}
+
+    def parse(name, spp, res, depth, wave=None):
+        scene, camera, film, config, _ = scenedesc.parse_scene(
+            paths[name], spp_override=spp, resolution_override=res)
+        config = dataclasses.replace(
+            config, max_depth=depth,
+            wave_size=wave or res[0] * res[1] * spp)
+        return scene, sc.DeviceScene.build(scene, dev), camera, film, config
+
+    # the 256x256, 16 spp, depth-8 waves (cb.json's camera, film and
+    # settings) of the lights scene and of cb.json itself
+    s_b, ds_b, cam_b, film_b, cfg_b = parse("lights", 16, (256, 256), 8, n)
+    s_c = scenedesc.parse_scene(
+        os.path.join(REPO, "examples/cornellbox/cb.json"))[0]
+    ds_c = sc.DeviceScene.build(s_c, dev)
+    shade_cfg = (cfg_b.min_depth, cfg_b.rr_threshold)
+
+    # the staging plans: past every shade kernel's cap a table stays in
+    # place, the block's shared memory within a block's, the C entries'
+    # bytes equal to the plan's; K1 / K2's block, one size for any table,
+    # fits an SM
+    nl, cl = ds_b.ltab.shape
+    nm, ns = ds_b.mtab.shape[0], ds_b.stab.shape[0]
+    plans = {k: ops.stage_plan(k, nl, cl, nm, ns)
+             for k in ("K3", "K4", "K5", "K6")}
+    whole = {"K3": ops.STAGE_ALL, "K4": ops.STAGE_ALL, "K5": ops.STAGE_S,
+             "K6": ops.STAGE_L}
+    occ = {"K3": ops.shade_occupancy(ds_b.ltab, ds_b.mtab, ds_b.stab),
+           "K6": ops.shade_occupancy(ds_b.ltab)}
+    occ["K1"] = dict(zip(("smem", "blocks_per_sm"),
+                         ops.isect_occupancy(False)))
+    occ["K2"] = dict(zip(("smem", "blocks_per_sm"),
+                         ops.isect_occupancy(True)))
+    if any(plans[k].staged == whole[k] or plans[k].smem > ops.SMEM_LIMIT
+           for k in plans) or any(occ[k]["smem"] != plans[k].smem
+                                  for k in ("K3", "K6")) \
+            or min(v["blocks_per_sm"] for v in occ.values()) < 1:
+        raise AssertionError(f"phase 19 plans: {plans}, {occ}")
+    lap("scenes and plans")
+
+    # K1 / K2 at 65,536 rays with a live count against the plain versions
+    v = np.concatenate([s_b.tri_v0, s_b.tri_v1, s_b.tri_v2])
+    o, d, tm = (torch.tensor(a, device=dev) for a in fuzz.sphere_rays(
+        s_b.spheres, v.min(0), v.max(0), n, 19))
+    na = torch.tensor(n - 9000, device=dev)
+    live = torch.arange(n, device=dev) < n - 9000
+    args = (ds_b.cw, ds_b.cbox, o, d, tm, na)
+    kw = dict(sph_tab=ds_b.ktab, full_phi=ds_b.full_phi)
+    t_k, s_k = ci.intersect_clusters(*args, **kw)
+    t_p, s_p = ci.intersect_clusters_reference(*args, **kw)
+    b_k = ci.occluded_clusters(*args, **kw)
+    b_p = ci.occluded_clusters_reference(*args, **kw)
+    fr, split, tie, k12_err, t_eq = sphere_agreement(t_k, s_k, t_p, s_p,
+                                                     live)
+    k12 = dict(codes_agree=fr, sphere_splits=split, sphere_ties=tie,
+               sphere_t_equal=t_eq,
+               blocked_agree=((b_k == b_p) & live).sum().item()
+               / (n - 9000),
+               dead_lanes_miss=bool((s_k[~live] == -1).all()
+                                    and not b_k[~live].any()),
+               sphere_lanes=int(((s_k <= -2) & live).sum()),
+               blocked=b_k[live].float().mean().item())
+    if split > tie or not t_eq or not k12["dead_lanes_miss"] \
+            or fr < K1_K2_GATE or k12["blocked_agree"] < K1_K2_GATE:
+        raise AssertionError(f"K1 / K2 past the cap: {k12}")
+    lap("K1 / K2")
+
+    def recorded_wave(dsx, scene_x, textured):
+        """Wave 0 through the kernels: its K3 calls, or its K5 and K6
+        calls on the scene with bench.py's checker kd, and the launches
+        of the wave."""
+        hits = []
+
+        def rec_hit(xt, stab):
+            out = cb.hit_shade_t(xt, stab)
+            hits.append(dict(xt=xt.detach().clone(), out=out.clone()))
+            return out
+        cfg_x = cfg_b
+        if textured:
+            scene_t, atlas = fuzz.checker_textured(scene_x, dev)
+            dsx = sc.DeviceScene.build(scene_t, dev)
+            cfg_x = dataclasses.replace(cfg_b, textures=atlas)
+        ops.reset_counts()
+        shades = fuzz.wave_shades(dsx, cam_b, film_b, cfg_x,
+                                  dataclasses.replace(integ.KERNEL_OPS,
+                                                      hit_shade=rec_hit))
+        torch.cuda.synchronize()
+        return dsx, shades, hits, ops.counts()
+
+    # K3, K5 and K6 equal to their plain versions to the bit on every lane
+    # (and to the wave's own launch): the first bounce and bounce 3 of
+    # wave 0 (compacted, with its live count)
+    waves = {}
+    for nm_, scene_x, dsx in (("lights", s_b, ds_b), ("cb.json", s_c, ds_c)):
+        waves[nm_] = dict(fused=recorded_wave(dsx, scene_x, False),
+                          textured=recorded_wave(dsx, scene_x, True))
+    fused_b, tex_b = waves["lights"]["fused"], waves["lights"]["textured"]
+    if not fused_b[3]["bounce_shade"] or min(
+            tex_b[3][k] for k in ("hit_shade", "shade_split")) < 1:
+        raise AssertionError(f"phase 19 waves' launches: {fused_b[3]}, "
+                             f"{tex_b[3]}")
+    eq = []
+    for b in (0, 3):
+        r = fused_b[1][b]
+        tabs = (ds_b.ltab, ds_b.mtab, ds_b.stab, ds_b.static) + shade_cfg
+        o_k = cb.bounce_shade_t(r["xt"], *tabs, n_alive=r["n_alive"])
+        o_p = cb.cbody_reference(r["xt"], *tabs, n_alive=r["n_alive"])
+        eq.append(("K3", b, bit_diff(o_k, o_p), bit_diff(o_k, r["out"])))
+        r = tex_b[1][b]
+        args6 = (tex_b[0].ltab, tex_b[0].static) + shade_cfg
+        o_k = cb.shade_split_t(r["xt"], *args6, n_alive=r["n_alive"])
+        o_p = cb.cbody_shade_reference(r["xt"], *args6,
+                                       n_alive=r["n_alive"])
+        eq.append(("K6", b, bit_diff(o_k, o_p), bit_diff(o_k, r["out"])))
+        r = tex_b[2][b]
+        h_k = cb.hit_shade_t(r["xt"], tex_b[0].stab)
+        h_p = cb.cbody_hit_reference(r["xt"], tex_b[0].stab)
+        eq.append(("K5", b, bit_diff(h_k, h_p), bit_diff(h_k, r["out"])))
+    if any(e[2] or e[3] for e in eq):
+        raise AssertionError(f"K3 / K5 / K6 past the cap: {eq}")
+    lap("K3 / K5 / K6")
+
+    # K4 on the same two sets, a seeded cotangent in every column, under
+    # phase 7's rules
+    gen = torch.Generator().manual_seed(19)
+    k4 = []
+    for b in (0, 3):
+        r = fused_b[1][b]
+        ct = torch.randn(cb.OUT_COLS, n, generator=gen).to(dev)
+        row = k4_compare(r["xt"], (ds_b.ltab, ds_b.mtab, ds_b.stab), ct,
+                         (ds_b.static,) + shade_cfg + (r["n_alive"],))
+        k4.append(dict(bounce=b, **row))
+        if not k4_ok(row):
+            raise AssertionError(f"K4 past the cap, bounce {b}: {row}")
+    lap("K4")
+
+    # each kernel's time past the cap beside cb.json's, in the same run:
+    # ms by CUDA events (inputs rotated past the L2), device ms by the
+    # profiler, and the bound (phase 3 / 7 / 9's work counts)
+    def times(name, dsx):
+        fused, tex = waves[name]["fused"], waves[name]["textured"]
+        out = {}
+        qs = fuzz.wave_queries(dsx, cam_b, film_b, cfg_b, integ.KERNEL_OPS)
+        kk = dsx.cw.shape[2] // 4
+        wbytes = 4 * (dsx.cw.numel() + dsx.cbox.numel() + dsx.ktab.numel())
+        for kind, key in (("closest", "K1"), ("any", "K2")):
+            q = next(q for q in qs if q["kind"] == kind)
+            m = n if q["n_alive"] is None else int(q["n_alive"])
+            od = torch.stack([q["o"], q["d"]])
+            if kind == "closest":
+                call = rotating(lambda x: ops.closest_hit(
+                    dsx.cw, dsx.cbox, x[0], x[1], q["tmax"], q["n_alive"],
+                    sph_tab=dsx.ktab, full_phi=dsx.full_phi), od)
+                tri = TRI_FLOPS * kk * slab_pairs(
+                    dsx.cbox, q["o"][:m], q["d"][:m], q["t"][:m])
+            else:
+                call = rotating(lambda x: ops.any_hit(
+                    dsx.cw, dsx.cbox, x[0], x[1], q["tmax"], q["n_alive"],
+                    sph_tab=dsx.ktab, full_phi=dsx.full_phi), od)
+                # the triangles of the rays no sphere blocks
+                free = sph.sphere_best(dsx.ktab, q["o"][:m], q["d"][:m],
+                                       q["tmax"][:m], dsx.full_phi)[1] == -1
+                tri = TRI_FLOPS * any_hit_pairs(
+                    dsx.cw, dsx.cbox, q["o"][:m][free], q["d"][:m][free],
+                    q["tmax"][:m][free])
+            # the sphere branch: each row the same operations on the
+            # live rays
+            sph_ops = sphere_ops(dsx.ktab, q["o"][:m], q["d"][:m],
+                                 q["tmax"][:m], dsx.full_phi)
+            dev_ms, _ = kernel_ms(call, "cluster_kernel")
+            out[key] = dict(ms=time_ms(call), device_ms=dev_ms, live=m,
+                            bound=bound_ms(
+                                4 * n * (7 + (2 if kind == "closest" else 1))
+                                + wbytes, tri + sph_ops))
+        r0 = fused[1][0]
+        tabs = (dsx.ltab, dsx.mtab, dsx.stab)
+        tab_bytes = 4 * sum(t.numel() for t in tabs)
+        call = rotating(lambda x: ops.bounce_shade(
+            x, *tabs, dsx.static, *shade_cfg, n_alive=r0["n_alive"]),
+            r0["xt"])
+        ct = torch.randn(cb.OUT_COLS, n, generator=gen).to(dev)
+        k4_args = (r0["xt"], *tabs, ct, dsx.static, *shade_cfg,
+                   r0["n_alive"])
+        stats = {}
+        ops.bounce_shade_bwd(*k4_args, stats=stats)
+        _, nodes, listed = stats["nodes"].tolist()
+        dev_ms, _ = kernel_ms(call, "bounce_shade_kernel")
+        # every live lane taped: the node total counts the forward's
+        # operations
+        out["K3"] = dict(ms=time_ms(call), device_ms=dev_ms, bound=bound_ms(
+            4 * n * (cb.IN_COLS + cb.OUT_COLS) + tab_bytes, nodes))
+        out["K4"] = dict(
+            ms=time_ms(lambda: ops.bounce_shade_bwd(*k4_args), iters=3),
+            device_ms=k4_device_ms(lambda: ops.bounce_shade_bwd(*k4_args)),
+            bound=bound_ms(4 * (listed * cb.IN_COLS + (n - listed) * 5)
+                           + 4 * n * (28 + cb.IN_COLS) + 2 * tab_bytes, 0))
+        dst, xh, xs = tex[0], tex[2][0]["xt"], tex[1][0]
+        call = rotating(lambda x: ops.hit_shade(x, dst.stab), xh)
+        dev_ms, _ = kernel_ms(call, "hit_shade_kernel")
+        out["K5"] = dict(ms=time_ms(call), device_ms=dev_ms, bound=bound_ms(
+            4 * n * (cb.HIT_IN_COLS + cb.HIT_OUT_COLS)
+            + 4 * dst.stab.numel(),
+            plain_ops(lambda: cb.cbody_hit_reference(xh, dst.stab))))
+        args6 = (dst.ltab, dst.static) + shade_cfg
+        call = rotating(lambda x: ops.shade_split(
+            x, *args6, n_alive=xs["n_alive"]), xs["xt"])
+        dev_ms, _ = kernel_ms(call, "shade_split_kernel")
+        out["K6"] = dict(ms=time_ms(call), device_ms=dev_ms, bound=bound_ms(
+            4 * n * (cb.SHADE_IN_COLS + cb.OUT_COLS) + 4 * dst.ltab.numel(),
+            plain_ops(lambda: cb.cbody_shade_reference(
+                xs["xt"], *args6, n_alive=xs["n_alive"]))))
+        return out
+
+    ktimes = {name: times(name, dsx)
+              for name, dsx in (("lights", ds_b), ("cb.json", ds_c))}
+    for name, rows in ktimes.items():
+        for k, r in rows.items():
+            if r["ms"] < r["bound"][0]:
+                raise AssertionError(f"{k} on {name}: {r['ms']} ms is below "
+                                     f"its bound {r['bound']}")
+    lap("times")
+
+    # the whole paths at 64x48, kernels against plain
+    _, ds_r, cam_r, film_r, cfg_r = parse("lights", 4, (64, 48), 8)
+    ops.reset_counts()
+    img_k = integ.render(ds_r, cam_r, film_r, cfg_r)
+    torch.cuda.synchronize()
+    render_launches = ops.counts()
+    img_p = integ.render(ds_r, cam_r, film_r, cfg_r, ops=integ.PLAIN_OPS)
+    drender = float((img_k - img_p).abs().max().item())
+    if not torch.isfinite(img_k).all() or img_k.shape != (48, 64, 3) \
+            or not img_k.max() > 0.0 or drender > PLAIN_ATOL \
+            or min(render_launches[k] for k in FORWARD_KERNELS) < 1:
+        raise AssertionError(f"phase 19 render: diff {drender}, "
+                             f"{render_launches}")
+    lap("render")
+    n_r = 64 * 48 * 4
+    m_r = ds_r.materials
+    p_r = {k: torch.tensor(v, device=dev) for k, v in
+           (("kd", m_r.kd), ("ks", m_r.ks), ("roughness", m_r.roughness))}
+    grads, losses = {}, {}
+    for name, wops in (("kernels", integ.KERNEL_OPS),
+                       ("plain", integ.PLAIN_OPS)):
+        step = mesh.train_step_fn(ds_r, cam_r, film_r, cfg_r, lr=GRAD_LR,
+                                  ops=wops)
+        if name == "kernels":
+            ops.reset_counts()
+        new, loss = step(dict(p_r), img_k.reshape(-1, 3) * 0.8,
+                         torch.arange(n_r, device=dev))
+        torch.cuda.synchronize()
+        if name == "kernels":
+            step_launches = ops.counts()
+        grads[name] = {k: (p_r[k] - new[k]) / GRAD_LR for k in new}
+        losses[name] = loss.item()
+    grel = {k: grad_rel(grads["kernels"][k], grads["plain"][k]) for k in p_r}
+    finite = all(torch.isfinite(g).all().item()
+                 for gs in grads.values() for g in gs.values())
+    if not finite or max(grel.values()) > GRAD_GATE \
+            or min(step_launches[k] for k in TRAIN_KERNELS) < 1:
+        raise AssertionError(f"phase 19 train step: grad rel {grel}, finite "
+                             f"{finite}, {step_launches}")
+    lap("train step")
+    # Whitted (one shadow ray a light: on the unlit spheres, cb.json's two
+    # lights) and BPT, kernels against plain
+    _, ds_w, cam_w, film_w, cfg_w = parse("unlit", 4, (64, 48), 8)
+    _, ds_t, cam_t, film_t, cfg_t = parse("lights", BIG_BPT[1], BIG_BPT[0],
+                                          BIG_BPT[2])
+    other = {}
+    for name, render, args, need in (
+            ("Whitted", whitted.render_whitted,
+             (ds_w, cam_w, film_w, cfg_w),
+             SPHERE_KERNELS + ("closest_hit", "any_hit", "slot_eval_pdf")),
+            ("BPT", bpt.render_bpt, (ds_t, cam_t, film_t, cfg_t),
+             COMPOSED_KERNELS)):
+        ops.reset_counts()
+        img = render(*args)
+        torch.cuda.synchronize()
+        lau = ops.counts()
+        diff = float((img - render(*args, ops=integ.PLAIN_OPS)).abs().max()
+                     .item())
+        other[name] = dict(dplain=diff, launches=lau)
+        if not torch.isfinite(img).all() or not img.max() > 0.0 \
+                or diff > PLAIN_ATOL or min(lau[k] for k in need) < 1 \
+                or lau["bounce_shade"]:
+            raise AssertionError(f"phase 19 {name}: {other[name]}")
+        lap(name)
+
+    # the 17 x 17 grid: 4,096 camera rays (64 x 64 pixels) and their first
+    # bounce's shadow rays, the world K1 / K2 (578 spheres, no cluster)
+    # and the instanced entries equal to their plain versions on every
+    # lane; its render, kernels against plain
+    s_g, ds_g, cam_g, film_g, cfg_g = parse("grid", 1, (64, 64), 8)
+    im = ds_g.inst[0]
+    n4 = 4096
+    pid4 = torch.arange(n4, device=dev)
+    ws4 = smp.WaveSampler(smp.make_base_key(0), pid4, torch.zeros_like(pid4),
+                          sample_dx=1, sample_dy=1)
+    pxy4 = torch.stack([(pid4 % 64).float(), (pid4 // 64).float()], -1)
+    o4, d4 = cam.generate_rays(cam_g, pxy4 + ws4.film_jitter(), ws4.u2(2))
+    raw4 = integ.intersect_raw(ds_g, o4, d4, None, integ.KERNEL_OPS)
+    u_s, u_l, u_b, u_r = integ.bounce_draws(cfg_g, ws4.keys, 0)
+    li4, sp4 = nee.sample_one_light(ds_g, u_s)
+    r4 = cb.unpack_out_t(cb.bounce_shade_t(
+        integ.pack_bounce_input(integ.initial_carry(o4, d4, ws4.keys), raw4,
+                                li4, sp4, u_l, u_b, u_r, 0),
+        ds_g.ltab, ds_g.mtab, ds_g.stab, ds_g.static, *shade_cfg))
+    gkw = dict(sph_tab=ds_g.ktab, full_phi=ds_g.full_phi)
+    grid = []
+    for nm_, o_, d_, tm_ in (
+            ("camera", o4, d4, torch.full((n4,), float("inf"), device=dev)),
+            ("shadow",) + tuple(r4[k].contiguous()
+                                for k in ("sh_o", "sh_d", "sh_t"))):
+        wa = (ds_g.cw, ds_g.cbox, o_, d_, tm_, None)
+        world_k = results(ci.intersect_clusters(*wa, **gkw)) \
+            + results(ci.occluded_clusters(*wa, **gkw))
+        world_p = results(ci.intersect_clusters_reference(*wa, **gkw)) \
+            + results(ci.occluded_clusters_reference(*wa, **gkw))
+        ia = (im.cw, im.cbox, im.itab, o_, d_, tm_, None)
+        inst_k = ci.intersect_instanced(*ia) \
+            + (ci.occluded_instanced(*ia, world_k[2]),)
+        inst_p = ci.intersect_instanced_reference(*ia) \
+            + (ci.occluded_instanced_reference(*ia, world_p[2]),)
+        grid.append(dict(
+            set=nm_, world_equal=all(torch.equal(a, b_)
+                                     for a, b_ in zip(world_k, world_p)),
+            instanced_equal=all(torch.equal(a, b_)
+                                for a, b_ in zip(inst_k, inst_p)),
+            inst_hit=(inst_k[1] >= 0).float().mean().item(),
+            inst_blocked=inst_k[3].float().mean().item(),
+            sphere_lanes=int((world_k[1] <= -2).sum())))
+        if not (grid[-1]["world_equal"] and grid[-1]["instanced_equal"]):
+            raise AssertionError(f"phase 19 grid: {grid[-1]}")
+    lap("grid queries")
+    _, ds_gr, cam_gr, film_gr, cfg_gr = parse("grid", BIG_GRID[1],
+                                              BIG_GRID[0], BIG_GRID[2])
+    ops.reset_counts()
+    img_g = integ.render(ds_gr, cam_gr, film_gr, cfg_gr)
+    torch.cuda.synchronize()
+    grid_launches = ops.counts()
+    dgrid = float((img_g - integ.render(ds_gr, cam_gr, film_gr, cfg_gr,
+                                        ops=integ.PLAIN_OPS))
+                  .abs().max().item())
+    if not torch.isfinite(img_g).all() or not img_g.max() > 0.0 \
+            or dgrid > PLAIN_ATOL \
+            or min(grid_launches[k] for k in INSTANCED_KERNELS) < 1:
+        raise AssertionError(f"phase 19 grid render: {dgrid}, "
+                             f"{grid_launches}")
+    lap("grid render")
+
+    def ktext(name):
+        return ", ".join(
+            f"{k} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, bound "
+            f"{r['bound'][0]:.4f} {r['bound'][1]})"
+            for k, r in ktimes[name].items())
+    _say(f"[19] tables past the caps (lights: ltab {tuple(ds_b.ltab.shape)},"
+         f" mtab {tuple(ds_b.mtab.shape)}, ktab {tuple(ds_b.ktab.shape)}): "
+         "plans " + ", ".join(f"{k} staged {p.staged:03b} {p.smem} B"
+                              for k, p in plans.items())
+         + f", K1 / K2 {-(-ds_b.ktab.shape[0] // 512)} sphere chunks of <= "
+         "512 rows (intersect.cu SPH_CHUNK); "
+         "shared memory and blocks per SM " + ", ".join(
+             f"{k} {v['smem']} B {v['blocks_per_sm']}"
+             for k, v in occ.items())
+         + f" | K1 / K2 on 65,536 sphere rays (live {n - 9000}): codes agree "
+         f"{fr:.6f} ({k12['sphere_lanes']} sphere lanes, {split} splits, "
+         f"{tie} ties), blocked agree {k12['blocked_agree']:.6f} | equal to "
+         "the bit (elements that differ from plain / from the wave's "
+         "launch): " + ", ".join(f"{k} bounce {b} {x}/{y}"
+                                 for k, b, x, y in eq)
+         + " | K4: " + "; ".join(
+             f"bounce {r['bounce']} dx close {r['dx_close']:.6f}, table rel "
+             + "/".join(f"{x:.2e}" for x in r["table_rel"])
+             + f", taped {r['listed']}" for r in k4)
+         + f" | per launch, past the cap: {ktext('lights')}; cb.json: "
+         f"{ktext('cb.json')} | 64x48 render vs plain {drender:.2e}, train "
+         f"step grad rel " + ", ".join(f"{k} {v:.2e}" for k, v in grel.items())
+         + ", " + ", ".join(f"{k} vs plain {v['dplain']:.2e}"
+                            for k, v in other.items())
+         + " | grid of 289: " + "; ".join(
+             f"{r['set']}: world equal {r['world_equal']}, instanced equal "
+             f"{r['instanced_equal']} (hit {r['inst_hit']:.3f}, blocked "
+             f"{r['inst_blocked']:.3f}, sphere lanes {r['sphere_lanes']})"
+             for r in grid) + f", render vs plain {dgrid:.2e} | seconds: "
+         + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + f" ({card})")
+    return dict(plans={k: dataclasses.asdict(p) for k, p in plans.items()},
+                occupancy=occ, k12=k12,
+                equal=eq, k4=k4,
+                times={s: {k: dict(r, bound=list(r["bound"]))
+                           for k, r in rows.items()}
+                       for s, rows in ktimes.items()},
+                render_dplain=drender, render_launches=render_launches,
+                train_grad_rel=grel, train_losses=losses,
+                train_launches=step_launches,
+                textured_wave_launches=tex_b[3], other=other, grid=grid,
+                grid_dplain=dgrid, grid_launches=grid_launches, seconds=laps)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1554,7 +2107,12 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.join(REPO, "tools"))
     import numpy as np
+    import make_cb_big_tables as big_tables
+    # the scenes phases 14 and 19 write (tools/make_cb_big_tables.py)
+    scratch_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    scratch = scratch_dir.name
     from arendur_tpu_torch import scene as sc
     from arendur_tpu_torch.io import scenedesc
     from arendur_tpu_torch.kernels import build, ops
@@ -1593,13 +2151,12 @@ def main(argv=None):
     config = dataclasses.replace(config, max_depth=8, wave_size=1 << 16)
     ds = sc.DeviceScene.build(scene, dev)
     # K1 / K2 (32 rays a block: one a thread, 8 warps): dynamic shared
-    # memory of a block and blocks per SM with cb.json's sphere table and
-    # with a table at the cap
+    # memory of a block and blocks per SM, the same with a sphere table of
+    # any size (its chunks staged in the ring's space: intersect.cu
+    # SPH_CHUNK)
     occ = {}
-    for ns in (ds.ktab.shape[0], ops.MAX_SPHERES):
-        for kind in ("K1", "K2"):
-            occ[f"{kind} {ns} spheres"] = ops.isect_occupancy(kind == "K2",
-                                                              ns)
+    for kind in ("K1", "K2"):
+        occ[f"{kind} any sphere count"] = ops.isect_occupancy(kind == "K2")
     # the instanced K1 / K2 over 100 instances (cb_inst.json: the table
     # staged in shared memory) and 1,000 (its first rows staged)
     for ni in (100, 1000):
@@ -1608,18 +2165,27 @@ def main(argv=None):
                 ops.isect_inst_occupancy(kind == "K2", ni)
     if min(blocks for _, blocks in occ.values()) < 1:
         raise AssertionError(f"K1 / K2: no block fits an SM: {occ}")
-    # K3 / K6 with cb.json's tables
+    # K3 / K6 with cb.json's tables, K3 with the 45-row box's (phase 13):
+    # every table staged
+    ds45 = sc.DeviceScene.build(fuzz.spread_materials(scene), dev)
     shade_occ = {"K3": ops.shade_occupancy(ds.ltab, ds.mtab, ds.stab),
-                 "K6": ops.shade_occupancy(ds.ltab)}
-    if min(v["blocks_per_sm"] for v in shade_occ.values()) < 1:
-        raise AssertionError(f"K3 / K6: no block fits an SM: {shade_occ}")
+                 "K6": ops.shade_occupancy(ds.ltab),
+                 "K3 45-row box": ops.shade_occupancy(ds45.ltab, ds45.mtab,
+                                                      ds45.stab)}
+    if min(v["blocks_per_sm"] for v in shade_occ.values()) < 1 \
+            or shade_occ["K6"]["staged"] != ops.STAGE_L or any(
+                shade_occ[k]["staged"] != ops.STAGE_ALL
+                for k in ("K3", "K3 45-row box")):
+        raise AssertionError(f"K3 / K6: no block fits an SM, or a table "
+                             f"under the cap not staged: {shade_occ}")
     _say(f"[2] kernels built in {build_s:.1f} s "
          f"({', '.join(os.path.relpath(p, REPO) for p, _ in built)}); "
          + " | ".join(f"{k}: {v}" for k, v in ptxas.items())
          + " | K1 / K2 blocks of 8 warps, one ray a thread (dynamic shared "
          "memory B, blocks per SM): " + ", ".join(
              f"{k} {v}" for k, v in occ.items())
-         + " | K3 / K6 with cb.json's tables: " + ", ".join(
+         + " | K3 / K6 with cb.json's tables (K3 also the 45-row box's), "
+         "every table staged: " + ", ".join(
              f"{k} {v['smem']} B shared, {v['blocks_per_sm']} blocks per SM,"
              f" {v['registers']} registers, {v['local_bytes']} B local a "
              f"thread" for k, v in shade_occ.items()))
@@ -1878,32 +2444,9 @@ def main(argv=None):
                 for b, r in enumerate(step_bounces)]
     for nm, xt, tabs, ct, static, na in k4_sets:
         shade_cfg = (static, config.min_depth, config.rr_threshold, na)
-        stats = {}
-        g_k = ops.bounce_shade_bwd(xt, *tabs, ct, *shade_cfg, stats=stats)
-        g_k2 = ops.bounce_shade_bwd(xt, *tabs, ct, *shade_cfg)
-        g_p = cb.cbody_vjp_reference(xt, *tabs, ct, *shade_cfg)
-        need = cb.bwd_needs_body(xt, ct, tabs[2], na)
-        # the lanes past the live count: the contract's identity VJP, as
-        # autograd over the plain version gives it
-        dead = cb.dead_lanes(na, xt.shape[1], dev)
-        dead_lanes = 0 if dead is None else int(dead.sum())
-        dead_vjp = dead is None or torch.equal(g_k[0][:, dead],
-                                               g_p[0][:, dead])
-        dx, dxp = g_k[0][:, need], g_p[0][:, need]
-        close = torch.isclose(dx, dxp, rtol=K4_RTOL, atol=K4_ATOL) \
-            | (torch.isnan(dx) & torch.isnan(dxp))
-        frac = close.float().mean().item() if need.any() else 1.0
-        # the lanes let through: dx exactly the pass-through
-        through = torch.equal(g_k[0][:, ~need],
-                              cb.bwd_pass_through(ct[:, ~need]))
-        rels = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-                for a, b in zip(g_k[1:], g_p[1:])]
-        same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
-        most, total, listed = stats["nodes"].tolist()
-        # lanes let through whose plain VJP is not finite (ROADMAP Queue 3)
-        skip_nonfinite = int((~need & ~torch.isfinite(g_p[0]).all(0)).sum())
-        if need.any():
-            k4_err = max(k4_err, (dx - dxp).abs()[close].max().item())
+        r = k4_compare(xt, tabs, ct, shade_cfg)
+        k4_err = max(k4_err, r.pop("err"))
+        listed, total = r["listed"], r["nodes_total"]
         k4_ms = time_ms(lambda: ops.bounce_shade_bwd(xt, *tabs, ct,
                                                      *shade_cfg), iters=5)
         k4_dev = k4_device_ms(lambda: ops.bounce_shade_bwd(
@@ -1918,16 +2461,9 @@ def main(argv=None):
         # written, the tables read and their cotangents written
         bound = bound_ms(4 * (listed * cb.IN_COLS + (n - listed) * 5)
                          + 4 * n * (28 + cb.IN_COLS) + 2 * tab_bytes, 0)
-        k4.append(dict(set=nm, dx_close=frac, pass_through_exact=through,
-                       dead_lanes=dead_lanes, dead_vjp_exact=dead_vjp,
-                       table_rel=rels, bit_identical=same, ms=k4_ms,
-                       device_ms=k4_dev, plain_ms=k4_plain, bound_ms=bound[0],
-                       nodes_max=most, nodes_total=total, listed=listed,
-                       listed_plain=int(need.sum()),
-                       skip_nonfinite=skip_nonfinite))
-        if frac < K4_GATE or not through or max(rels) > TAB_GATE \
-                or not same or most > ops.TAPE_CAP \
-                or listed != int(need.sum()) or not dead_vjp:
+        k4.append(dict(set=nm, ms=k4_ms, device_ms=k4_dev,
+                       plain_ms=k4_plain, bound_ms=bound[0], **r))
+        if not k4_ok(r):
             raise AssertionError(f"K4 {nm}: {k4[-1]}")
         if nm == "first bounce":
             # every lane taped: the node total counts the forward's
@@ -2498,21 +3034,19 @@ def main(argv=None):
 
     # phase 14: the sphere branch of K1 / K2
     from arendur_tpu_torch.shapes import sphere as sph
-    if build.load().arendur_max_spheres() != ops.MAX_SPHERES:
-        raise AssertionError("ops.MAX_SPHERES is not the kernels' cap")
     na14 = torch.tensor(n - 9000, device=dev)
     live14 = torch.arange(n, device=dev) < n - 9000
-    refused = build.load().arendur_closest_hit(
-        o_cam.data_ptr(), d_cam.data_ptr(), tinf.data_ptr(),
-        ds.cw.data_ptr(), ds.cbox.data_ptr(), na14.data_ptr(),
-        ds.ktab.data_ptr(), ops.MAX_SPHERES + 1, 0, n, ds.cw.shape[0],
-        ds.cw.shape[2] // 4, 0, tinf.data_ptr(), tinf.data_ptr(), None)
-    if refused == 0:
-        raise AssertionError("K1 took a sphere table past its cap")
     k14 = []
     k14_err = 0.0
+    # and cb.json with 2,249 small spheres more: a table of 2,251 rows,
+    # past the 2,250 K1 / K2 once held whole (five chunks now)
+    big14, *_ = scenedesc.parse_scene(big_tables.write(
+        os.path.join(scratch, "cb_2251.json"),
+        big_tables.lights_desc(spheres=2249)))
     for nm, scene_x, dsx in (("cb.json", scene, ds),
-                             ("all-branches", b2, ds2)):
+                             ("all-branches", b2, ds2),
+                             ("2,251 spheres", big14,
+                              sc.DeviceScene.build(big14, dev))):
         v = np.concatenate([scene_x.tri_v0, scene_x.tri_v1, scene_x.tri_v2])
         o14, d14, tm14 = (torch.tensor(a, device=dev) for a in
                           fuzz.sphere_rays(scene_x.spheres, v.min(0),
@@ -2616,9 +3150,8 @@ def main(argv=None):
     sph_bytes = 4 * ds.ktab.numel()
     # the sphere branch alone: its operations on the same rays and the
     # table it reads (the bound of PERF.md's "K1 / K2 branch" row)
-    sph1_ops = plain_ops(lambda: sph.sphere_best(ds.ktab, o_cam, d_cam, tinf,
-                                                 ds.full_phi))
-    sph2_ops = plain_ops(lambda: sph.sphere_best(ds.ktab, *sh, ds.full_phi))
+    sph1_ops = sphere_ops(ds.ktab, o_cam, d_cam, tinf, ds.full_phi)
+    sph2_ops = sphere_ops(ds.ktab, *sh, ds.full_phi)
     branch_bound = [bound_ms(sph_bytes, v) for v in (sph1_ops, sph2_ops)]
     k1s_ops = TRI_FLOPS * kk * slab_pairs(ds.cbox, o_cam, d_cam, t_k) \
         + sph1_ops
@@ -2658,8 +3191,7 @@ def main(argv=None):
         f"{k2n_q:.4f} ms; plain K1 {k1s_plain:.3f} ms, K2 "
         f"{k2s_plain:.3f} ms; the sphere branch alone: bound K1 "
         f"{branch_bound[0][0]:.4f} ms, K2 {branch_bound[1][0]:.4f} ms "
-        f"({branch_bound[0][1]}); table past the cap refused (cudaError "
-        f"{refused}), cap {ops.MAX_SPHERES} spheres | tie set ("
+        f"({branch_bound[0][1]}) | tie set ("
         f"{n_ts} rays): " + "; ".join(
             f"{k}: slots equal {v['slots_equal']}, blocked equal "
             f"{v['blocked_equal']}, t equal on the crafted rays "
@@ -3277,6 +3809,7 @@ def main(argv=None):
 
     p17 = phase17(dev, card, ds, camera, film_cfg, config, (pxy, pid, sid))
     p18 = phase18(dev, card, ds, camera, film_cfg, config)
+    p19 = phase19(dev, card, big_tables, scratch)
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -3321,6 +3854,12 @@ def main(argv=None):
     main_launches.update({k: inst_launches[k]
                           for k in ("closest_hit_instanced",
                                     "any_hit_instanced")})
+    # phase 19's figures past the caps: K1-K4's launches in its train
+    # step, K5 / K6's in its textured wave, each kernel's times there
+    past_cap = {"closest_hit": "K1", "any_hit": "K2",
+                "closest_hit_spheres": "K1", "any_hit_spheres": "K2",
+                "bounce_shade": "K3", "bounce_shade_bwd": "K4",
+                "hit_shade": "K5", "shade_split": "K6"}
     rows = []
     for k in TRAIN_KERNELS + ("hit_shade", "shade_split",
                               "bounce_shade_wide", "slot_sample",
@@ -3353,6 +3892,14 @@ def main(argv=None):
                 rows[-1][isec + "_launches"] = p17[isec]["render_launches"][k]
                 rows[-1][isec + "_wave_launches"] = \
                     p17[isec]["wave_launches"][k]
+        if k in past_cap:
+            t19 = p19["times"]["lights"][past_cap[k]]
+            rows[-1].update(
+                past_cap_launches=(p19["train_launches"][k]
+                                   if k in TRAIN_KERNELS
+                                   else p19["textured_wave_launches"][k]),
+                past_cap_ms=t19["ms"], past_cap_device_ms=t19["device_ms"],
+                past_cap_bound_ms=t19["bound"][0])
         if b_ms > r["ms"]:
             raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
                                  f"{b_ms} ms")
@@ -3423,7 +3970,7 @@ def main(argv=None):
                            bpt_wave=[bw_s, bbusy, bnk, host_ops],
                            bpt_wave_launches=bw_launches,
                            bpt_wave_kernels=per_k, phase17=p17,
-                           phase18=p18),
+                           phase18=p18, phase19=p19),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

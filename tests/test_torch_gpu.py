@@ -15,7 +15,7 @@ import torch
 
 from arendur_tpu_torch import scene as sc
 from arendur_tpu_torch.io import scenedesc
-from arendur_tpu_torch.kernels import build, ops
+from arendur_tpu_torch.kernels import ops
 from arendur_tpu_torch.render import cbounce as cb
 from arendur_tpu_torch.render import fuzz
 from arendur_tpu_torch.render import integrator as integ
@@ -159,23 +159,33 @@ def test_intersect_tie_set_on_card(card):
 
 @pytest.mark.gpu
 def test_sphere_table_limits(card):
-    """A table past the shared memory or with batched instancing is
-    refused; one at the cap (past the 48 KB default) launches."""
+    """A table with batched instancing is refused; one of 2,251 rows
+    (past the 2,250 the kernels once held in shared memory whole: five
+    chunks of at most 512) launches in a block of the same shared memory
+    and matches the plain version."""
     ds, o, d, tmax = _sphere_rays(card, "cornell", 5)
-    assert build.load().arendur_max_spheres() == ops.MAX_SPHERES
-    big = ds.ktab[:1].repeat(ops.MAX_SPHERES + 1, 1)
-    with pytest.raises(ValueError, match="spheres"):
-        ops.closest_hit(ds.cw, ds.cbox, o, d, tmax, sph_tab=big)
     with pytest.raises(ValueError, match="instancing"):
         ops.any_hit(ds.cw, ds.cbox, o, d, tmax, period=256,
                     sph_tab=ds.ktab)
-    # copies of one sphere, of which the first wins every tie
-    full = ds.ktab[:1].repeat(ops.MAX_SPHERES, 1)
-    t, s = ops.closest_hit(ds.cw, ds.cbox, o, d, tmax, sph_tab=full)
+    # copies of the scene's two spheres in turn, of which the first two
+    # win every tie, across the chunks
+    big = ds.ktab.repeat(1126, 1)[:2251].contiguous()
+    t, s = ops.closest_hit(ds.cw, ds.cbox, o, d, tmax, sph_tab=big)
+    b = ops.any_hit(ds.cw, ds.cbox, o, d, tmax, sph_tab=big)
     t_p, s_p = ci.intersect_clusters_reference(ds.cw, ds.cbox, o, d, tmax,
-                                               sph_tab=ds.ktab[:1])
+                                               sph_tab=big)
+    b_p = ci.occluded_clusters_reference(ds.cw, ds.cbox, o, d, tmax,
+                                         sph_tab=big)
     assert (s == s_p).float().mean().item() >= SLOT_GATE
-    assert torch.equal(s == -2, s_p == -2) and (s == -2).any()
+    assert (b == b_p).float().mean().item() >= SLOT_GATE
+    assert ((s == -2) | (s == -3)).any() and not (s < -3).any()
+    # the lanes that hit a sphere, their sphere and t exactly as plain
+    on_sph = s <= -2
+    assert torch.equal(on_sph, s_p <= -2)
+    assert torch.equal(s[on_sph], s_p[on_sph])
+    assert torch.equal(t[on_sph], t_p[on_sph])
+    agree = s == s_p
+    assert torch.allclose(t[agree], t_p[agree], rtol=T_RTOL)
 
 
 @pytest.mark.gpu

@@ -24,6 +24,10 @@ made from, which the tests check).
   frame, for tests/test_parallel.py's tiny scene (8x8, 8 spp, depth 2:
   parallel/distributed.py _tiny_setup) and cb.json (32x24, 4 spp, depth
   3) (tests/test_torch_parallel.py);
+* ``big_lights``: cb.json with BIG_LIGHTS small sphere lights over
+  BIG_MATERIALS new matte materials (tools/make_cb_big_tables.py
+  lights_desc, seed 0), past the tables K3, K4 and K6 stage whole,
+  rendered at 16x12, 2 spp, depth 3 (tests/test_torch_big_tables.py);
 * ``par_train_<scene>``: one sharded_train_step_fn step on a 2-device
   CPU mesh, the loss and the parameter gradients read back from the new
   parameters: the tiny scene (8x8, 4 spp, depth 1, a bare kd, lr 1,
@@ -42,6 +46,7 @@ CB = os.path.join(REPO, "examples/cornellbox/cb.json")
 CB_ETEX = os.path.join(REPO, "examples/cornellbox/cb_etex.json")
 
 RENDER_RES, RENDER_SPP, RENDER_DEPTH = (16, 12), 2, 3
+BIG_LIGHTS, BIG_MATERIALS = 1200, 48
 TRAIN_RES, TRAIN_SPP, TRAIN_DEPTH, TRAIN_LR = (16, 12), 2, 2, 1e3
 TRAIN_SCENES = {"cb_etex": (CB_ETEX, "cluster"), "cb_bvh": (CB, "bvh")}
 SOBOL_SPP, SOBOL_DIMS = 16, 80
@@ -108,6 +113,21 @@ def texel_inputs():
 def inst_inputs():
     return dict(scene="inst_etex_scene", res=INST_RES, spp=INST_SPP,
                 depth=INST_DEPTH, seed=0)
+
+
+def big_inputs():
+    return dict(scene="make_cb_big_tables lights_desc", spheres=BIG_LIGHTS,
+                materials=BIG_MATERIALS, res=RENDER_RES, spp=RENDER_SPP,
+                depth=RENDER_DEPTH, seed=0)
+
+
+def big_lights_scene(directory):
+    """The big_lights scene file, written into `directory`."""
+    import sys
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_cb_big_tables as mbt
+    return mbt.write(os.path.join(directory, "big_lights.json"),
+                     mbt.lights_desc(BIG_LIGHTS, BIG_MATERIALS))
 
 
 def train_target(res=TRAIN_RES, kind="uniform(0, 0.5) seed 0"):
@@ -285,6 +305,18 @@ def jax_intersector_render(intersector):
     return dict(img=np.asarray(jint.render(js, jcam, jfilm, jcfg)))
 
 
+def jax_big_lights():
+    import tempfile
+    from arendur_tpu.io import scenedesc as jsd
+    from arendur_tpu.render import integrator as jint
+    with tempfile.TemporaryDirectory() as tmp:
+        js, jcam, jfilm, jcfg, _ = jsd.parse_scene(
+            big_lights_scene(tmp), spp_override=RENDER_SPP,
+            resolution_override=RENDER_RES)
+    jcfg = dataclasses.replace(jcfg, max_depth=RENDER_DEPTH)
+    return dict(img=np.asarray(jint.render(js, jcam, jfilm, jcfg)))
+
+
 def sobol_plane_setup():
     """test_sobol.py's plane scene, camera, film and Sobol config."""
     import sys
@@ -426,6 +458,7 @@ ORACLES = {
                      lambda: jax_train_step("cb_bvh")),
     "texel_grad": (texel_inputs, jax_texel_grad),
     "inst_etex": (inst_inputs, jax_inst_etex),
+    "big_lights": (big_inputs, jax_big_lights),
 }
 for _name in PAR_RENDER:
     ORACLES["par_render_" + _name] = (

@@ -78,11 +78,11 @@ def build_shapes(shapes):
 def load(path):
     lib = ctypes.CDLL(path)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, L, P, P, P,
-                                         P]
-    lib.arendur_shade_split.argtypes = [P, P, I, I, L, P, P, P, P]
-    lib.arendur_bounce_shade_occupancy.argtypes = [I, I, I, I, P]
-    lib.arendur_shade_split_occupancy.argtypes = [I, I, P]
+    lib.arendur_bounce_shade.argtypes = [P, P, I, I, P, I, P, I, I, L, P,
+                                         P, P, P]
+    lib.arendur_shade_split.argtypes = [P, P, I, I, I, L, P, P, P, P]
+    lib.arendur_bounce_shade_occupancy.argtypes = [I, I, I, I, I, P]
+    lib.arendur_shade_split_occupancy.argtypes = [I, I, I, P]
     return lib
 
 
@@ -129,7 +129,8 @@ def main(argv=None):
         code = lib.arendur_bounce_shade(
             x.data_ptr(), ds.ltab.data_ptr(), *ds.ltab.shape,
             ds.mtab.data_ptr(), ds.mtab.shape[0], ds.stab.data_ptr(),
-            ds.stab.shape[0], x.shape[1], na.data_ptr(), p(cfg),
+            ds.stab.shape[0], ops.STAGE_ALL, x.shape[1], na.data_ptr(),
+            p(cfg),
             out.data_ptr(), stream())
         if code:
             raise RuntimeError(f"K3 launch failed: cudaError {code}")
@@ -139,7 +140,8 @@ def main(argv=None):
         out = torch.empty(cb.OUT_COLS, x.shape[1], device=dev)
         code = lib.arendur_shade_split(
             x.data_ptr(), ds_t.ltab.data_ptr(), *ds_t.ltab.shape,
-            x.shape[1], na.data_ptr(), p(cfg_t), out.data_ptr(), stream())
+            ops.STAGE_L, x.shape[1], na.data_ptr(), p(cfg_t), out.data_ptr(),
+            stream())
         if code:
             raise RuntimeError(f"K6 launch failed: cudaError {code}")
         return out
@@ -149,8 +151,10 @@ def main(argv=None):
         lib = load(path)
         info3, info6 = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
         lib.arendur_bounce_shade_occupancy(*ds.ltab.shape, ds.mtab.shape[0],
-                                           ds.stab.shape[0], info3)
-        lib.arendur_shade_split_occupancy(*ds_t.ltab.shape, info6)
+                                           ds.stab.shape[0], ops.STAGE_ALL,
+                                           info3)
+        lib.arendur_shade_split_occupancy(*ds_t.ltab.shape, ops.STAGE_L,
+                                          info6)
         row = dict(ptxas=cs.ptxas_report([log]),
                    blocks_per_sm={"K3": info3[1], "K6": info6[1]})
         for name, fn, key in (("K3", k3, "bounce_shade_kernel"),
