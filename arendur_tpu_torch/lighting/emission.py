@@ -63,6 +63,25 @@ def _sphere_area(lrow):
         * (lrow.col1("s_zmax") - lrow.col1("s_zmin"))
 
 
+def sample_sphere_local(radius, zmin, zmax, thetamin, thetamax, phimax, u2,
+                        theta_uniform=None):
+    """A point on each lane's sphere in its local frame for uniforms u2
+    (two [N] tensors): (p_local, n_local, pdf_area), pdf = 1/area (twin:
+    sphere.sample_sphere_local, the exact arccos; theta_uniform None:
+    the module's THETA_UNIFORM_COMPAT)."""
+    if theta_uniform is None:
+        theta_uniform = sph.THETA_UNIFORM_COMPAT
+    phi = u2[0] * phimax
+    if theta_uniform:
+        theta = u2[1] * (thetamax - thetamin) + thetamin
+    else:
+        z = zmin / radius + u2[1] * (zmax - zmin) / radius
+        theta = torch.acos(torch.clamp(z, -1.0 + 1e-7, 1.0 - 1e-7))
+    st = torch.sin(theta)
+    n = (st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta))
+    return vscale(n, radius), n, 1.0 / (phimax * radius * (zmax - zmin))
+
+
 def _tri_area(lrow):
     e = vcross(vsub(lrow.col3("tri_v1"), lrow.col3("tri_v0")),
                vsub(lrow.col3("tri_v2"), lrow.col3("tri_v0")))
@@ -93,17 +112,9 @@ def generate_path(scene: sc.DeviceScene, lidx, u_pos, u_dir,
         radius = lrow.col1("s_radius")
         thetamin, thetamax = lrow.col1("s_thetamin"), lrow.col1("s_thetamax")
         phimax = lrow.col1("s_phimax")
-        phi = up[0] * phimax
-        if sph.THETA_UNIFORM_COMPAT:
-            theta = up[1] * (thetamax - thetamin) + thetamin
-        else:
-            z = lrow.col1("s_zmin") / radius + up[1] * (
-                lrow.col1("s_zmax") - lrow.col1("s_zmin")) / radius
-            theta = torch.acos(torch.clamp(z, -1.0 + 1e-7, 1.0 - 1e-7))
-        st = torch.sin(theta)
-        ln_l = (st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta))
-        lp_l = vscale(ln_l, radius)
-        pdf_a_s = 1.0 / _sphere_area(lrow)
+        lp_l, ln_l, pdf_a_s = sample_sphere_local(
+            radius, lrow.col1("s_zmin"), lrow.col1("s_zmax"), thetamin,
+            thetamax, phimax, up)
         o2w = lrow.col16("s_o2w")
         pos_s = cm.tp16(o2w, lp_l)
         n_s = vnormalize(cm.tv16(o2w, ln_l))

@@ -253,10 +253,13 @@ def offset_ray_origin(pos, pos_err, n, d):
 # ---------------------------------------------------------------------------
 
 def _sample_sphere_local_row(radius, zmin, zmax, thetamin, thetamax,
-                             phimax, u2):
-    """Twin: nee._sample_sphere_local_row."""
+                             phimax, u2, theta_uniform=None):
+    """Twin: nee._sample_sphere_local_row (theta_uniform None: the
+    module's THETA_UNIFORM_COMPAT)."""
+    if theta_uniform is None:
+        theta_uniform = sph.THETA_UNIFORM_COMPAT
     phi = u2[0] * phimax
-    if sph.THETA_UNIFORM_COMPAT:
+    if theta_uniform:
         theta = u2[1] * (thetamax - thetamin) + thetamin
     else:
         z = zmin / radius + u2[1] * (zmax - zmin) / radius

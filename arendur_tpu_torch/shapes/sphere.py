@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -20,11 +21,20 @@ from arendur_tpu_torch.render import cmath as cm
 PI = math.pi
 
 # The reference samples spheres uniformly in (theta, phi) while
-# reporting pdf = 1/area (sphere.rs:304-317), a biased area sampler.
+# reporting pdf = 1/area (sphere.rs:304-317), a biased area sampler
+# (the JAX package's comment: a plane under a small sphere light
+# receives 5/3 the correct radiance; tests/test_torch_sphere_area.py
+# measures a point's NEE irradiance at r/d = 1/4 as 1.6039x the exact
+# with the sphere's pole toward it, 0.7281x across it).
 # The golden images embed that bias (tests/test_golden.py), so the
-# port keeps the reference-faithful mode, as the JAX package does by
-# default.
-THETA_UNIFORM_COMPAT = True
+# reference-faithful mode is the default, as in the JAX package;
+# ARENDUR_SPHERE_THETA=area, read once at import, selects correct
+# area-uniform sampling (z uniform over [zmin, zmax]) in the plain
+# samplers and in the bounce-shade kernels (their ShadeCfg's
+# theta_compat word).  Readers go through this module attribute, so a
+# test may set it.
+THETA_UNIFORM_COMPAT = os.environ.get("ARENDUR_SPHERE_THETA",
+                                      "compat") != "area"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

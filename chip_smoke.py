@@ -221,6 +221,23 @@ Phases, one line each:
      camera rays and their shadow rays equal to their plain versions on
      every lane, and its render (BIG_GRID) against plain; each path
      driven with every count set to 0 just before and read just after.
+ 20. area-uniform sphere-light sampling (phase20; ARENDUR_SPHERE_THETA=
+     area, shapes/sphere.py THETA_UNIFORM_COMPAT set False for the phase
+     and restored to compat at its end, which its line says): the
+     ShadeCfg's theta_compat word 0; phase 5's golden configuration
+     through the kernels against the plain path, its distance to the
+     golden within AREA_GOLDEN_RTOL of the JAX package's in that mode
+     (AREA_GOLDEN) and beside phase 5's compat distance; K3, K5 and K6
+     equal to their plain versions to the bit on every lane of wave 0's
+     first bounce and its compacted bounce 3 (256x256, 16 spp, depth 8)
+     of cb.json and of the 2,500-light scene of phase 19, and K4 on the
+     same sets under phase 7's rules; K3 / K6 / K4's device ms on each
+     first bounce in area mode beside compat's, on the same inputs, in
+     the same run; a 64x48 train step (AREA_SPP, depth 8, kd / ks /
+     roughness) against the plain path; the textured render and Whitted
+     (64x48, AREA_SPP) and BPT (AREA_BPT) against the plain path; each
+     path driven with every count set to 0 just before and read just
+     after.
 In phases 6, 8, 10, 12, 15 and 16 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
@@ -237,7 +254,9 @@ wave, and their ms, plain ms and bound on BPT's wave-0 sets (bpt_*);
 K1-K4 also their launches in phase 18's one-rank NCCL render and train
 step (sharded_*), and K1-K6 their launches past the caps (phase 19's
 train step, K5 / K6 its textured wave) with their ms, device ms and
-bound there (past_cap_*);
+bound there (past_cap_*), K3-K6 their launches in area mode (phase
+20's golden render, train step and textured render) and K3 / K4 / K6
+their device ms there beside compat's (area_*);
 its ms and plain_ms, all
 by CUDA events, K4's the mean per call over phase 7's eight train
 bounces, K1's and K2's the mean per launch over phase 3's fused-wave
@@ -308,6 +327,15 @@ BIG_BPT = ((64, 48), 2, 8)
 BIG_GRID = ((32, 24), 1, 2)
 INSTANCED_KERNELS = FORWARD_KERNELS + ("closest_hit_instanced",
                                        "any_hit_instanced")
+# phase 20 (area-uniform sphere-light sampling): the JAX package's
+# golden distance in that mode at phase 5's configuration (mse_ds4,
+# |dmean|; tests/test_golden.py:29-32, tools/measure_theta_bias.py) and
+# the share the port's may lie from it; the spp of its train step,
+# textured render and Whitted render, and BPT's (resolution, spp, depth)
+AREA_GOLDEN = (2.52e-3, 2.95e-2)
+AREA_GOLDEN_RTOL = 0.1
+AREA_SPP = 8
+AREA_BPT = ((64, 48), 2, 8)
 
 
 _T0 = time.perf_counter()
@@ -2098,6 +2126,274 @@ def phase19(dev, card, big_tables, scratch):
                 grid_dplain=dgrid, grid_launches=grid_launches, seconds=laps)
 
 
+def phase20(dev, card, big_tables, scratch, compat_golden):
+    """Phase 20: area-uniform sphere-light sampling
+    (ARENDUR_SPHERE_THETA=area: shapes/sphere.py THETA_UNIFORM_COMPAT
+    False for the phase, so K3 / K4 / K6 launch with theta_compat 0 in
+    their ShadeCfg), compat restored at its end.  compat_golden: phase
+    5's (mse_ds4, |dmean|).  Returns the measurements; raises where a
+    gate fails."""
+    import numpy as np
+    import torch
+    from arendur_tpu_torch import scene as sc
+    from arendur_tpu_torch.io import scenedesc
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.parallel import mesh
+    from arendur_tpu_torch.render import bpt, whitted
+    from arendur_tpu_torch.render import cbounce as cb
+    from arendur_tpu_torch.render import fuzz
+    from arendur_tpu_torch.render import integrator as integ
+    from arendur_tpu_torch.shapes import sphere as sph
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    n = 1 << 16
+    cb_json = os.path.join(REPO, "examples/cornellbox/cb.json")
+    paths = {"cb.json": cb_json,
+             "lights": big_tables.write(os.path.join(scratch,
+                                                     "area_lights.json"),
+                                        big_tables.lights_desc())}
+
+    def parse(name, spp, res, depth, wave=None):
+        scene, camera, film, config, _ = scenedesc.parse_scene(
+            paths[name], spp_override=spp, resolution_override=res)
+        config = dataclasses.replace(
+            config, max_depth=depth,
+            wave_size=wave or res[0] * res[1] * spp)
+        return scene, sc.DeviceScene.build(scene, dev), camera, film, config
+
+    def theta_word(static):
+        """The theta_compat word of the ShadeCfg the wrappers pack."""
+        return int(ops.pack_shade_cfg(static, 4, 0.05,
+                                      sph.THETA_UNIFORM_COMPAT)[-4])
+
+    saved = sph.THETA_UNIFORM_COMPAT
+    sph.THETA_UNIFORM_COMPAT = False
+    try:
+        # the golden configuration (phase 5's): kernels against plain, and
+        # the distance to the golden beside the JAX package's in this mode
+        s5, ds5, cam5, film5, cfg5 = parse("cb.json", 32, (64, 48), 8)
+        word = theta_word(ds5.static)
+        ops.reset_counts()
+        img_k = integ.render(ds5, cam5, film5, cfg5)
+        torch.cuda.synchronize()
+        golden_launches = ops.counts()
+        img_p = integ.render(ds5, cam5, film5, cfg5, ops=integ.PLAIN_OPS)
+        dgold = float((img_k - img_p).abs().max().item())
+        img_k = img_k.cpu().numpy()
+        golden = np.load(os.path.join(
+            REPO, "tests/data/cornell_golden_128x96.npy"))
+        g64 = _block_mean(golden, 2)
+        clip = np.clip(img_k, 0.0, 1.0)
+        mse = float(((_block_mean(clip, 4) - _block_mean(g64, 4)) ** 2)
+                    .mean())
+        dmean = float(abs(clip.mean() - g64.mean()))
+        near = [abs(v - r) / r for v, r in zip((mse, dmean), AREA_GOLDEN)]
+        if word != 0 or not np.isfinite(img_k).all() \
+                or img_k.shape != (48, 64, 3) or dgold > PLAIN_ATOL \
+                or max(near) > AREA_GOLDEN_RTOL \
+                or mse <= compat_golden[0] \
+                or min(golden_launches[k] for k in FORWARD_KERNELS) < 1:
+            raise AssertionError(
+                f"phase 20 golden: theta_compat {word}, mse_ds4 {mse}, "
+                f"|dmean| {dmean} (JAX {AREA_GOLDEN}, compat "
+                f"{compat_golden}), vs plain {dgold}, {golden_launches}")
+        lap("golden")
+
+        # K3, K5, K6 equal to their plain versions to the bit, K4 under
+        # phase 7's rules, on wave 0's first bounce and its compacted
+        # bounce 3 (256x256, 16 spp, depth 8) of cb.json and of the
+        # 2,500-light scene
+        gen = torch.Generator().manual_seed(20)
+        eq, k4, firsts = [], [], {}
+        for name in ("cb.json", "lights"):
+            s_x, ds_x, cam_x, film_x, cfg_x = parse(name, 16, (256, 256), 8,
+                                                    n)
+            shade_cfg = (cfg_x.min_depth, cfg_x.rr_threshold)
+            hits = []
+
+            def rec_hit(xt, stab):
+                out = cb.hit_shade_t(xt, stab)
+                hits.append(dict(xt=xt.detach().clone(), out=out.clone()))
+                return out
+            scene_t, atlas = fuzz.checker_textured(s_x, dev)
+            ds_t = sc.DeviceScene.build(scene_t, dev)
+            fused = fuzz.wave_shades(ds_x, cam_x, film_x, cfg_x,
+                                     integ.KERNEL_OPS)
+            tex = fuzz.wave_shades(
+                ds_t, cam_x, film_x,
+                dataclasses.replace(cfg_x, textures=atlas),
+                dataclasses.replace(integ.KERNEL_OPS, hit_shade=rec_hit))
+            tabs = (ds_x.ltab, ds_x.mtab, ds_x.stab)
+            for b in (0, 3):
+                r = fused[b]
+                args3 = tabs + (ds_x.static,) + shade_cfg
+                o_k = cb.bounce_shade_t(r["xt"], *args3, n_alive=r["n_alive"])
+                o_p = cb.cbody_reference(r["xt"], *args3,
+                                         n_alive=r["n_alive"])
+                eq.append((name, "K3", b, bit_diff(o_k, o_p),
+                           bit_diff(o_k, r["out"])))
+                r6 = tex[b]
+                args6 = (ds_t.ltab, ds_t.static) + shade_cfg
+                o_k = cb.shade_split_t(r6["xt"], *args6,
+                                       n_alive=r6["n_alive"])
+                o_p = cb.cbody_shade_reference(r6["xt"], *args6,
+                                               n_alive=r6["n_alive"])
+                eq.append((name, "K6", b, bit_diff(o_k, o_p),
+                           bit_diff(o_k, r6["out"])))
+                h = hits[b]
+                h_k = cb.hit_shade_t(h["xt"], ds_t.stab)
+                h_p = cb.cbody_hit_reference(h["xt"], ds_t.stab)
+                eq.append((name, "K5", b, bit_diff(h_k, h_p),
+                           bit_diff(h_k, h["out"])))
+                ct = torch.randn(cb.OUT_COLS, n, generator=gen).to(dev)
+                row = k4_compare(r["xt"], tabs, ct, (ds_x.static,)
+                                 + shade_cfg + (r["n_alive"],))
+                k4.append(dict(scene=name, bounce=b, **row))
+                if not k4_ok(row):
+                    raise AssertionError(f"phase 20 K4, {name} bounce {b}: "
+                                         f"{row}")
+            firsts[name] = (ds_x, ds_t, fused[0], tex[0], shade_cfg)
+        if any(e[3] or e[4] for e in eq):
+            raise AssertionError(f"phase 20 K3 / K5 / K6: {eq}")
+        lap("K3 / K4 / K5 / K6")
+
+        # K3 / K6 / K4's device ms on each first bounce (the same inputs
+        # in both modes: no light is sampled before it), area and compat
+        # launch by launch in the same run
+        def mode(compat, fn):
+            def call():
+                sph.THETA_UNIFORM_COMPAT = compat
+                try:
+                    return fn()
+                finally:
+                    sph.THETA_UNIFORM_COMPAT = False
+            return call
+
+        times = {}
+        for name, (ds_x, ds_t, r3, r6, shade_cfg) in firsts.items():
+            tabs = (ds_x.ltab, ds_x.mtab, ds_x.stab)
+            k3 = rotating(lambda x: ops.bounce_shade(
+                x, *tabs, ds_x.static, *shade_cfg, n_alive=r3["n_alive"]),
+                r3["xt"])
+            k6 = rotating(lambda x: ops.shade_split(
+                x, ds_t.ltab, ds_t.static, *shade_cfg,
+                n_alive=r6["n_alive"]), r6["xt"])
+            ct = torch.randn(cb.OUT_COLS, n, generator=gen).to(dev)
+
+            def k4_call():
+                return ops.bounce_shade_bwd(r3["xt"], *tabs, ct, ds_x.static,
+                                            *shade_cfg, r3["n_alive"])
+            row = {}
+            for key, fn, kname in (("K3", k3, "bounce_shade_kernel"),
+                                   ("K6", k6, "shade_split_kernel"),
+                                   ("K4", k4_call, None)):
+                for label, compat in (("area", False), ("compat", True)):
+                    f = mode(compat, fn)
+                    row[f"{key} {label}"] = (
+                        k4_device_ms(f) if kname is None
+                        else kernel_ms(f, kname)[0])
+            times[name] = row
+        lap("times")
+
+        # the paths at 64x48, kernels against plain
+        _, ds_r, cam_r, film_r, cfg_r = parse("cb.json", AREA_SPP, (64, 48),
+                                              8)
+        n_r = 64 * 48 * AREA_SPP
+        p_r = {k: torch.tensor(v, device=dev) for k, v in
+               (("kd", ds_r.materials.kd), ("ks", ds_r.materials.ks),
+                ("roughness", ds_r.materials.roughness))}
+        target = torch.tensor(img_k, device=dev).reshape(-1, 3) * 0.8
+        grads = {}
+        for name, wops in (("kernels", integ.KERNEL_OPS),
+                           ("plain", integ.PLAIN_OPS)):
+            step = mesh.train_step_fn(ds_r, cam_r, film_r, cfg_r, lr=GRAD_LR,
+                                      ops=wops)
+            ops.reset_counts()
+            new, _ = step(dict(p_r), target, torch.arange(n_r, device=dev))
+            torch.cuda.synchronize()
+            if name == "kernels":
+                step_launches = ops.counts()
+            grads[name] = {k: (p_r[k] - new[k]) / GRAD_LR for k in new}
+        grel = {k: grad_rel(grads["kernels"][k], grads["plain"][k])
+                for k in p_r}
+        finite = all(torch.isfinite(g).all().item()
+                     for gs in grads.values() for g in gs.values())
+        if not finite or max(grel.values()) > GRAD_GATE \
+                or min(step_launches[k] for k in TRAIN_KERNELS) < 1:
+            raise AssertionError(f"phase 20 train step: grad rel {grel}, "
+                                 f"finite {finite}, {step_launches}")
+        lap("train step")
+
+        s_t = parse("cb.json", AREA_SPP, (64, 48), 8)
+        scene_t, atlas = fuzz.checker_textured(s_t[0], dev)
+        tex_args = (sc.DeviceScene.build(scene_t, dev), s_t[2], s_t[3],
+                    dataclasses.replace(s_t[4], textures=atlas))
+        _, ds_b, cam_b, film_b, cfg_b = parse("cb.json", AREA_BPT[1],
+                                              AREA_BPT[0], AREA_BPT[2])
+        other = {}
+        for name, render, args, need in (
+                ("textured", integ.render, tex_args, TEXTURED_KERNELS),
+                ("Whitted", whitted.render_whitted, s_t[1:],
+                 SPHERE_KERNELS + ("closest_hit", "any_hit",
+                                   "slot_eval_pdf")),
+                ("BPT", bpt.render_bpt, (ds_b, cam_b, film_b, cfg_b),
+                 COMPOSED_KERNELS)):
+            ops.reset_counts()
+            img = render(*args)
+            torch.cuda.synchronize()
+            lau = ops.counts()
+            diff = float((img - render(*args, ops=integ.PLAIN_OPS)).abs()
+                         .max().item())
+            other[name] = dict(dplain=diff, launches=lau)
+            if not torch.isfinite(img).all() or not img.max() > 0.0 \
+                    or diff > PLAIN_ATOL or min(lau[k] for k in need) < 1 \
+                    or lau["bounce_shade"]:
+                raise AssertionError(f"phase 20 {name}: {other[name]}")
+            lap(name)
+    finally:
+        sph.THETA_UNIFORM_COMPAT = saved
+    restored = (sph.THETA_UNIFORM_COMPAT, theta_word(ds5.static))
+    if restored != (True, 1):
+        raise AssertionError(f"phase 20: compat not restored: {restored}")
+
+    _say(f"[20] area-uniform sphere-light sampling (THETA_UNIFORM_COMPAT "
+         f"False, theta_compat word {word}): golden 64x48 32spp depth 8 "
+         f"mse_ds4 {mse:.3e}, |dmean| {dmean:.3e} (the JAX package's "
+         f"{AREA_GOLDEN[0]:.2e} / {AREA_GOLDEN[1]:.2e}, off by "
+         f"{near[0]:.3f} / {near[1]:.3f}; compat, phase 5: "
+         f"{compat_golden[0]:.3e} / {compat_golden[1]:.3e}), kernels vs "
+         f"plain {dgold:.2e}, launches {golden_launches} | equal to the bit"
+         " (elements that differ from plain / from the wave's launch): "
+         + ", ".join(f"{s_} {k} bounce {b} {x}/{y}" for s_, k, b, x, y in eq)
+         + " | K4: " + "; ".join(
+             f"{r['scene']} bounce {r['bounce']} dx close "
+             f"{r['dx_close']:.6f}, table rel "
+             + "/".join(f"{x:.2e}" for x in r["table_rel"])
+             + f", taped {r['listed']}" for r in k4)
+         + " | device ms on the first bounce, area / compat: " + "; ".join(
+             f"{s_}: " + ", ".join(
+                 f"{k} {row[k + ' area']:.4f} / {row[k + ' compat']:.4f}"
+                 for k in ("K3", "K6", "K4"))
+             for s_, row in times.items())
+         + f" | 64x48 {AREA_SPP}spp train step grad rel " + ", ".join(
+             f"{k} {v:.2e}" for k, v in grel.items())
+         + ", " + ", ".join(f"{k} vs plain {v['dplain']:.2e}"
+                            for k, v in other.items())
+         + f" | compat restored (THETA_UNIFORM_COMPAT {restored[0]}, "
+         f"theta_compat word {restored[1]}) | seconds: "
+         + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + f" ({card})")
+    return dict(theta_word=word, mse_ds4=mse, dmean=dmean, golden_off=near,
+                golden_dplain=dgold, golden_launches=golden_launches,
+                equal=eq, k4=k4, times=times, train_grad_rel=grel,
+                train_launches=step_launches, other=other, seconds=laps)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3810,6 +4106,7 @@ def main(argv=None):
     p17 = phase17(dev, card, ds, camera, film_cfg, config, (pxy, pid, sid))
     p18 = phase18(dev, card, ds, camera, film_cfg, config)
     p19 = phase19(dev, card, big_tables, scratch)
+    p20 = phase20(dev, card, big_tables, scratch, (mse_ds4, dmean))
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -3860,6 +4157,11 @@ def main(argv=None):
                 "closest_hit_spheres": "K1", "any_hit_spheres": "K2",
                 "bounce_shade": "K3", "bounce_shade_bwd": "K4",
                 "hit_shade": "K5", "shade_split": "K6"}
+    area_rows = {
+        "bounce_shade": ("K3", p20["golden_launches"]),
+        "bounce_shade_bwd": ("K4", p20["train_launches"]),
+        "hit_shade": (None, p20["other"]["textured"]["launches"]),
+        "shade_split": ("K6", p20["other"]["textured"]["launches"])}
     rows = []
     for k in TRAIN_KERNELS + ("hit_shade", "shade_split",
                               "bounce_shade_wide", "slot_sample",
@@ -3900,6 +4202,17 @@ def main(argv=None):
                                    else p19["textured_wave_launches"][k]),
                 past_cap_ms=t19["ms"], past_cap_device_ms=t19["device_ms"],
                 past_cap_bound_ms=t19["bound"][0])
+        if k in area_rows:
+            # phase 20, area-uniform sphere-light sampling: the launches
+            # in its golden render (K3), train step (K4) and textured
+            # render (K5 / K6), and K3 / K4 / K6's device ms on cb.json's
+            # first bounce beside compat's in the same run
+            key, lau = area_rows[k]
+            rows[-1]["area_launches"] = lau[k]
+            if key:
+                t20 = p20["times"]["cb.json"]
+                rows[-1].update(area_device_ms=t20[key + " area"],
+                                area_compat_device_ms=t20[key + " compat"])
         if b_ms > r["ms"]:
             raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
                                  f"{b_ms} ms")
@@ -3970,7 +4283,7 @@ def main(argv=None):
                            bpt_wave=[bw_s, bbusy, bnk, host_ops],
                            bpt_wave_launches=bw_launches,
                            bpt_wave_kernels=per_k, phase17=p17,
-                           phase18=p18, phase19=p19),
+                           phase18=p18, phase19=p19, phase20=p20),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -32,7 +32,14 @@ made from, which the tests check).
   CPU mesh, the loss and the parameter gradients read back from the new
   parameters: the tiny scene (8x8, 4 spp, depth 1, a bare kd, lr 1,
   target 0) and cb.json (32x24, 4 spp, depth 3, kd / ks / roughness,
-  lr 1e3, target uniform(0, 0.5) seed 0).
+  lr 1e3, target uniform(0, 0.5) seed 0);
+* ``area_<what>``: the JAX package with area-uniform sphere-light
+  sampling (ARENDUR_SPHERE_THETA=area, read at its import, so these are
+  made in a process of their own): the render of cb.json and the
+  composed render of cb_etex.json (16x12, 2 spp, depth 3), BPT on
+  cb.json (AREA_BPT), Whitted on cb.json (16x12, 2 spp) and one
+  train step on cb.json (as ``train_<scene>``)
+  (tests/test_torch_sphere_area.py).
 """
 
 import dataclasses
@@ -52,6 +59,9 @@ TRAIN_SCENES = {"cb_etex": (CB_ETEX, "cluster"), "cb_bvh": (CB, "bvh")}
 SOBOL_SPP, SOBOL_DIMS = 16, 80
 INST_RES, INST_SPP, INST_DEPTH = (16, 12), 4, 4
 PARAM_KEYS = ("kd", "ks", "roughness")
+# the area-mode oracles: the renders' scenes, and BPT's frame
+AREA_RENDERS = {"area_render": CB, "area_etex": CB_ETEX}
+AREA_BPT = dict(res=(8, 6), spp=4, depth=2)
 # the sharded oracles: a 2-device mesh; per scene the render's and the
 # train step's resolution, spp, stratification grid and depth
 PAR_DEVICES = 2
@@ -119,6 +129,20 @@ def big_inputs():
     return dict(scene="make_cb_big_tables lights_desc", spheres=BIG_LIGHTS,
                 materials=BIG_MATERIALS, res=RENDER_RES, spp=RENDER_SPP,
                 depth=RENDER_DEPTH, seed=0)
+
+
+def area_inputs(name):
+    if name == "area_bpt":
+        return dict(scene="cb.json", renderer="bpt", theta="area", seed=0,
+                    **AREA_BPT)
+    if name == "area_train":
+        return dict(train_inputs("cb_etex"), scene="cb.json",
+                    intersector="cluster", theta="area")
+    scene = os.path.basename(AREA_RENDERS.get(name, CB))
+    renderer = "whitted" if name == "area_whitted" else "pt"
+    return dict(scene=scene, renderer=renderer, theta="area",
+                res=RENDER_RES, spp=RENDER_SPP,
+                depth=None if renderer == "whitted" else RENDER_DEPTH, seed=0)
 
 
 def big_lights_scene(directory):
@@ -343,12 +367,15 @@ def jax_sobol_plane():
 
 
 def jax_train_step(name):
+    return _jax_train(*TRAIN_SCENES[name])
+
+
+def _jax_train(scene_path, isec):
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
     from arendur_tpu.io import scenedesc as jsd
     from arendur_tpu.parallel import mesh as jmesh
-    scene_path, isec = TRAIN_SCENES[name]
     w, h = TRAIN_RES
     n = w * h * TRAIN_SPP
     js, jcam, jfilm, jcfg, _ = jsd.parse_scene(
@@ -446,6 +473,38 @@ def jax_inst_etex():
                                             config)))
 
 
+def _area_mode():
+    """Fails unless the JAX package was imported in area mode."""
+    from arendur_tpu.shapes import sphere as jsph
+    if jsph.THETA_UNIFORM_COMPAT:
+        raise RuntimeError("the area_* oracles need ARENDUR_SPHERE_THETA="
+                           "area at the JAX package's import")
+
+
+def jax_area(name):
+    from arendur_tpu import cli as jcli
+    from arendur_tpu.io import scenedesc as jsd
+    from arendur_tpu.render import bpt as jbpt
+    from arendur_tpu.render import integrator as jint
+    _area_mode()
+    if name == "area_train":
+        return _jax_train(CB, "cluster")
+    if name == "area_bpt":
+        p = AREA_BPT
+        js, jcam, jfilm, jcfg, _ = jsd.parse_scene(
+            CB, spp_override=p["spp"], resolution_override=p["res"])
+        jcfg = dataclasses.replace(jcfg, max_depth=p["depth"])
+        return dict(img=np.asarray(jbpt.render_bpt(js, jcam, jfilm, jcfg)))
+    js, jcam, jfilm, jcfg, _ = jsd.parse_scene(
+        AREA_RENDERS.get(name, CB), spp_override=RENDER_SPP,
+        resolution_override=RENDER_RES)
+    if name == "area_whitted":
+        return dict(img=np.asarray(jcli._render_whitted(js, jcam, jfilm,
+                                                        jcfg)))
+    jcfg = dataclasses.replace(jcfg, max_depth=RENDER_DEPTH)
+    return dict(img=np.asarray(jint.render(js, jcam, jfilm, jcfg)))
+
+
 ORACLES = {
     "cb_bvh": (lambda: render_inputs("bvh"),
                lambda: jax_intersector_render("bvh")),
@@ -460,6 +519,10 @@ ORACLES = {
     "inst_etex": (inst_inputs, jax_inst_etex),
     "big_lights": (big_inputs, jax_big_lights),
 }
+for _name in tuple(AREA_RENDERS) + ("area_bpt", "area_whitted",
+                                    "area_train"):
+    ORACLES[_name] = (lambda n=_name: area_inputs(n),
+                      lambda n=_name: jax_area(n))
 for _name in PAR_RENDER:
     ORACLES["par_render_" + _name] = (
         lambda n=_name: par_render_inputs(n), lambda n=_name: jax_par_render(n))

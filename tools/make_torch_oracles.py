@@ -6,10 +6,13 @@ compile for longer than a test file may take.
 
 With no name, every oracle (tests/torch_oracles.py ORACLES) is made.
 Runs the JAX package on the CPU, with two virtual CPU devices for the
-sharded oracles (par_*) unless XLA_FLAGS sets a device count.
+sharded oracles (par_*) unless XLA_FLAGS sets a device count.  The
+area-mode oracles (area_*) are made in a second process of this script
+with ARENDUR_SPHERE_THETA=area, which the JAX package reads at import.
 """
 
 import os
+import subprocess
 import sys
 import time
 
@@ -23,10 +26,21 @@ def main(argv):
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
             flags + " --xla_force_host_platform_device_count=2").strip()
-    import jax
-    jax.config.update("jax_platforms", "cpu")
     import torch_oracles as orc
     names = argv or list(orc.ORACLES)
+    area = [n for n in names if n.startswith("area_")]
+    if os.environ.get("ARENDUR_SPHERE_THETA") == "area":
+        if len(area) != len(names):
+            raise SystemExit("with ARENDUR_SPHERE_THETA=area only the "
+                             "area_* oracles can be made")
+    else:
+        if area:
+            subprocess.run([sys.executable, os.path.abspath(__file__)]
+                           + area, check=True,
+                           env=dict(os.environ, ARENDUR_SPHERE_THETA="area"))
+        names = [n for n in names if n not in area]
+    import jax
+    jax.config.update("jax_platforms", "cpu")
     for name in names:
         inputs, run = orc.ORACLES[name]
         t0 = time.perf_counter()
