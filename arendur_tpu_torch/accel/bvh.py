@@ -1,10 +1,12 @@
-"""BVH: host-side binned-SAH build (port of the NumPy builder of
-arendur_tpu/accel/bvh.py; ref: src/component/bvh.rs).
+"""BVH: host-side binned-SAH build (port of arendur_tpu/accel/bvh.py and
+arendur_tpu/native; ref: src/component/bvh.rs).
 
 32 centroid buckets on the max-extent axis, prefix/suffix area
 accumulation, leaf fallback at <= max_leaf primitives, depth-first
 layout with first child at i+1 and the second-child offset stored per
-interior node (bvh.rs:137-146, 219-243, 377-415).  The tree cuts the
+interior node (bvh.rs:137-146, 219-243, 377-415).  ``build_bvh`` runs
+the native C++ build (native/bvh_builder.cpp); ``build_bvh_plain`` is
+its NumPy twin, which the tests hold it against.  The tree cuts the
 SAH clusters (accel/clusters.py) and is the world intersector of
 ``--intersector bvh``.
 
@@ -25,6 +27,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from arendur_tpu_torch import native
 
 N_BUCKETS = 32
 TRAVERSAL_COST = 0.125
@@ -47,8 +51,25 @@ class BVH:
 
 
 def build_bvh(v0, v1, v2, max_leaf: int = 4) -> BVH:
-    """Binned-SAH build on the host (the NumPy builder, bit-identical
-    to the JAX package's native C++ one)."""
+    """Binned-SAH build on the host by the native C++ builder
+    (native/bvh_builder.cpp), array for array what build_bvh_plain
+    builds.  Raises where the builder cannot be built or loaded."""
+    if len(v0) == 0:
+        return _empty_bvh()
+    return BVH(**native.build_bvh(v0, v1, v2, max_leaf))
+
+
+def _empty_bvh() -> BVH:
+    """The tree of no triangle: one empty node of zero bounds."""
+    z3, z1 = np.zeros((1, 3), np.float32), np.zeros(1, np.int32)
+    return BVH(bmin=z3, bmax=z3.copy(), second=z1, start=z1.copy(),
+               count=z1.copy(), axis=z1.copy(), order=np.zeros(0, np.int32))
+
+
+def build_bvh_plain(v0, v1, v2, max_leaf: int = 4) -> BVH:
+    """The NumPy build: the plain version of build_bvh, for the tests
+    and the checks that hold the native build against it (never on a
+    scene load).  Bit-identical to the JAX package's NumPy builder."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
@@ -66,8 +87,10 @@ def build_bvh(v0, v1, v2, max_leaf: int = 4) -> BVH:
             second=0, start=lo, count=hi - lo, axis=0))
 
     def surface_area(mn, mx):
+        # [..., 3] boxes: float32 areas, each product rounded
         d = np.maximum(mx - mn, 0.0)
-        return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+        return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                      + d[..., 2] * d[..., 0])
 
     def recurse(lo, hi):
         idx = order[lo:hi]
@@ -100,13 +123,14 @@ def build_bvh(v0, v1, v2, max_leaf: int = 4) -> BVH:
         counts = np.bincount(b, minlength=N_BUCKETS)
         bucket_min = np.full((N_BUCKETS, 3), np.inf, np.float32)
         bucket_max = np.full((N_BUCKETS, 3), -np.inf, np.float32)
-        for k in range(N_BUCKETS):
-            sel = b == k
-            if sel.any():
-                bucket_min[k] = pmin[idx[sel]].min(0)
-                bucket_max[k] = pmax[idx[sel]].max(0)
+        # each bucket's bounds: min / max over its run of the primitives
+        # grouped by bucket
+        full = np.flatnonzero(counts)
+        runs = (np.cumsum(counts) - counts)[full]
+        grouped = idx[np.argsort(b, kind="stable")]
+        bucket_min[full] = np.minimum.reduceat(pmin[grouped], runs, 0)
+        bucket_max[full] = np.maximum.reduceat(pmax[grouped], runs, 0)
         # prefix/suffix accumulation
-        costs = np.full(N_BUCKETS - 1, np.inf, np.float32)
         left_min = np.minimum.accumulate(bucket_min, 0)
         left_max = np.maximum.accumulate(bucket_max, 0)
         right_min = np.minimum.accumulate(bucket_min[::-1], 0)[::-1]
@@ -114,14 +138,15 @@ def build_bvh(v0, v1, v2, max_leaf: int = 4) -> BVH:
         left_count = np.cumsum(counts)
         right_count = np.cumsum(counts[::-1])[::-1]
         total_area = max(surface_area(bmin, bmax), 1e-20)
-        for k in range(N_BUCKETS - 1):
-            if left_count[k] == 0 or right_count[k + 1] == 0:
-                continue
-            costs[k] = TRAVERSAL_COST + (
-                left_count[k] * surface_area(left_min[k], left_max[k])
-                + right_count[k + 1]
-                * surface_area(right_min[k + 1], right_max[k + 1])
-            ) / total_area
+        # count (int64) times area (float32) sums in float64; the cost
+        # array is float32, inf where a side is empty
+        split_ok = (left_count[:-1] > 0) & (right_count[1:] > 0)
+        with np.errstate(over="ignore"):
+            costs = np.where(split_ok, TRAVERSAL_COST + (
+                left_count[:-1] * surface_area(left_min[:-1], left_max[:-1])
+                + right_count[1:]
+                * surface_area(right_min[1:], right_max[1:])
+            ) / total_area, np.inf).astype(np.float32)
         best = int(np.argmin(costs))
         if not np.isfinite(costs[best]):
             # all prims fell into one bucket: even split
@@ -145,16 +170,13 @@ def build_bvh(v0, v1, v2, max_leaf: int = 4) -> BVH:
         nodes[node_id]["second"] = second_id
         return node_id
 
+    if t == 0:
+        return _empty_bvh()
     import sys
     old_limit = sys.getrecursionlimit()
     sys.setrecursionlimit(max(old_limit, 10000))
     try:
-        if t > 0:
-            recurse(0, t)
-        else:
-            nodes.append(dict(bmin=np.zeros(3, np.float32),
-                              bmax=np.zeros(3, np.float32), second=0,
-                              start=0, count=0, axis=0))
+        recurse(0, t)
     finally:
         sys.setrecursionlimit(old_limit)
 

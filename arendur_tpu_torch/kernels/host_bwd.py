@@ -9,11 +9,10 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 
 import numpy as np
 
+from arendur_tpu_torch import native
 from arendur_tpu_torch.kernels import ops
 from arendur_tpu_torch.render import cbounce as cb
 from arendur_tpu_torch.shapes import sphere as sph
@@ -25,14 +24,9 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def build(out_dir: str):
     """The host entry arendur_bounce_shade_bwd_host, built into out_dir;
     None where no host C++ compiler is found."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    if native.host_cxx() is None:
         return None
-    lib = os.path.join(out_dir, "libk4_host.so")
-    # -ffp-contract=off: no multiply-add contraction, as nvcc -fmad=false
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-o", lib, SRC],
-                   check=True, capture_output=True, timeout=600)
+    lib = native.compile_library(SRC, out_dir)
     fn = ctypes.CDLL(lib).arendur_bounce_shade_bwd_host
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     fn.argtypes = [P, P, P, I, I, P, I, P, I, L, L, P, I, P, P, P, P, P, P]

@@ -11,10 +11,10 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import shutil
-import subprocess
 
 import numpy as np
+
+from arendur_tpu_torch import native
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "intersect_host.cpp")
@@ -33,14 +33,9 @@ class HostIsect:
 def build(out_dir: str):
     """The host build, compiled into out_dir: a HostIsect, or None where
     no host C++ compiler is found."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    if native.host_cxx() is None:
         return None
-    lib = os.path.join(out_dir, "libisect_host.so")
-    # -ffp-contract=off: no multiply-add contraction, as nvcc -fmad=false
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-o", lib, SRC],
-                   check=True, capture_output=True, timeout=600)
+    lib = native.compile_library(SRC, out_dir)
     dll = ctypes.CDLL(lib)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     fn = dll.arendur_isect_host

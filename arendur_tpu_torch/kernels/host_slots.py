@@ -9,11 +9,10 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import shutil
-import subprocess
 
 import numpy as np
 
+from arendur_tpu_torch import native
 from arendur_tpu_torch.kernels import ops
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -34,14 +33,9 @@ class HostSlots:
 def build(out_dir: str):
     """The host build, compiled into out_dir: a HostSlots, or None where
     no host C++ compiler is found."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    if native.host_cxx() is None:
         return None
-    lib = os.path.join(out_dir, "libslots_host.so")
-    # -ffp-contract=off: no multiply-add contraction, as nvcc -fmad=false
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-o", lib, SRC],
-                   check=True, capture_output=True, timeout=600)
+    lib = native.compile_library(SRC, out_dir)
     dll = ctypes.CDLL(lib)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     sample = dll.arendur_slot_sample_host

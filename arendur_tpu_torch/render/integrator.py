@@ -295,7 +295,7 @@ def curv_spread(scene: sc.DeviceScene, config: RenderConfig, cone_g,
     """Curvature growth of the cone's spread at a specular bounce:
     gamma' = gamma + 2 kappa w (ray cones), kappa = 1 / r on spheres
     (the object-space radius) and 0 on flat triangles."""
-    if not config.cone_curvature:
+    if not config.cone_curvature or scene.ktab.shape[0] == 0:
         return cone_g
     radius = scene.ktab[s_idx.long(), 16]
     kappa = torch.where(is_sph, 1.0 / torch.clamp(radius, min=1e-6), 0.0)
@@ -385,11 +385,12 @@ def composed_bounce(scene: sc.DeviceScene, config: RenderConfig, c: dict,
                wb_prev=torch.where(lane_active, wb, c["wb_prev"]),
                nee_prev=do_nee, keys=c["keys"], orig=c["orig"])
     if textures is not None:
-        # the spheres' primitive ids lie in [T, T + S); instanced
-        # triangles follow them
+        # every id past the world triangles counts as a sphere, the
+        # instanced triangles' too (they follow the spheres' [T, T + S)),
+        # as the JAX package's composed bounce takes it; the index is
+        # clamped as its gather clamps
         n_sph = scene.ktab.shape[0]
-        is_sph = hit.hit & (hit.prim >= scene.n_tris) \
-            & (hit.prim < scene.n_tris + n_sph)
+        is_sph = hit.hit & (hit.prim >= scene.n_tris)
         s_idx = torch.clamp(hit.prim - scene.n_tris, min=0, max=n_sph - 1)
         out["cone_g"] = curv_spread(scene, config, c["cone_g"], is_sph, s_idx,
                                     out["cone_w"],

@@ -238,6 +238,20 @@ Phases, one line each:
      (64x48, AREA_SPP) and BPT (AREA_BPT) against the plain path; each
      path driven with every count set to 0 just before and read just
      after.
+ 21. a mesh of ~10^6 triangles (phase21; tools/make_big_mesh.py: cb.json
+     with its short box replaced by a displaced sphere of 998,000
+     triangles) loaded through parse_scene and DeviceScene.build with
+     the native BVH build (native/bvh_builder.cpp): T, C and the host
+     seconds of the write, the parse, build_clusters, the native BVH
+     build and the upload beside the host's CPU model; the first 20,000
+     triangles built by the native and the NumPy BVH builds, every array
+     equal; one 256x256, 1 spp, depth-8 wave through the kernels (K1,
+     K2, K3 launched, counts set to 0 just before and read just after),
+     its image finite with a positive mean; K1 / K2 against their plain
+     versions on 4,096-ray subsets of wave 0's camera query, first
+     shadow query and first continuation query (K1_K2_GATE, T_RTOL); K1
+     / K2's ms per launch on those whole queries by CUDA events and on
+     the card, against the bound.
 In phases 6, 8, 10, 12, 15 and 16 one kernel-path run (the timed render, one
 train step) runs with the plain sphere test (shapes/sphere.py
 sphere_best) patched to raise, and where no light pdf is evaluated in
@@ -256,7 +270,9 @@ step (sharded_*), and K1-K6 their launches past the caps (phase 19's
 train step, K5 / K6 its textured wave) with their ms, device ms and
 bound there (past_cap_*), K3-K6 their launches in area mode (phase
 20's golden render, train step and textured render) and K3 / K4 / K6
-their device ms there beside compat's (area_*);
+their device ms there beside compat's (area_*), K1 / K2 their launches
+in phase 21's wave and their ms, device ms and bound on its wave-0
+camera / shadow query (big_mesh_*);
 its ms and plain_ms, all
 by CUDA events, K4's the mean per call over phase 7's eight train
 bounces, K1's and K2's the mean per launch over phase 3's fused-wave
@@ -336,6 +352,14 @@ AREA_GOLDEN = (2.52e-3, 2.95e-2)
 AREA_GOLDEN_RTOL = 0.1
 AREA_SPP = 8
 AREA_BPT = ((64, 48), 2, 8)
+# phase 21 (tools/make_big_mesh.py): the mesh's triangles (at most), the
+# wave's resolution (1 spp: one wave of 65,536 lanes) and depth, the cut
+# built by both BVH builds, and the rays of each query held against the
+# plain K1 / K2 (the plain cluster test loops over every cluster)
+BIG_TRIS = 1_000_000
+BIG_RES, BIG_DEPTH = (256, 256), 8
+BIG_CUT = 20000
+BIG_SUBSET = 4096
 
 
 _T0 = time.perf_counter()
@@ -624,25 +648,39 @@ def slab_mask(cbox, o, d, bound):
     return (tn <= tf) & (tf >= 0) & (tn <= bound[:, None])
 
 
-def slab_pairs(cbox, o, d, bound):
-    """(ray, cluster) pairs whose box a ray enters before `bound`: the
-    clusters K1 must test, each of K triangles."""
-    return int(slab_mask(cbox, o, d, bound).sum())
+def weight_bytes(cw, used):
+    """Bytes of the weights of the clusters marked in used [C]: a query
+    reads those of the clusters that some ray needs and no others."""
+    return 4 * int(used.sum()) * cw.shape[1] * cw.shape[2]
 
 
-def any_hit_pairs(cw, cbox, o, d, tmax):
-    """(ray, triangle) pairs an any hit needs, in the one-ray loop's
-    order (the clusters a ray enters before tmax ascending, each in
-    ascending slot order): every triangle up to and including the ray's
-    first occluder, all of every entered cluster where none occludes.
-    The occluders are the plain determinant products'
-    (shapes/mxu_intersect.py)."""
-    return int(any_hit_need(cw, cbox, o, d, tmax)[0].sum())
+def closest_work(cw, cbox, o, d, t):
+    """(bytes, operations) of the clusters a closest hit with result t
+    needs: the weights of each cluster that some ray enters before its
+    t, and TRI_FLOPS per triangle of each (ray, cluster) pair so
+    entered."""
+    entered = slab_mask(cbox, o, d, t)
+    return (weight_bytes(cw, entered.any(0)),
+            TRI_FLOPS * (cw.shape[2] // 4) * int(entered.sum()))
+
+
+def any_work(cw, cbox, o, d, tmax):
+    """(bytes, operations) of the clusters an any hit needs (any_hit_need):
+    the weights of each cluster that some ray needs, and TRI_FLOPS per
+    triangle needed."""
+    need, _, used = any_hit_need(cw, cbox, o, d, tmax)
+    return weight_bytes(cw, used.any(0)), TRI_FLOPS * int(need.sum())
 
 
 def any_hit_need(cw, cbox, o, d, tmax):
-    """Per ray, what any_hit_pairs counts: (triangles needed [N], whether
-    a triangle blocks it [N])."""
+    """What an any hit needs of the clusters, in the one-ray loop's order
+    (the clusters a ray enters before tmax ascending, each in ascending
+    slot order): every triangle up to and including the ray's first
+    occluder, all of every entered cluster where none occludes.  The
+    occluders are the plain determinant products'
+    (shapes/mxu_intersect.py).  Returns per ray the triangles needed
+    [N], whether a triangle blocks it [N], and the clusters it needs
+    [N, C]."""
     import torch
     from arendur_tpu_torch.shapes import mxu_intersect as mxi
     k = cw.shape[2] // 4
@@ -657,68 +695,73 @@ def any_hit_need(cw, cbox, o, d, tmax):
         upto[:, c] = torch.where(hit, lanes, k).amin(1) + 1
     stop = entered & (upto <= k)
     before = (stop.cumsum(1) - stop.long()) == 0
-    need = torch.where(stop, upto, k) * (entered & before)
-    return need.sum(1), stop.any(1)
+    used = entered & before
+    return (torch.where(stop, upto, k) * used).sum(1), stop.any(1), used
 
 
 def instanced_work(im, o, d, bound, result, blocked_in=None):
     """(bytes, operations) that one instanced query needs (the kernels
     line's bound): each ray's o, d and bound read, its outputs written,
-    the mesh's tables read; TRI_FLOPS per triangle of each (instance,
-    cluster) whose box the ray enters in the instance's frame before the
-    query's t (closest hit: result (t, slot, instance)), or (any hit:
-    result blocked) per triangle the ray needs up to its first
-    occluder, the instances in order, nothing for a ray the world
-    blocked."""
+    the mesh's boxes and instance table read, and the weights of each
+    cluster some ray needs in some instance's frame; TRI_FLOPS per
+    triangle of each (instance, cluster) whose box the ray enters in the
+    instance's frame before the query's t (closest hit: result (t, slot,
+    instance)), or (any hit: result blocked) per triangle the ray needs
+    up to its first occluder, the instances in order, nothing for a ray
+    the world blocked."""
     import torch
     from arendur_tpu_torch.shapes import cluster_intersect as ci
     n, ni, kk = o.shape[0], im.n_instances, im.cw.shape[2] // 4
     closest = isinstance(result, tuple)
-    nbytes = 4 * (7 * n + im.cw.numel() + im.cbox.numel()
-                  + im.itab.numel()) + (12 if closest else 1) * n \
-        + (0 if blocked_in is None else n)
+    nbytes = 4 * (7 * n + im.cbox.numel() + im.itab.numel()) \
+        + (12 if closest else 1) * n + (0 if blocked_in is None else n)
+    used = torch.zeros(im.cw.shape[0], dtype=torch.bool, device=o.device)
     if closest:
-        pairs = sum(slab_pairs(im.cbox, *ci.instance_frame(im.itab[i], o, d),
-                               result[0]) for i in range(ni))
-        return nbytes, TRI_FLOPS * kk * pairs
+        pairs = 0
+        for i in range(ni):
+            entered = slab_mask(im.cbox, *ci.instance_frame(im.itab[i], o, d),
+                                result[0])
+            used |= entered.any(0)
+            pairs += int(entered.sum())
+        return nbytes + weight_bytes(im.cw, used), TRI_FLOPS * kk * pairs
     free = torch.ones(n, dtype=torch.bool, device=o.device) \
         if blocked_in is None else ~blocked_in
     done = torch.zeros(n, dtype=torch.bool, device=o.device)
     total = 0
     for i in range(ni):
         ol, dl = ci.instance_frame(im.itab[i], o, d)
-        need, blk = any_hit_need(im.cw, im.cbox, ol, dl, bound)
-        total += int(need[free & ~done].sum())
+        need, blk, needs = any_hit_need(im.cw, im.cbox, ol, dl, bound)
+        live = free & ~done
+        total += int(need[live].sum())
+        used |= needs[live].any(0)
         done |= blk
-    return nbytes, TRI_FLOPS * total
+    return nbytes + weight_bytes(im.cw, used), TRI_FLOPS * total
 
 
 def wave_query_work(ds, q, result):
     """(bytes, operations) that one recorded K1 / K2 query
     (render/fuzz.py wave_queries) needs: each live ray's o, d and tmax
-    read, the outputs written, the tables read; TRI_FLOPS per triangle
-    of each cluster a live ray enters before its result's t (closest
-    hit), or per triangle up to the ray's first occluder (any hit:
-    any_hit_pairs; none for rays a sphere blocks), and the sphere
-    branch's operations on the live rays (sphere_ops)."""
-    import torch
+    read, the outputs written, the boxes and sphere table read; the
+    clusters' weights and operations as closest_work counts them on the
+    live rays and the result's t (closest hit), or any_work on the live
+    rays that no sphere blocks (any hit); and the sphere branch's
+    operations on the live rays (sphere_ops)."""
     from arendur_tpu_torch.shapes import sphere as sph
     n = q["o"].shape[0]
     na = n if q["n_alive"] is None else int(q["n_alive"])
     o, d, tm = q["o"][:na], q["d"][:na], q["tmax"][:na]
     tab = q["sph_tab"]
     nbytes = 4 * (na * 7 + n * (2 if q["kind"] == "closest" else 1)
-                  + ds.cw.numel() + ds.cbox.numel()
-                  + (0 if tab is None else tab.numel()))
-    sphere = lambda: sph.sphere_best(tab, o, d, tm, q["full_phi"])  # noqa
+                  + ds.cbox.numel() + (0 if tab is None else tab.numel()))
     nops = sphere_ops(tab, o, d, tm, q["full_phi"])
     if q["kind"] == "closest":
-        return nbytes, nops + TRI_FLOPS * (ds.cw.shape[2] // 4) * slab_pairs(
-            ds.cbox, o, d, result[0][:na])
-    free = torch.ones(na, dtype=torch.bool, device=o.device) \
-        if tab is None else sphere()[1] == -1
-    return nbytes, nops + TRI_FLOPS * any_hit_pairs(
-        ds.cw, ds.cbox, o[free], d[free], tm[free])
+        wb, tri = closest_work(ds.cw, ds.cbox, o, d, result[0][:na])
+    else:
+        if tab is not None:
+            free = sph.sphere_best(tab, o, d, tm, q["full_phi"])[1] == -1
+            o, d, tm = o[free], d[free], tm[free]
+        wb, tri = any_work(ds.cw, ds.cbox, o, d, tm)
+    return nbytes + wb, nops + tri
 
 
 def blocked_sum(fn, *rows, block=1 << 16):
@@ -1872,8 +1915,7 @@ def phase19(dev, card, big_tables, scratch):
         fused, tex = waves[name]["fused"], waves[name]["textured"]
         out = {}
         qs = fuzz.wave_queries(dsx, cam_b, film_b, cfg_b, integ.KERNEL_OPS)
-        kk = dsx.cw.shape[2] // 4
-        wbytes = 4 * (dsx.cw.numel() + dsx.cbox.numel() + dsx.ktab.numel())
+        tbytes = 4 * (dsx.cbox.numel() + dsx.ktab.numel())
         for kind, key in (("closest", "K1"), ("any", "K2")):
             q = next(q for q in qs if q["kind"] == kind)
             m = n if q["n_alive"] is None else int(q["n_alive"])
@@ -1882,8 +1924,8 @@ def phase19(dev, card, big_tables, scratch):
                 call = rotating(lambda x: ops.closest_hit(
                     dsx.cw, dsx.cbox, x[0], x[1], q["tmax"], q["n_alive"],
                     sph_tab=dsx.ktab, full_phi=dsx.full_phi), od)
-                tri = TRI_FLOPS * kk * slab_pairs(
-                    dsx.cbox, q["o"][:m], q["d"][:m], q["t"][:m])
+                wb, tri = closest_work(dsx.cw, dsx.cbox, q["o"][:m],
+                                       q["d"][:m], q["t"][:m])
             else:
                 call = rotating(lambda x: ops.any_hit(
                     dsx.cw, dsx.cbox, x[0], x[1], q["tmax"], q["n_alive"],
@@ -1891,7 +1933,7 @@ def phase19(dev, card, big_tables, scratch):
                 # the triangles of the rays no sphere blocks
                 free = sph.sphere_best(dsx.ktab, q["o"][:m], q["d"][:m],
                                        q["tmax"][:m], dsx.full_phi)[1] == -1
-                tri = TRI_FLOPS * any_hit_pairs(
+                wb, tri = any_work(
                     dsx.cw, dsx.cbox, q["o"][:m][free], q["d"][:m][free],
                     q["tmax"][:m][free])
             # the sphere branch: each row the same operations on the
@@ -1902,7 +1944,7 @@ def phase19(dev, card, big_tables, scratch):
             out[key] = dict(ms=time_ms(call), device_ms=dev_ms, live=m,
                             bound=bound_ms(
                                 4 * n * (7 + (2 if kind == "closest" else 1))
-                                + wbytes, tri + sph_ops))
+                                + tbytes + wb, tri + sph_ops))
         r0 = fused[1][0]
         tabs = (dsx.ltab, dsx.mtab, dsx.stab)
         tab_bytes = 4 * sum(t.numel() for t in tabs)
@@ -2394,6 +2436,190 @@ def phase20(dev, card, big_tables, scratch, compat_golden):
                 train_launches=step_launches, other=other, seconds=laps)
 
 
+@contextlib.contextmanager
+def timed_calls(module, name, into):
+    """module.name wrapped to add each call's seconds to into[name]."""
+    fn = getattr(module, name)
+    into[name] = 0.0
+
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            into[name] += time.perf_counter() - t0
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def subset_query(q, rays):
+    """The recorded query q cut to `rays` of its live rays, evenly spaced
+    (all live: no live count)."""
+    import torch
+    na = q["o"].shape[0] if q["n_alive"] is None else int(q["n_alive"])
+    idx = torch.arange(rays, device=q["o"].device) * max(na // rays, 1)
+    idx = idx[idx < na]
+    return dict(q, o=q["o"][idx].contiguous(), d=q["d"][idx].contiguous(),
+                tmax=q["tmax"][idx].contiguous(), n_alive=None)
+
+
+def phase21(dev, card, scratch, tris=BIG_TRIS):
+    """Phase 21: a mesh of about a million triangles
+    (tools/make_big_mesh.py: cb.json's short box replaced by a displaced
+    sphere of 998,000 triangles) loaded through parse_scene and
+    DeviceScene.build, the CLI's path, with the native BVH build (the
+    seconds of the write, the parse, the native builds and the upload,
+    on the host's CPU); its 20,000-triangle cut built natively and by
+    the NumPy build, every array equal; one 256x256, 1 spp, depth-8 wave
+    (65,536 lanes) through the kernels, K1, K2 and K3 launched in it, the
+    image finite with a positive mean; K1 / K2 against their plain
+    versions on BIG_SUBSET rays of wave 0's camera query, its first
+    bounce's shadow query and its first continuation query
+    (K1_K2_GATE, T_RTOL); K1 / K2's ms per launch on those whole queries
+    by CUDA events and on the card, against the bound.  Returns the
+    measurements; raises where a gate fails."""
+    import numpy as np
+    import torch
+    from arendur_tpu_torch import native
+    from arendur_tpu_torch import scene as sc
+    from arendur_tpu_torch.accel import bvh as bvhmod
+    from arendur_tpu_torch.accel import clusters
+    from arendur_tpu_torch.io import scenedesc
+    from arendur_tpu_torch.kernels import ops
+    from arendur_tpu_torch.render import fuzz
+    from arendur_tpu_torch.render import integrator as integ
+    from arendur_tpu_torch.shapes import cluster_intersect as ci
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_big_mesh
+    from host_cpu import host_cpu
+
+    cpu = host_cpu()
+    secs = {}
+    t0 = time.perf_counter()
+    path = make_big_mesh.write(os.path.join(scratch, "big_mesh"), tris)
+    secs["write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with timed_calls(clusters, "build_clusters", secs), \
+            timed_calls(native, "build_bvh", secs):
+        scene, camera, film, config, _ = scenedesc.parse_scene(
+            path, spp_override=1, resolution_override=BIG_RES)
+    secs["parse_scene"] = time.perf_counter() - t0
+    config = dataclasses.replace(config, max_depth=BIG_DEPTH,
+                                 wave_size=BIG_RES[0] * BIG_RES[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = sc.DeviceScene.build(scene, dev)
+    torch.cuda.synchronize()
+    secs["upload"] = time.perf_counter() - t0
+    n_tris, n_clusters = scene.n_tris, ds.cw.shape[0]
+    if n_tris < 0.9 * tris or n_clusters < tris // (2 * clusters.DEFAULT_K):
+        raise AssertionError(f"phase 21: the big mesh holds {n_tris} "
+                             f"triangles in {n_clusters} clusters")
+
+    # the 20,000-triangle cut: native against the NumPy build
+    cut = [np.ascontiguousarray(v[:BIG_CUT]) for v in
+           (scene.tri_v0, scene.tri_v1, scene.tri_v2)]
+    t0 = time.perf_counter()
+    b_nat = bvhmod.build_bvh(*cut)
+    secs["cut_native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b_pl = bvhmod.build_bvh_plain(*cut)
+    secs["cut_plain"] = time.perf_counter() - t0
+    unequal = [f for f in ("bmin", "bmax", "second", "start", "count",
+                           "axis", "order")
+               if not np.array_equal(getattr(b_nat, f), getattr(b_pl, f))]
+    if unequal:
+        raise AssertionError(f"phase 21: the native and NumPy builds of the "
+                             f"{BIG_CUT}-triangle cut differ in {unequal}")
+
+    # one wave through the kernels (the main path of this scene)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    img = integ.render(ds, camera, film, config)
+    torch.cuda.synchronize()
+    secs["wave"] = time.perf_counter() - t0
+    launches = ops.counts()
+    img = img.cpu().numpy()
+    if not np.isfinite(img).all() or not img.mean() > 0.0 \
+            or img.shape != (BIG_RES[1], BIG_RES[0], 3):
+        raise AssertionError(f"phase 21: the wave's image is not finite "
+                             f"with a positive mean: {img.shape}, mean "
+                             f"{img.mean()}")
+    if min(launches[k] for k in ("closest_hit", "any_hit",
+                                 "bounce_shade")) < 1:
+        raise AssertionError(f"phase 21: a kernel was not launched: "
+                             f"{launches}")
+
+    # wave 0's queries: K1 / K2 against their plain versions on subsets,
+    # and timed on the whole queries
+    t0 = time.perf_counter()
+    queries = fuzz.wave_queries(ds, camera, film, config, integ.KERNEL_OPS)
+    closest = [q for q in queries if q["kind"] == "closest"]
+    picked = {"camera": closest[0],
+              "shadow": next(q for q in queries if q["kind"] == "any"),
+              "bounce 1": closest[1]}
+    agree, times = {}, {}
+    for name, q in picked.items():
+        is_k1 = q["kind"] == "closest"
+        sub = subset_query(q, BIG_SUBSET)
+        got = results(query_call(ops.closest_hit if is_k1 else ops.any_hit,
+                                 ds, sub)())
+        ref = results(query_call(
+            ci.intersect_clusters_reference if is_k1
+            else ci.occluded_clusters_reference, ds, sub)())
+        lanes = (got[-1] == ref[-1]).float().mean().item()
+        trel = 0.0
+        if is_k1:
+            hit = (got[1] == ref[1]) & (got[1] >= 0)
+            if hit.any():
+                trel = ((got[0] - ref[0]).abs()[hit]
+                        / ref[0].abs()[hit]).max().item()
+        agree[name] = dict(kernel="K1" if is_k1 else "K2",
+                           rays=sub["o"].shape[0], lanes_equal=lanes,
+                           t_rel=trel)
+        if lanes < K1_K2_GATE or trel > T_RTOL:
+            raise AssertionError(f"phase 21 {name}: {agree[name]}")
+        call = query_call(ops.closest_hit if is_k1 else ops.any_hit, ds, q)
+        nbytes, nops = wave_query_work(ds, q, results(call()))
+        b_ms, b_by = bound_ms(nbytes, nops)
+        dev_ms, _ = kernel_ms(call, "cluster_kernel")
+        times[name] = dict(kernel=agree[name]["kernel"],
+                           live=q["o"].shape[0] if q["n_alive"] is None
+                           else int(q["n_alive"]), ms=time_ms(call),
+                           device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
+    secs["queries"] = time.perf_counter() - t0
+    _say(f"[21] big mesh (tools/make_big_mesh.py): T {n_tris} triangles, C "
+         f"{n_clusters} clusters (w_chunks {tuple(ds.cw.shape)}, "
+         f"{ds.cw.numel() * 4 / 2 ** 20:.0f} MiB) | host seconds ({cpu}): "
+         f"write {secs['write']:.2f}, parse_scene {secs['parse_scene']:.2f} "
+         f"(of it build_clusters {secs['build_clusters']:.2f}, of that the "
+         f"native BVH build {secs['build_bvh']:.2f}), upload "
+         f"{secs['upload']:.2f}; the {BIG_CUT}-triangle cut: native "
+         f"{secs['cut_native']:.4f} s, NumPy {secs['cut_plain']:.2f} s, "
+         f"every array equal | one {BIG_RES[0]}x{BIG_RES[1]} 1spp depth-"
+         f"{BIG_DEPTH} wave through the kernels: {secs['wave']:.2f} s, "
+         f"launches {({k: v for k, v in launches.items() if v})}, image mean "
+         f"{img.mean():.4f} | K1 / K2 "
+         f"against plain on {BIG_SUBSET}-ray subsets: " + "; ".join(
+             f"{v['kernel']} {k}: lanes equal {v['lanes_equal']:.6f}, max t "
+             f"rel {v['t_rel']:.2e}" for k, v in agree.items())
+         + " | per launch on wave 0's whole queries: " + "; ".join(
+             f"{v['kernel']} {k} ({v['live']} live rays): {v['ms']:.4f} ms "
+             f"by events, {v['device_ms']:.4f} ms on the card, bound "
+             f"{v['bound_ms']:.4f} ms ({v['bound_by']})"
+             for k, v in times.items())
+         + f" | queries {secs['queries']:.1f} s ({card})")
+    for v in times.values():
+        if v["bound_ms"] > v["ms"]:
+            raise AssertionError(f"phase 21: {v} is below its bound")
+    return dict(n_tris=n_tris, n_clusters=n_clusters, host_cpu=cpu,
+                seconds=secs, launches=launches, image_mean=float(img.mean()),
+                agree=agree, times=times)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2530,10 +2756,9 @@ def main(argv=None):
     k1_plain = time_ms(lambda: ci.intersect_clusters_reference(
         ds.cw, ds.cbox, o_cam, d_cam, tinf))
     t_cam, _ = ops.closest_hit(ds.cw, ds.cbox, o_cam, d_cam, tinf)
-    k1_bytes = (4 * n * (7 + 2) + 4 * ds.cw.numel() + 4 * ds.cbox.numel())
-    k1_ops = TRI_FLOPS * ds.cw.shape[2] // 4 * slab_pairs(ds.cbox, o_cam,
-                                                          d_cam, t_cam)
-    k1_bound = bound_ms(k1_bytes, k1_ops)
+    k1_io = 4 * n * (7 + 2) + 4 * ds.cbox.numel()
+    k1_wb, k1_ops = closest_work(ds.cw, ds.cbox, o_cam, d_cam, t_cam)
+    k1_bound = bound_ms(k1_io + k1_wb, k1_ops)
 
     # real shadow rays: the first bounce of the wave, on the plain path
     carry = integ.initial_carry(o_cam, d_cam, ws.keys)
@@ -2563,9 +2788,9 @@ def main(argv=None):
     k2_ms = time_ms(lambda: ops.any_hit(ds.cw, ds.cbox, *sh))
     k2_plain = time_ms(lambda: ci.occluded_clusters_reference(
         ds.cw, ds.cbox, *sh))
-    k2_bytes = 4 * n * (7 + 1) + 4 * ds.cw.numel() + 4 * ds.cbox.numel()
-    k2_ops = TRI_FLOPS * any_hit_pairs(ds.cw, ds.cbox, *sh)
-    k2_bound = bound_ms(k2_bytes, k2_ops)
+    k2_io = 4 * n * (7 + 1) + 4 * ds.cbox.numel()
+    k2_wb, k2_ops = any_work(ds.cw, ds.cbox, *sh)
+    k2_bound = bound_ms(k2_io + k2_wb, k2_ops)
     # two launches equal to the bit
     twice = [all(torch.equal(a, b) for a, b in zip(results(f()),
                                                   results(f())))
@@ -3439,28 +3664,27 @@ def main(argv=None):
             or cam_agree[0] < K1_K2_GATE or sh_agree < K1_K2_GATE:
         raise AssertionError(f"K1 / K2 with spheres on the main path's "
                              f"inputs: {cam_agree}, {sh_agree}")
-    # operations: the clusters the rays enter before their bound (K2:
-    # up to each ray's first occluder), and the plain sphere branch's
-    # operations on the same rays
-    kk = ds.cw.shape[2] // 4
+    # the clusters the rays enter before their bound (K2: up to each
+    # ray's first occluder, on the rays no sphere blocks), and the plain
+    # sphere branch's operations on the same rays
     sph_bytes = 4 * ds.ktab.numel()
     # the sphere branch alone: its operations on the same rays and the
     # table it reads (the bound of PERF.md's "K1 / K2 branch" row)
     sph1_ops = sphere_ops(ds.ktab, o_cam, d_cam, tinf, ds.full_phi)
     sph2_ops = sphere_ops(ds.ktab, *sh, ds.full_phi)
     branch_bound = [bound_ms(sph_bytes, v) for v in (sph1_ops, sph2_ops)]
-    k1s_ops = TRI_FLOPS * kk * slab_pairs(ds.cbox, o_cam, d_cam, t_k) \
-        + sph1_ops
+    k1s_wb, k1s_ops = closest_work(ds.cw, ds.cbox, o_cam, d_cam, t_k)
+    k1s_ops += sph1_ops
     blk_s = sph.sphere_best(ds.ktab, *sh, ds.full_phi)[1] != -1
-    k2s_ops = TRI_FLOPS * any_hit_pairs(
-        ds.cw, ds.cbox, sh[0][~blk_s], sh[1][~blk_s], sh[2][~blk_s]) \
-        + sph2_ops
+    k2s_wb, k2s_ops = any_work(ds.cw, ds.cbox, sh[0][~blk_s], sh[1][~blk_s],
+                               sh[2][~blk_s])
+    k2s_ops += sph2_ops
     kern_rows["closest_hit_spheres"] = dict(
         max_abs_err=max(k14_err, cam_agree[3]), ms=k1s_ms,
-        plain_ms=k1s_plain, bound=bound_ms(k1_bytes + sph_bytes, k1s_ops))
+        plain_ms=k1s_plain, bound=bound_ms(k1_io + k1s_wb + sph_bytes, k1s_ops))
     kern_rows["any_hit_spheres"] = dict(
         max_abs_err=float(sh_agree < 1.0), ms=k2s_ms, plain_ms=k2s_plain,
-        bound=bound_ms(k2_bytes + sph_bytes, k2s_ops))
+        bound=bound_ms(k2_io + k2s_wb + sph_bytes, k2s_ops))
     k14_times = dict(k1_ms=[k1s_ms, k1n_ms], k2_ms=[k2s_ms, k2n_ms],
                      k1_device_ms=[k1s_dev, k1n_dev],
                      k1_queued_ms=[k1s_q, k1n_q],
@@ -4107,6 +4331,7 @@ def main(argv=None):
     p18 = phase18(dev, card, ds, camera, film_cfg, config)
     p19 = phase19(dev, card, big_tables, scratch)
     p20 = phase20(dev, card, big_tables, scratch, (mse_ds4, dmean))
+    p21 = phase21(dev, card, scratch)
 
     src = "arendur_tpu_torch/kernels/"
     meta = {
@@ -4213,6 +4438,14 @@ def main(argv=None):
                 t20 = p20["times"]["cb.json"]
                 rows[-1].update(area_device_ms=t20[key + " area"],
                                 area_compat_device_ms=t20[key + " compat"])
+        if k in ("closest_hit", "any_hit"):
+            # phase 21, the mesh of ~10^6 triangles: the launches in its
+            # wave, and the ms on wave 0's camera / shadow query there
+            t21 = p21["times"]["camera" if k == "closest_hit" else "shadow"]
+            rows[-1].update(big_mesh_launches=p21["launches"][k],
+                            big_mesh_ms=t21["ms"],
+                            big_mesh_device_ms=t21["device_ms"],
+                            big_mesh_bound_ms=t21["bound_ms"])
         if b_ms > r["ms"]:
             raise AssertionError(f"{k}: {r['ms']} ms is below its bound "
                                  f"{b_ms} ms")
@@ -4283,7 +4516,8 @@ def main(argv=None):
                            bpt_wave=[bw_s, bbusy, bnk, host_ops],
                            bpt_wave_launches=bw_launches,
                            bpt_wave_kernels=per_k, phase17=p17,
-                           phase18=p18, phase19=p19, phase20=p20),
+                           phase18=p18, phase19=p19, phase20=p20,
+                           phase21=p21),
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -84,11 +84,11 @@ def test_bvh_walk_matches_jax(n_tris, seed):
 
 @pytest.mark.parametrize("n_tris,seed", SETS + [(1112, 3)])
 def test_bvh_arrays_equal_native_build(n_tris, seed):
-    """The port's NumPy build equals the JAX package's native C++ build
-    (which its build_bvh prefers) array for array."""
+    """The port's NumPy build (build_bvh_plain) equals the JAX package's
+    native C++ build (which its build_bvh prefers) array for array."""
     v0, v1, v2 = random_tris(n_tris, seed=seed)
     jb = jbvh.build_bvh(v0, v1, v2, native=True)
-    tb = tbvh.build_bvh(v0, v1, v2)
+    tb = tbvh.build_bvh_plain(v0, v1, v2)
     for f in ("bmin", "bmax", "second", "start", "count", "axis", "order"):
         np.testing.assert_array_equal(getattr(tb, f), np.asarray(
             getattr(jb, f)), err_msg=f)

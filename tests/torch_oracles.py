@@ -19,6 +19,10 @@ made from, which the tests check).
 * ``inst_etex``: a textured scene with an emission-textured sphere light
   and an instanced glass mesh (the composed bounce on instanced hits),
   rendered at 16x12, 4 spp, depth 4 (tests/test_torch_inst_curvature.py);
+* ``inst_etex_lanes``: the radiance of each lane of inst_etex's one wave,
+  traced by the JAX package op by op and jitted (the two differ on a
+  lane, and the render is the jitted one), and the op-by-op trace's hit
+  primitive and cone spread at each bounce, by original lane;
 * ``par_render_<scene>``: arendur_tpu.parallel.mesh.render_sharded on a
   2-device CPU mesh and the single-process integrator.render of the same
   frame, for tests/test_parallel.py's tiny scene (8x8, 8 spp, depth 2:
@@ -473,6 +477,67 @@ def jax_inst_etex():
                                             config)))
 
 
+def inst_wave():
+    """(pixel_xy [N,2] f32, pixel_id [N], sample_id [N]) of inst_etex's
+    one wave, in the render's pixel-major order."""
+    w, h = INST_RES
+    ray = np.arange(w * h * INST_SPP)
+    pid, sid = ray // INST_SPP, ray % INST_SPP
+    return (np.stack([pid % w, pid // w], -1).astype(np.float32),
+            pid.astype(np.int32), sid.astype(np.int32))
+
+
+def jax_inst_etex_lanes():
+    """inst_etex's wave traced by the JAX package op by op (eager) and
+    as one jitted function (as its render runs it): the radiance of each
+    lane, [N, 3] each; and, from the op-by-op trace, each bounce's hit
+    primitive and the cone spread after the bounce (prim, cone_g
+    [depth, N], by original lane), which its bounce loop (a lax.scan)
+    hands out as extra outputs: the loop and the scene query are
+    wrapped, not changed."""
+    from unittest import mock
+    import jax
+    import jax.numpy as jnp
+    from arendur_tpu import scene as sc_
+    from arendur_tpu.render import integrator as integ
+    from arendur_tpu.sampling import sampler as smp_
+    scene, camera, _, config = inst_etex_scene()
+    args = [jnp.asarray(a) for a in inst_wave()] + [smp_.make_base_key(0)]
+    scan, intersect, hits, bounces = jax.lax.scan, sc_.intersect, [], []
+
+    def recording_intersect(*a, **k):
+        hit = intersect(*a, **k)
+        hits.append(hit.prim)
+        return hit
+
+    def recording_scan(f, init, xs, **kw):
+        if not (isinstance(init, dict) and "cone_g" in init):
+            return scan(f, init, xs, **kw)
+
+        def body(c, x):
+            del hits[:]
+            c2, _ = f(c, x)
+            return c2, (c2["st"]["orig"], hits[0], c2["cone_g"])
+        carry, ys = scan(body, init, xs, **kw)
+        bounces.append(ys)
+        return carry, None
+
+    def trace(*a):
+        return integ.trace_wave(scene, camera, config, *a)[1]
+    with mock.patch.object(jax.lax, "scan", recording_scan), \
+            mock.patch.object(integ.sc, "intersect", recording_intersect):
+        eager = np.asarray(trace(*args))
+    (orig, prim, g), = bounces
+    orig, prim, g = np.asarray(orig), np.asarray(prim), np.asarray(g)
+    by_lane = dict(prim=np.full(prim.shape, -2, np.int32),
+                   cone_g=np.full(g.shape, np.nan, np.float32))
+    for b in range(g.shape[0]):
+        by_lane["prim"][b, orig[b]] = prim[b]
+        by_lane["cone_g"][b, orig[b]] = g[b]
+    return dict(eager=eager, jit=np.asarray(jax.jit(trace)(*args)),
+                **by_lane)
+
+
 def _area_mode():
     """Fails unless the JAX package was imported in area mode."""
     from arendur_tpu.shapes import sphere as jsph
@@ -517,6 +582,7 @@ ORACLES = {
                      lambda: jax_train_step("cb_bvh")),
     "texel_grad": (texel_inputs, jax_texel_grad),
     "inst_etex": (inst_inputs, jax_inst_etex),
+    "inst_etex_lanes": (inst_inputs, jax_inst_etex_lanes),
     "big_lights": (big_inputs, jax_big_lights),
 }
 for _name in tuple(AREA_RENDERS) + ("area_bpt", "area_whitted",
